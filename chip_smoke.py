@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's LIO main path once on one CUDA card.
+
+    python3 chip_smoke.py            # 50 scans of 128 x 1024, bench_config
+
+Phases, each reported on its own line:
+  1. device: fail without CUDA; print the card's name and power limit;
+  2. build the four CUDA kernels from ``ptudes_tpu_torch/csrc`` (nvcc);
+  3. each kernel against its plain PyTorch twin on the card, with the
+     stated tolerances, and both times;
+  4. the main path: ``lio.run_sequence`` at ``bench_config()`` on the bench
+     scene (rendered by the port's numpy sim, cached in the temp dir), once
+     to warm up and once timed with host syncs made errors; each kernel
+     must launch once per scan, ATE RMSE <= 0.02 m, and every pose within
+     0.02 m of the JAX reference poses (``tests/data/bench_jax_poses.txt``);
+     then the same run with every kernel replaced by its twin.
+The last two lines before the final one are the kernel JSON summary and
+the card's name and power limit; the last line is the result JSON. Any
+failure raises, so the exit code is nonzero and no result line prints.
+Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ptudes_tpu_torch import config, kernels
+from ptudes_tpu_torch.geom import se3, so3
+from ptudes_tpu_torch.models import esekf, lio, sim
+from ptudes_tpu_torch.ops import cuda_ekf, cuda_gn, cuda_icp, hashmap, icp
+from ptudes_tpu_torch.ops import voxel
+from ptudes_tpu_torch.utils import convert, metrics
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REF_POSES = os.path.join(HERE, "tests", "data", "bench_jax_poses.txt")
+ATE_GATE_M = 0.02    # bench.py's absolute ATE gate
+POSE_GATE_M = 0.02   # per-pose parity with the JAX reference poses
+REPLACES = {
+    "ekf_predict": ("ekf_predict.cu", "ptudes_tpu/ops/pallas_ekf.py:438"),
+    "ekf_update": ("ekf_update.cu", "ptudes_tpu/ops/pallas_ekf.py:381"),
+    "gn_prep": ("gn_prep.cu", "ptudes_tpu/ops/pallas_gn.py:260"),
+    "icp_loop": ("icp_loop.cu", "ptudes_tpu/ops/pallas_icp.py:432"),
+}
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+# --------------------------------------------------------------- phase 3
+
+def generic_ekf_state(cfg, dev, rng):
+    """An EKF state advanced by 20 random IMU samples (test_esekf's
+    recipe), on ``dev``."""
+    s = esekf.init_state(cfg, dev)
+    twin = dataclasses.replace(cfg, predict_batch="unroll")
+    ts = 0.0
+    for _ in range(20):
+        ts += 0.01
+        imu = esekf.Imu(
+            lacc=torch.tensor(rng.normal(0, 1, 3) + [0, 0, 9.78],
+                              dtype=torch.float32, device=dev),
+            avel=torch.tensor(rng.normal(0, 0.2, 3), dtype=torch.float32,
+                              device=dev),
+            ts=torch.tensor(ts, dtype=torch.float32, device=dev))
+        s = esekf.process_imu(s, imu, cfg=twin)
+    return s
+
+
+def check_ekf(dev, rng, results):
+    cfg = config.bench_config().ekf
+    twin = dataclasses.replace(cfg, predict_batch="unroll")
+    s = generic_ekf_state(cfg, dev, rng)
+    k = 12
+    imus = esekf.Imu(
+        lacc=torch.tensor(rng.normal(0, 1, (k, 3)) + [0, 0, 9.78],
+                          dtype=torch.float32, device=dev),
+        avel=torch.tensor(rng.normal(0, 0.3, (k, 3)), dtype=torch.float32,
+                          device=dev),
+        ts=torch.tensor(0.2 + np.arange(1, k + 1) * 0.01,
+                        dtype=torch.float32, device=dev))
+    valid = torch.arange(k, device=dev) < 10
+
+    def kern():
+        return cuda_ekf.predict_block(s, imus, valid, cfg=cfg,
+                                      want_twist=True)
+
+    def plain():
+        return esekf.process_imu_batch(s, imus, valid, cfg=twin,
+                                       want_twist=True)
+
+    (sk, tk), (sp, tp) = kern(), plain()
+    # bars of tests/test_esekf.py (kernel vs unrolled chain; twist)
+    errs = {"pos": (sk.pos - sp.pos).abs().max(),
+            "vel": (sk.vel - sp.vel).abs().max(),
+            "quat": torch.minimum((sk.quat - sp.quat).abs().max(),
+                                  (sk.quat + sp.quat).abs().max()),
+            "twist": (tk - tp).abs().max()}
+    errs = {n: float(v) for n, v in errs.items()}
+    check(errs["pos"] <= 1e-6 and errs["vel"] <= 1e-6
+          and errs["quat"] <= 1e-6, f"ekf_predict state vs twin: {errs}")
+    check(errs["twist"] <= 2e-5, f"ekf_predict twist vs twin: {errs}")
+    check(float(sk.imu_ts) == float(sp.imu_ts)
+          and bool(sk.initialized) == bool(sp.initialized),
+          "ekf_predict clock/latch vs twin")
+    check(torch.allclose(sk.cov, sp.cov, rtol=1e-5, atol=1e-5),
+          f"ekf_predict cov vs twin: {float((sk.cov - sp.cov).abs().max())}")
+    err = max(max(errs.values()), float((sk.cov - sp.cov).abs().max()))
+    results["ekf_predict"] = dict(max_abs_err=err, ms=cuda_ms(kern, 200),
+                                  plain_ms=cuda_ms(plain, 20))
+    say(f"  ekf_predict: max |kernel - twin| {err:.3e}  "
+        f"(state 1e-6, twist 2e-5, cov rtol/atol 1e-5)")
+
+    pose = torch.eye(4, dtype=torch.float32, device=dev)
+    pose[:3, :3] = so3.exp_rotvec(torch.tensor([0.02, -0.01, 0.03],
+                                               device=dev))
+    pose[:3, 3] = torch.tensor([0.1, -0.2, 0.05], device=dev)
+    worst = 0.0
+    for joseph in (True, False):
+        c = dataclasses.replace(cfg, joseph_form=joseph)
+        mc = esekf.default_meas_cov(c, dev)
+        uk = cuda_ekf.update_pose(s, pose, mc, joseph=joseph)
+        up = esekf.process_pose(s, pose, cfg=dataclasses.replace(
+            c, update_form="xla"), meas_cov=mc)
+        for f in ("pos", "vel", "bias_gyr", "bias_acc", "grav"):
+            e = float((getattr(uk, f) - getattr(up, f)).abs().max())
+            check(e <= 1e-5, f"ekf_update {f} vs twin (joseph={joseph}): {e}")
+            worst = max(worst, e)
+        eq = float(torch.minimum((uk.quat - up.quat).abs().max(),
+                                 (uk.quat + up.quat).abs().max()))
+        check(eq <= 1e-5, f"ekf_update quat vs twin: {eq}")
+        check(torch.allclose(uk.cov, up.cov, rtol=1e-4, atol=1e-5),
+              f"ekf_update cov vs twin (joseph={joseph}): "
+              f"{float((uk.cov - up.cov).abs().max())}")
+        worst = max(worst, eq, float((uk.cov - up.cov).abs().max()))
+    mc = esekf.default_meas_cov(cfg, dev)
+    results["ekf_update"] = dict(
+        max_abs_err=worst,
+        ms=cuda_ms(lambda: cuda_ekf.update_pose(s, pose, mc), 200),
+        plain_ms=cuda_ms(lambda: esekf.process_pose(
+            s, pose, cfg=dataclasses.replace(cfg, update_form="xla"),
+            meas_cov=mc), 20))
+    say(f"  ekf_update: max |kernel - twin| {worst:.3e}  "
+        f"(state 1e-5, cov rtol 1e-4 atol 1e-5; both Joseph forms)")
+
+
+def icp_scene(dev, seed=5, n=2048):
+    """tests/test_pallas_icp.py's scene: a floor and a wall in a 2^14-slot
+    map, 2048 noisy source points drawn from it, a perturbed guess."""
+    rng = np.random.default_rng(seed)
+    half = 20000
+    floor = np.stack([rng.uniform(-15, 15, half), rng.uniform(-15, 15, half),
+                      rng.uniform(-0.02, 0.02, half)], -1)
+    wall = np.stack([rng.uniform(-15, 15, half),
+                     np.full(half, 8.0) + rng.uniform(-0.02, 0.02, half),
+                     rng.uniform(0, 4, half)], -1)
+    pts = torch.tensor(np.vstack([floor, wall]), dtype=torch.float32,
+                       device=dev)
+    frame, keep = voxel.first_in_voxel_sorted(
+        pts, torch.ones(len(pts), dtype=torch.bool, device=dev), 0.15,
+        len(pts))
+    m = hashmap.insert_deduped(
+        hashmap.create(1 << 14, 8, dev), frame, keep, voxel_size=0.3,
+        max_probes=2, new_capacity=len(pts))
+    idx = rng.choice(len(pts), n, replace=False)
+    src = pts[torch.as_tensor(idx, device=dev)] + torch.tensor(
+        rng.normal(0, 0.01, (n, 3)), dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(rng.uniform(size=n) < 0.95, device=dev)
+    guess = se3.exp_twist(torch.tensor(
+        [0.004, -0.003, 0.006, 0.05, -0.04, 0.03], device=dev))
+    return m, src, mask, guess
+
+
+def check_icp(dev, results):
+    k = config.bench_config().kiss
+    m, src, mask, guess = icp_scene(dev)
+    q_w = se3.transform(guess, src)
+    cand = icp.gather_candidates(m, q_w, voxel_size=0.3, max_probes=2,
+                                 neighborhood=7, n_voxels=4,
+                                 fit_planes=False)
+    r = k.plane_fit_radius
+    pk = cuda_gn.prep_with_plane(cand, mask, q_w, r)
+    pp = cuda_gn.prep_with_plane_torch(cand, mask, q_w, r)
+    check(pk.cx.shape == (32, 2048), f"candidate shape {pk.cx.shape}")
+    ok = pp.feat[6] > 0.3
+    check(int(ok.sum()) > 500, "too few well-conditioned plane fits")
+    dots = (pk.feat[0:3, ok] * pp.feat[0:3, ok]).sum(0).abs()
+    cen = float((pk.feat[3:6, ok] - pp.feat[3:6, ok]).abs().max())
+    qual = float((pk.feat[6, ok] - pp.feat[6, ok]).abs().max())
+    q01 = float(torch.quantile(dots, 0.01))
+    # bars of tests/test_pallas_gn.py:test_plane_moments_parity
+    check(q01 > 0.999, f"gn_prep normal dot 1%-quantile {q01}")
+    check(cen <= 2e-3, f"gn_prep centroid {cen}")
+    check(qual <= 2e-2, f"gn_prep quality {qual}")
+    check(bool((pk.feat[7] == pp.feat[7]).all()), "gn_prep mask row")
+    err = max(cen, qual, 1.0 - float(dots.min()))
+    results["gn_prep"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: cuda_gn.prep_with_plane(cand, mask, q_w, r), 200),
+        plain_ms=cuda_ms(
+            lambda: cuda_gn.prep_with_plane_torch(cand, mask, q_w, r), 20))
+    say(f"  gn_prep: normal dot q01 {q01:.6f} (> 0.999), centroid "
+        f"{cen:.2e} (2e-3), quality {qual:.2e} (2e-2)")
+
+    kern = torch.tensor(0.1667, device=dev)
+    max_d2 = torch.tensor(0.25, device=dev)
+    kw = dict(plane_min_quality=k.plane_min_quality,
+              max_iterations=k.max_iterations,
+              prior_rot_weight=k.prior_rot_weight,
+              prior_trans_weight=k.prior_trans_weight)
+
+    def kern_loop():
+        return cuda_icp.icp_loop(src, pp, guess, kern, max_d2, 1e-5, **kw)
+
+    def plain_loop():
+        return cuda_icp.icp_loop_torch(src, pp, guess, kern, max_d2, 1e-5,
+                                       **kw)
+
+    ok_, pl = kern_loop(), plain_loop()
+    d = float(torch.linalg.vector_norm(
+        se3.log_pose(se3.inv(pl[0]) @ ok_[0])))
+    nk, npl = int(ok_[1]), int(pl[1])
+    ik, ip = int(ok_[2]), int(pl[2])
+    # bars of tests/test_pallas_icp.py:test_fused_loop_matches_xla_loop
+    check(d < 5e-4, f"icp_loop log-pose vs twin {d}")
+    check(abs(nk - npl) <= max(3, int(0.01 * npl)),
+          f"icp_loop n_corr {nk} vs {npl}")
+    check(abs(ik - ip) <= 2, f"icp_loop iterations {ik} vs {ip}")
+    check(npl > 1000, f"icp_loop twin found {npl} correspondences")
+    results["icp_loop"] = dict(max_abs_err=d, ms=cuda_ms(kern_loop, 50),
+                               plain_ms=cuda_ms(plain_loop, 5))
+    say(f"  icp_loop: |log(twin^-1 kernel)| {d:.2e} (5e-4), n_corr {nk} vs "
+        f"{npl}, iterations {ik} vs {ip}")
+
+
+# --------------------------------------------------------------- phase 4
+
+def run_main_path(n_scans: int, dev) -> dict[str, int]:
+    """Phase 4; returns each kernel's launches in the timed run."""
+    t0 = time.monotonic()
+    sensor, scans, scan_ts, gt_mid, imu = sim.bench_scene(n_scans)
+    say(f"  scene: {n_scans} scans of {scans.shape[1]}x{scans.shape[2]} "
+        f"ready in {time.monotonic() - t0:.1f} s")
+    cfg = config.bench_config()
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
+                                imu.ts, device=dev)
+
+    def timed(c):
+        state = lio.init_state(c, dev)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, out = lio.run_sequence(state, batches, lut, cfg=c)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t
+
+    timed(cfg)                                  # warm-up
+    kernels.reset_launches()
+    out, dt = timed(cfg)
+    launches = dict(kernels.LAUNCHES)
+    for name, count in launches.items():
+        check(count == n_scans,
+              f"{name} launched {count} times in {n_scans} scans")
+    kp = out.kiss_pose.double().cpu().numpy()
+    check(bool(np.isfinite(kp).all()), "non-finite poses")
+    check(kp.shape == (n_scans, 4, 4), f"pose shape {kp.shape}")
+    _, ate = metrics.calc_ate_rmse(kp, gt_mid)
+    check(ate <= ATE_GATE_M, f"ATE RMSE {ate:.4f} m > {ATE_GATE_M} m")
+    ref = np.loadtxt(REF_POSES).reshape(-1, 3, 4)[:n_scans]
+    ref_err = np.linalg.norm(kp[:, :3, 3] - ref[:, :, 3], axis=1)
+    check(float(ref_err.max()) <= POSE_GATE_M,
+          f"pose vs JAX reference {ref_err.max():.4f} m > {POSE_GATE_M} m")
+    say(f"  kernel path: {n_scans / dt:.2f} scans/s ({dt:.3f} s), ATE RMSE "
+        f"{ate:.4f} m (<= {ATE_GATE_M}), max |pose - JAX| "
+        f"{ref_err.max():.4f} m (<= {POSE_GATE_M}), no host sync, "
+        f"launches {launches}")
+
+    tcfg = config.twin_config(cfg)
+    lio.run_sequence(lio.init_state(tcfg, dev),
+                     lio.scan_at(batches, slice(0, 4)), lut,
+                     cfg=tcfg)                          # warm-up
+    kernels.reset_launches()
+    out_t, dt_t = timed(tcfg)
+    check(sum(kernels.LAUNCHES.values()) == 0, "twin path launched kernels")
+    kt = out_t.kiss_pose.double().cpu().numpy()
+    _, ate_t = metrics.calc_ate_rmse(kt, gt_mid)
+    say(f"  twin path: {n_scans / dt_t:.2f} scans/s ({dt_t:.3f} s), ATE "
+        f"RMSE {ate_t:.4f} m, max |pose - kernel path| "
+        f"{np.linalg.norm(kt[:, :3, 3] - kp[:, :3, 3], axis=1).max():.4f} m")
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scans", type=int, default=50,
+                    help="scans of the bench scene to run (default 50)")
+    args = ap.parse_args()
+
+    say("phase 1: device")
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    say(f"  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
+
+    say("phase 2: build")
+    t0 = time.monotonic()
+    path = kernels.build()
+    kernels.lib()
+    say(f"  built {os.path.relpath(path, HERE)} in "
+        f"{time.monotonic() - t0:.1f} s")
+    for line in kernels.build_log.splitlines():
+        spills = "spill" in line and " 0 bytes spill" not in line
+        if "registers" in line or spills:
+            say(f"  {line.strip()}")
+
+    say("phase 3: kernels against their twins")
+    results: dict[str, dict] = {}
+    rng = np.random.default_rng(0)
+    check_ekf(dev, rng, results)
+    check_icp(dev, results)
+
+    say("phase 4: main path")
+    launches = run_main_path(args.scans, dev)
+
+    say(json.dumps({"kernels": [
+        dict(name=name, route="cuda",
+             source=f"ptudes_tpu_torch/csrc/{REPLACES[name][0]}",
+             replaces=REPLACES[name][1], launches=launches[name],
+             **results[name])
+        for name in kernels.KERNELS]}))
+    say(card_line())
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,169 @@
+"""Typed configuration for the PyTorch port.
+
+Frozen copies of ``ptudes_tpu.config`` with the same fields and defaults,
+minus the JAX-only knobs (``scan_unroll``, ``gn_unroll``, ``gn_backend``).
+The kernel forms are named for the port: ``EkfConfig.predict_batch`` and
+``update_form`` take ``"cuda"`` where the JAX package takes ``"pallas"``, and
+``KissConfig.icp_form`` selects the CUDA candidate-prep + ICP-loop kernels
+(``"cuda"``) or their plain PyTorch twins (``"torch"``). There is no
+``"auto"``: the configuration says which form runs.
+
+Options the port does not carry yet raise ``NotImplementedError`` when a run
+uses them (:func:`check_supported`); ROADMAP.md lists them in order.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class KissConfig:
+    """KISS-ICP odometry parameters (``ptudes_tpu.config.KissConfig``)."""
+    max_range: float = 100.0
+    min_range: float = 5.0
+    deskew: bool = True
+    voxel_size: float | None = None  # None -> max_range / 100
+    max_points_per_voxel: int = 20
+    initial_threshold: float = 2.0
+    min_motion_th: float = 0.1
+    max_iterations: int = 50
+    convergence_criterion: float = 1e-4
+    loss: str = "plane"
+    plane_min_quality: float = 0.2
+    plane_fit_radius: float | None = None  # None -> 1.5 * voxel_size
+    approx_nn: bool = True
+    nn_mode: str = "cached"
+    nn_voxels: int = 4
+    nn_refresh_drift: float = 0.5
+    prior_rot_weight: float = 0.01
+    prior_trans_weight: float = 0.01
+    nn_neighborhood: int = 27
+    fused_gather: bool = False
+    # "cuda": candidate prep (K3) and the whole GN loop (K4) as CUDA
+    # kernels; "torch": their plain PyTorch twins on any device
+    icp_form: str = "torch"
+
+    @property
+    def resolved_voxel_size(self) -> float:
+        return self.max_range / 100.0 if self.voxel_size is None else self.voxel_size
+
+
+@dataclass(frozen=True)
+class Capacity:
+    """Static shapes of the device pipeline (``ptudes_tpu.config.Capacity``)."""
+    max_points: int = 131072
+    max_frame: int = 32768
+    max_source: int = 8192
+    map_capacity: int = 1 << 19
+    max_probes: int = 2
+    dedup_table: int = 1 << 20
+    max_new_per_scan: int = 8192
+
+
+@dataclass(frozen=True)
+class EkfConfig:
+    """ES-EKF tuning (``ptudes_tpu.config.EkfConfig``)."""
+    init_pos_std: float = 10.0
+    init_vel_std: float = 5.0
+    init_att_rpy_deg: float = 10.0
+    init_bg_std: float = 1.5
+    init_ba_std: float = 0.5
+    init_grav_std: float = 2.5
+    acc_bias_std: float = 0.049
+    gyr_bias_std: float = 0.38
+    acc_vrw: float = 0.0043
+    gyr_arw: float = 0.000466
+    meas_pos_std: float = 0.02
+    meas_att_std: float = 0.01
+    joseph_form: bool = True
+    # "unroll": step-by-step chain (K1's twin); "cuda": the whole block as
+    # one kernel (K1); "assoc" is not ported
+    predict_batch: str = "assoc"
+    # "xla": the op chain (K2's twin); "cuda": one kernel (K2)
+    update_form: str = "xla"
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Fused LIO pipeline (``ptudes_tpu.config.PipelineConfig``)."""
+    kiss: KissConfig = dataclasses.field(default_factory=KissConfig)
+    cap: Capacity = dataclasses.field(default_factory=Capacity)
+    ekf: EkfConfig = dataclasses.field(default_factory=EkfConfig)
+    max_imu_per_scan: int = 16
+    guess: str = "kiss"
+    deskew_mode: str = "ekf"
+    col_decimation: int = 1
+    bootstrap_scans: int = 1
+    steady_insert_mode: bool | str = "cond"
+    map_frozen: bool = False
+
+
+def bench_config() -> PipelineConfig:
+    """The bench's main-path configuration (``bench.py:bench_config``
+    values): 128x1024 scans, 2048-point ICP source, 2^19-slot map with 8
+    points per voxel, one probe, 7-neighbourhood over 4 voxels, frozen
+    candidates, EKF guess and deskew, 3 bootstrap scans then the decimated
+    steady insert — with all four kernels in their CUDA form."""
+    h, w = 128, 1024
+    return PipelineConfig(
+        kiss=KissConfig(max_range=70.0, min_range=1.0,
+                        max_points_per_voxel=8, max_iterations=20,
+                        deskew=True, loss="plane",
+                        voxel_size=0.3, plane_fit_radius=0.6,
+                        nn_mode="cached", nn_voxels=4,
+                        nn_neighborhood=7, nn_refresh_drift=0.0,
+                        icp_form="cuda"),
+        cap=Capacity(max_points=h * w, max_frame=32768, max_source=2048,
+                     map_capacity=1 << 19, dedup_table=1 << 18,
+                     max_new_per_scan=2048, max_probes=1),
+        ekf=EkfConfig(predict_batch="cuda", update_form="cuda"),
+        max_imu_per_scan=12,
+        guess="ekf",
+        bootstrap_scans=3,
+        steady_insert_mode=False,
+    )
+
+
+def twin_config(cfg: PipelineConfig) -> PipelineConfig:
+    """``cfg`` with every kernel replaced by its plain PyTorch twin."""
+    return dataclasses.replace(
+        cfg,
+        kiss=dataclasses.replace(cfg.kiss, icp_form="torch"),
+        ekf=dataclasses.replace(cfg.ekf, predict_batch="unroll",
+                                update_form="xla"))
+
+
+def check_supported(cfg: PipelineConfig) -> None:
+    """Raise ``NotImplementedError`` for options the port does not carry
+    yet, and ``ValueError`` for unknown form names."""
+    k, e = cfg.kiss, cfg.ekf
+    todo = [
+        (cfg.guess != "ekf", f"guess={cfg.guess!r} (only 'ekf')"),
+        (cfg.deskew_mode != "ekf" or not k.deskew,
+         f"deskew_mode={cfg.deskew_mode!r}, deskew={k.deskew} "
+         "(only EKF-twist deskew)"),
+        (cfg.col_decimation != 1, f"col_decimation={cfg.col_decimation}"),
+        (cfg.map_frozen, "map_frozen=True"),
+        (k.nn_mode != "cached", f"nn_mode={k.nn_mode!r}"),
+        (k.nn_refresh_drift > 0.0,
+         f"nn_refresh_drift={k.nn_refresh_drift} (only 0: frozen "
+         "candidates)"),
+        (k.nn_neighborhood not in (7, 27),
+         f"nn_neighborhood={k.nn_neighborhood}"),
+        (k.fused_gather, "fused_gather=True"),
+        (k.loss != "plane", f"loss={k.loss!r}"),
+        (cfg.steady_insert_mode is not False and cfg.bootstrap_scans >= 0,
+         f"steady_insert_mode={cfg.steady_insert_mode!r} (only False)"),
+        (e.predict_batch == "assoc", "predict_batch='assoc'"),
+    ]
+    for bad, what in todo:
+        if bad:
+            raise NotImplementedError(
+                f"the PyTorch port does not carry {what} yet; see ROADMAP.md")
+    if e.predict_batch not in ("unroll", "cuda"):
+        raise ValueError(f"unknown predict_batch {e.predict_batch!r}")
+    if e.update_form not in ("xla", "cuda"):
+        raise ValueError(f"unknown update_form {e.update_form!r}")
+    if k.icp_form not in ("torch", "cuda"):
+        raise ValueError(f"unknown icp_form {k.icp_form!r}")

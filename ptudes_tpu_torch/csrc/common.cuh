@@ -1,0 +1,200 @@
+// Scalar SO(3)/SE(3) helpers shared by the kernels: the device-side
+// counterparts of ptudes_tpu_torch.geom (same small-angle switches,
+// _EPS = 1e-8). Matrices are 9 floats, row-major; poses are (R, t).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace ptudes {
+
+constexpr float kEps = 1e-8f;
+
+// exp(rotvec) by Rodrigues' formula; also returns theta^2 and the
+// (1 - cos)/theta^2 coefficient, which exp_twist reuses.
+__device__ __forceinline__ void rodrigues(float wx, float wy, float wz,
+                                          float* r, float* t2_out = nullptr,
+                                          float* b_out = nullptr) {
+  const float t2 = wx * wx + wy * wy + wz * wz;
+  const float theta = sqrtf(t2);
+  const bool small = theta < kEps;
+  const float safe_t2 = small ? 1.0f : t2;
+  const float a = small ? 1.0f - t2 / 6.0f : sinf(theta) / sqrtf(safe_t2);
+  const float b = small ? 0.5f - t2 / 24.0f : (1.0f - cosf(theta)) / safe_t2;
+  const float xx = wx * wx, yy = wy * wy, zz = wz * wz;
+  const float xy = wx * wy, xz = wx * wz, yz = wy * wz;
+  r[0] = 1.0f + b * (-yy - zz); r[1] = -a * wz + b * xy; r[2] = a * wy + b * xz;
+  r[3] = a * wz + b * xy; r[4] = 1.0f + b * (-xx - zz); r[5] = -a * wx + b * yz;
+  r[6] = -a * wy + b * xz; r[7] = a * wx + b * yz; r[8] = 1.0f + b * (-xx - yy);
+  if (t2_out) *t2_out = t2;
+  if (b_out) *b_out = b;
+}
+
+// xyzw quaternion -> rotation matrix (geom.so3.quat_to_mat).
+__device__ __forceinline__ void quat_to_mat(const float* q, float* r) {
+  const float x = q[0], y = q[1], z = q[2], w = q[3];
+  const float xx = x * x, yy = y * y, zz = z * z;
+  const float xy = x * y, xz = x * z, yz = y * z;
+  const float wx = w * x, wy = w * y, wz = w * z;
+  r[0] = 1.0f - 2.0f * (yy + zz); r[1] = 2.0f * (xy - wz); r[2] = 2.0f * (xz + wy);
+  r[3] = 2.0f * (xy + wz); r[4] = 1.0f - 2.0f * (xx + zz); r[5] = 2.0f * (yz - wx);
+  r[6] = 2.0f * (xz - wy); r[7] = 2.0f * (yz + wx); r[8] = 1.0f - 2.0f * (xx + yy);
+}
+
+// rotation matrix -> unit xyzw quaternion with w >= 0 (geom.so3.mat_to_quat:
+// Shepperd's method, the first of equal pivots wins like argmax).
+__device__ __forceinline__ void mat_to_quat(const float* m, float* q) {
+  const float tr = m[0] + m[4] + m[8];
+  const float c[4] = {tr, m[0] - m[4] - m[8], m[4] - m[0] - m[8],
+                      m[8] - m[0] - m[4]};
+  int best = 0;
+  for (int k = 1; k < 4; ++k)
+    if (c[k] > c[best]) best = k;
+  float v[4];
+  if (best == 0) {
+    v[0] = m[7] - m[5]; v[1] = m[2] - m[6]; v[2] = m[3] - m[1];
+    v[3] = 1.0f + tr;
+  } else if (best == 1) {
+    v[0] = 1.0f + m[0] - m[4] - m[8]; v[1] = m[1] + m[3]; v[2] = m[2] + m[6];
+    v[3] = m[7] - m[5];
+  } else if (best == 2) {
+    v[0] = m[1] + m[3]; v[1] = 1.0f + m[4] - m[0] - m[8]; v[2] = m[5] + m[7];
+    v[3] = m[2] - m[6];
+  } else {
+    v[0] = m[2] + m[6]; v[1] = m[5] + m[7]; v[2] = 1.0f + m[8] - m[0] - m[4];
+    v[3] = m[3] - m[1];
+  }
+  const float n = sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + v[3] * v[3]);
+  const float d = fmaxf(n, kEps);
+  const float sign = (v[3] < 0.0f) ? -1.0f : 1.0f;
+  for (int k = 0; k < 4; ++k) q[k] = v[k] / d * sign;
+}
+
+// c = a @ b for 3x3 row-major matrices (c must not alias a or b).
+__device__ __forceinline__ void matmul3(const float* a, const float* b,
+                                        float* c) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      c[3 * i + j] = a[3 * i] * b[j] + a[3 * i + 1] * b[3 + j]
+                     + a[3 * i + 2] * b[6 + j];
+}
+
+__device__ __forceinline__ void transpose3(const float* a, float* at) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) at[3 * j + i] = a[3 * i + j];
+}
+
+// (Ra, ta) o (Rb, tb): R = Ra Rb, t = Ra tb + ta.
+__device__ __forceinline__ void compose(const float* ra, const float* ta,
+                                        const float* rb, const float* tb,
+                                        float* r, float* t) {
+  matmul3(ra, rb, r);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    t[i] = ra[3 * i] * tb[0] + ra[3 * i + 1] * tb[1] + ra[3 * i + 2] * tb[2]
+           + ta[i];
+}
+
+// se(3) exp of a twist [rot, trans] -> (R, t).
+__device__ __forceinline__ void exp_twist(const float* dx, float* r,
+                                          float* t) {
+  const float wx = dx[0], wy = dx[1], wz = dx[2];
+  float t2, b;
+  rodrigues(wx, wy, wz, r, &t2, &b);
+  const float theta = sqrtf(t2);
+  const bool small = theta < kEps;
+  const float safe_t2 = small ? 1.0f : t2;
+  const float c = small ? 1.0f / 6.0f - t2 / 120.0f
+                        : (theta - sinf(theta)) / (safe_t2 * sqrtf(safe_t2));
+  const float xx = wx * wx, yy = wy * wy, zz = wz * wz;
+  const float xy = wx * wy, xz = wx * wz, yz = wy * wz;
+  const float v[9] = {1.0f + c * (-yy - zz), -b * wz + c * xy, b * wy + c * xz,
+                      b * wz + c * xy, 1.0f + c * (-xx - zz), -b * wx + c * yz,
+                      -b * wy + c * xz, b * wx + c * yz, 1.0f + c * (-xx - yy)};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    t[i] = v[3 * i] * dx[3] + v[3 * i + 1] * dx[4] + v[3 * i + 2] * dx[5];
+}
+
+// SO(3) log by the direct axis-angle formula, stable for |rot| well below
+// pi (EKF residuals, ICP refinements, one sweep of motion). The TPU
+// kernels seed a Newton iteration because Mosaic lowers no arccos; CUDA
+// has acosf. Returns theta.
+__device__ __forceinline__ float log_rot(const float* r, float* w) {
+  const float tr = r[0] + r[4] + r[8];
+  const float cos_t = fminf(fmaxf((tr - 1.0f) * 0.5f, -1.0f), 1.0f);
+  const float theta = acosf(cos_t);
+  const float t2 = theta * theta;
+  const bool small = theta < 1e-4f;
+  const float fac = small ? 0.5f + t2 / 12.0f
+                          : theta / fmaxf(2.0f * sinf(theta), kEps);
+  w[0] = fac * (r[7] - r[5]);
+  w[1] = fac * (r[2] - r[6]);
+  w[2] = fac * (r[3] - r[1]);
+  return theta;
+}
+
+// SE(3) log -> twist [rot(3), trans(3)].
+__device__ __forceinline__ void log_pose(const float* r, const float* t,
+                                         float* tw) {
+  const float theta = log_rot(r, tw);
+  const float wx = tw[0], wy = tw[1], wz = tw[2];
+  const float t2 = theta * theta;
+  const bool small = theta < 1e-4f;
+  const float safe_t2 = small ? 1.0f : t2;
+  const float half = 0.5f * theta;
+  const float cot = small ? 1.0f / 12.0f + t2 / 720.0f
+                          : (1.0f - half * cosf(half) / fmaxf(sinf(half), kEps))
+                                / safe_t2;
+  const float xx = wx * wx, yy = wy * wy, zz = wz * wz;
+  const float xy = wx * wy, xz = wx * wz, yz = wy * wz;
+  const float vi[9] = {1.0f + cot * (-yy - zz), 0.5f * wz + cot * xy,
+                       -0.5f * wy + cot * xz, -0.5f * wz + cot * xy,
+                       1.0f + cot * (-xx - zz), 0.5f * wx + cot * yz,
+                       0.5f * wy + cot * xz, -0.5f * wx + cot * yz,
+                       1.0f + cot * (-xx - yy)};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    tw[3 + i] = vi[3 * i] * t[0] + vi[3 * i + 1] * t[1] + vi[3 * i + 2] * t[2];
+}
+
+// Cholesky solve of a symmetric positive-definite n x n system (n <= 6),
+// pivots floored at 1e-12 like geom.linalg.solve_spd6.
+template <int N>
+__device__ __forceinline__ void cholesky(const float (*a)[N], float (*l)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float s = a[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) s -= l[i][k] * l[j][k];
+      l[i][j] = (i == j) ? sqrtf(fmaxf(s, 1e-12f)) : s / l[j][j];
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void cholesky_solve(const float (*l)[N],
+                                               const float* b, float* x) {
+  float y[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = b[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s -= l[i][k] * y[k];
+    y[i] = s / l[i][i];
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int k = i + 1; k < N; ++k) s -= l[k][i] * x[k];
+    x[i] = s / l[i][i];
+  }
+}
+
+}  // namespace ptudes

@@ -1,0 +1,153 @@
+"""Build, load, launch and count the hand-written CUDA kernels.
+
+The sources in ``ptudes_tpu_torch/csrc`` have a plain C interface. At first
+use, ``nvcc`` compiles them for ``sm_90a`` into one shared library under
+``kernels/_build/<hash of the sources>/`` (listed in ``.gitignore``), which
+``ctypes`` loads. Every entry point takes device pointers and the stream as
+``c_void_p``, launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises on a nonzero status.
+
+There is no fallback: a missing ``nvcc`` or a failed build raises. The
+plain PyTorch twins run only where a wrapper is given CPU tensors.
+
+``LAUNCHES`` counts, per kernel, the launches :func:`launch` made since the
+last :func:`reset_launches`; a run shows it went through the kernels by
+reading them.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry point -> argument types, the stream last
+_SIGNATURES = {
+    "ptudes_ekf_predict": [_P] * 5 + [_I] + [_F] * 4 + [_P],
+    "ptudes_ekf_update": [_P] * 4 + [_I, _P],
+    "ptudes_gn_prep": [_P] * 6 + [_I, _I, _F, _P],
+    "ptudes_icp_loop": [_P] * 8 + [_I, _I] + [_F] * 4 + [_I, _P],
+}
+KERNELS = ("ekf_predict", "ekf_update", "gn_prep", "icp_loop")
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_lib = None
+build_log = ""
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from PATH, else ``$CUDA_HOME/bin``, else the toolkit's
+    default prefix; raises ``RuntimeError`` when none exists."""
+    cands = [shutil.which("nvcc")]
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands.append(NVCC_DEFAULT)
+    for c in cands:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels cannot be built")
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build(build_dir: str | None = None) -> str:
+    """Compile the kernels into ``build_dir`` (default ``BUILD_DIR``), once
+    per source hash; returns the library path. Raises ``RuntimeError``
+    when nvcc is missing or fails."""
+    global build_log
+    out_dir = os.path.join(build_dir or BUILD_DIR, source_hash())
+    lib_path = os.path.join(out_dir, "libptudes_kernels.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    nvcc = find_nvcc()
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+           *[p for p in sources() if p.endswith(".cu")]]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        build_log = r.stdout + r.stderr
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (rc {r.returncode}):\n{build_log[-4000:]}")
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.ptudes_error_string.argtypes = [ctypes.c_int]
+        handle.ptudes_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def ptr(t: torch.Tensor, what: str) -> int:
+    """Device pointer of a contiguous float32 CUDA tensor (checked)."""
+    if t.device.type != "cuda" or t.dtype != torch.float32 \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{what}: needs a contiguous float32 CUDA tensor, got "
+            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    return t.data_ptr()
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` on the current stream; count it."""
+    handle = lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(handle, f"ptudes_{name}")(*args, stream)
+    if err != 0:
+        msg = handle.ptudes_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg}")
+    LAUNCHES[name] += 1
+
+
+def device_kind(t: torch.Tensor, what: str) -> str:
+    """"cpu" (use the twin) or "cuda" (launch); anything else raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type

@@ -1,0 +1,97 @@
+"""K4: the whole frozen-candidate robust GN ICP loop in one launch
+(``csrc/icp_loop.cu``), the counterpart of
+``ptudes_tpu.ops.pallas_icp.icp_loop_pallas``.
+
+Both forms return ``(pose [4, 4], n_corr, iters, dev_t, dev_r)``: the
+refined pose, the last step's correspondence count, the iteration count,
+and |t| / |log R| of ``guess^-1 pose`` (the adaptive threshold's model
+deviation).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..geom import se3, so3
+from ..geom.linalg import solve_spd6
+from .cuda_gn import PreppedCandidates
+from .icp import CandidateSet, gn_from_candidates
+
+_F32 = torch.float32
+
+
+def icp_loop_torch(source: torch.Tensor, prepped: PreppedCandidates,
+                   guess: torch.Tensor, kernel: torch.Tensor,
+                   max_d2: torch.Tensor, convergence: float, *,
+                   plane_min_quality: float, max_iterations: int,
+                   prior_rot_weight: float, prior_trans_weight: float):
+    """K4's plain twin: ``max_iterations`` GN steps, each masked once
+    converged, so the step count never depends on data (no host sync)."""
+    dev = source.device
+    f = prepped.feat
+    cand = CandidateSet(
+        pts=torch.stack([prepped.cx.T, prepped.cy.T, prepped.cz.T], -1),
+        valid=(prepped.inf == 0).T, normal=f[0:3].T, centroid=f[3:6].T,
+        quality=f[6])
+    mask = f[7] > 0
+    ginv = se3.inv(guess)
+    eye6 = torch.eye(6, dtype=_F32, device=dev)
+    wvec = torch.cat([torch.full((3,), prior_rot_weight, dtype=_F32,
+                                 device=dev),
+                      torch.full((3,), prior_trans_weight, dtype=_F32,
+                                 device=dev)])
+    t_cur = guess
+    conv = torch.zeros((), dtype=torch.bool, device=dev)
+    n_corr = torch.zeros((), dtype=torch.int32, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(max_iterations):
+        jtj, jtr, corr_n, total_w = gn_from_candidates(
+            t_cur, source, mask, cand, kernel, max_d2,
+            plane_min_quality=plane_min_quality)
+        if prior_rot_weight > 0.0 or prior_trans_weight > 0.0:
+            xi = se3.log_pose(t_cur @ ginv)
+            wp = total_w * wvec
+            jtj = jtj + torch.diag(wp)
+            jtr = jtr + wp * xi
+        dx = solve_spd6(jtj + 1e-8 * eye6, -jtr)
+        dx = torch.where(conv, 0.0, dx)
+        t_cur = se3.exp_twist(dx) @ t_cur
+        iters = torch.where(conv, iters, iters + 1)
+        n_corr = torch.where(conv, n_corr, corr_n)
+        conv = conv | (torch.linalg.vector_norm(dx) < convergence)
+    dev_pose = ginv @ t_cur
+    return (t_cur, n_corr, iters,
+            torch.linalg.vector_norm(se3.trans(dev_pose)),
+            torch.linalg.vector_norm(so3.log_rotmat(se3.rot(dev_pose))))
+
+
+def icp_loop(source: torch.Tensor, prepped: PreppedCandidates,
+             guess: torch.Tensor, kernel: torch.Tensor, max_d2: torch.Tensor,
+             convergence: float, *, plane_min_quality: float,
+             max_iterations: int, prior_rot_weight: float,
+             prior_trans_weight: float):
+    """K4: CUDA tensors launch ``icp_loop``; CPU tensors take the twin."""
+    if kernels.device_kind(source, "icp_loop") == "cpu":
+        return icp_loop_torch(
+            source, prepped, guess, kernel, max_d2, convergence,
+            plane_min_quality=plane_min_quality,
+            max_iterations=max_iterations,
+            prior_rot_weight=prior_rot_weight,
+            prior_trans_weight=prior_trans_weight)
+    c, n = prepped.cx.shape
+    src = source.to(_F32).T.contiguous()                       # [3, N]
+    scal = torch.cat([kernel.reshape(1), max_d2.reshape(1),
+                      guess[:3].reshape(12)]).to(_F32)
+    out = torch.empty(20, dtype=_F32, device=source.device)
+    conv = np.float32(convergence)
+    kernels.launch(
+        "icp_loop", kernels.ptr(src, "src"),
+        kernels.ptr(prepped.feat, "feat"), kernels.ptr(prepped.cx, "cx"),
+        kernels.ptr(prepped.cy, "cy"), kernels.ptr(prepped.cz, "cz"),
+        kernels.ptr(prepped.inf, "inf"), kernels.ptr(scal, "scal"),
+        kernels.ptr(out, "out"), n, c, plane_min_quality,
+        float(conv * conv), prior_rot_weight, prior_trans_weight,
+        max_iterations)
+    return (out[:16].reshape(4, 4), out[16].to(torch.int32),
+            out[17].to(torch.int32), out[18], out[19])

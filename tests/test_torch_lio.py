@@ -1,0 +1,191 @@
+"""PyTorch port: the LIO main path against the JAX package.
+
+tests/test_lio.py's scene (a speed-ramped circle through a 25 m box world,
+rotosweep, end-of-sweep timestamps) at 32 x 256 for 12 scans, rendered by
+the port's numpy sim for both packages. The configuration is
+``bench_config``'s structure at these values: max_source 2048, 8 points
+per voxel, 7-neighbourhood over 4 voxels, one probe, 3 bootstrap scans
+then the decimated steady insert, with the capacities cut to the scan size
+and tests/test_lio.py's 30 m range clip. The JAX reference runs the XLA
+forms of the four kernels (their parity is pinned by test_torch_ekf.py and
+test_torch_icp.py). Every pose must agree within 0.02 m, the bar of
+``__graft_entry__.py``'s multichip parity check.
+"""
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import bench
+from ptudes_tpu.models import lio as jlio
+from ptudes_tpu.ops.projection import XyzLut as JXyzLut
+from ptudes_tpu_torch import config, kernels
+from ptudes_tpu_torch.models import lio, sim
+from ptudes_tpu_torch.utils import convert
+
+torch.set_num_threads(2)
+
+N_SCANS = 12
+POSE_BAR_M = 0.02
+
+
+def _cut(cfg, **kiss):
+    return dataclasses.replace(
+        cfg, kiss=dataclasses.replace(cfg.kiss, max_range=30.0, **kiss),
+        cap=dataclasses.replace(cfg.cap, max_points=32 * 256,
+                                max_frame=8192, map_capacity=1 << 16))
+
+
+def port_config(**kw):
+    return dataclasses.replace(_cut(config.bench_config()), **kw)
+
+
+def jax_config(**kw):
+    base = bench.bench_config()
+    cfg = _cut(base, gn_backend="jnp")
+    return dataclasses.replace(
+        cfg, ekf=dataclasses.replace(base.ekf, predict_batch="unroll",
+                                     update_form="xla"),
+        scan_unroll=1, **kw)
+
+
+@pytest.fixture(scope="module")
+def run():
+    ts = np.arange(N_SCANS + 1) * 0.1
+    sweep = sim.circle_poses_at(ts, radius=8.0, speed=2.0, ramp=1.0)
+    world = sim.make_sim_world(seed=0, extent=25.0, n_boxes=40,
+                               keepout_points=sweep[:, :3, 3])
+    sensor = sim.make_sim_sensor(h=32, w=256, fov_deg=45.0)
+    scans = np.stack([
+        sim.render_range_image(world, sweep[i], sensor, max_range=60.0,
+                               noise_std=0.01, seed=i, end_pose=sweep[i + 1])
+        for i in range(N_SCANS)])
+    imu_ts = np.arange(1, N_SCANS * 10 + 2) * 0.01
+    imu = sim.imu_for_circle(imu_ts, radius=8.0, speed=2.0, ramp=1.0)
+    scan_ts = ts[:N_SCANS] + 0.1
+    gt_mid = sim.circle_poses_at(ts[:N_SCANS] + 0.05, radius=8.0, speed=2.0,
+                                 ramp=1.0)
+
+    jcfg = jax_config()
+    jb = jlio.build_batches(jcfg, scans, scan_ts, imu.lacc, imu.avel,
+                            imu_ts)
+    jlut = JXyzLut(jnp.asarray(sensor.lut.direction),
+                   jnp.asarray(sensor.lut.offset))
+    _, jout = jlio.run_sequence(jlio.init_state(jcfg), jb, jlut, cfg=jcfg)
+    jboot, _ = jlio.run_sequence(jlio.init_state(jcfg),
+                                 jax.tree.map(lambda x: x[:3], jb), jlut,
+                                 cfg=jcfg)
+
+    cfg = port_config()
+    batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
+                                imu_ts)
+    lut = convert.lut_from_numpy(sensor.lut, "cpu")
+    kernels.reset_launches()
+    _, out = lio.run_sequence(lio.init_state(cfg), batches, lut, cfg=cfg)
+    return dict(jposes=np.asarray(jout.kiss_pose, np.float64), out=out,
+                jboot=jboot, batches=batches, lut=lut, gt_mid=gt_mid,
+                launches=dict(kernels.LAUNCHES))
+
+
+def _pose_err(a, b):
+    return np.linalg.norm(np.asarray(a)[:, :3, 3] - np.asarray(b)[:, :3, 3],
+                          axis=1)
+
+
+def test_sequence_matches_jax(run):
+    out = run["out"]
+    kp = out.kiss_pose.double().numpy()
+    assert kp.shape == (N_SCANS, 4, 4) and np.isfinite(kp).all()
+    assert bool(out.scan_valid.all())
+    err = _pose_err(kp, run["jposes"])
+    assert err.max() <= POSE_BAR_M, err
+    # tests/test_lio.py:113's tracking bound, on poses relative to the
+    # first ground-truth pose
+    gt = run["gt_mid"]
+    rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    assert np.mean(_pose_err(kp, rel) ** 2) < 0.05
+    assert int(out.aux.map_points[-1]) > int(out.aux.map_points[0]) > 0
+    # CPU tensors: every kernel form ran as its twin
+    assert sum(run["launches"].values()) == 0
+
+
+def test_state_carry_over_from_jax(run):
+    leaves = [np.asarray(x) for x in jax.tree.leaves(run["jboot"])]
+    state = convert.lio_state_from_numpy(leaves, "cpu")
+    back = convert.lio_state_to_numpy(state)
+    assert len(back) == len(leaves) == len(convert.LEAVES)
+    for i, x in enumerate(leaves):
+        np.testing.assert_array_equal(back[convert.leaf_key(i)], x)
+        assert back[convert.leaf_key(i)].dtype == x.dtype
+    # ... and the same mapping form a checkpoint's np.load gives
+    again = convert.lio_state_from_numpy(back, "cpu")
+    assert torch.equal(again.kiss.local_map.meta, state.kiss.local_map.meta)
+
+    cfg = port_config(bootstrap_scans=0)
+    _, out = lio.run_sequence(state, lio.scan_at(run["batches"],
+                                                 slice(3, N_SCANS)),
+                              run["lut"], cfg=cfg)
+    err = _pose_err(out.kiss_pose.double().numpy(), run["jposes"][3:])
+    assert err.max() <= POSE_BAR_M, err
+
+
+def test_cuda_device_is_not_a_fallback():
+    """On a machine without a card, asking for CUDA raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = port_config()
+    with pytest.raises((RuntimeError, AssertionError)):
+        lio.init_state(cfg, device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        convert.lut_from_numpy(sim.make_sim_sensor(4, 8).lut, "cuda")
+
+
+@pytest.mark.parametrize("change", [
+    dict(guess="kiss"), dict(deskew_mode="kiss"), dict(col_decimation=2),
+    dict(map_frozen=True), dict(steady_insert_mode="cond"),
+    dict(kiss=dict(nn_mode="every")), dict(kiss=dict(nn_refresh_drift=0.5)),
+    dict(ekf=dict(predict_batch="assoc")),
+])
+def test_unported_options_raise(run, change):
+    cfg = port_config()
+    for part in ("kiss", "ekf"):
+        if part in change:
+            change = dict(change, **{part: dataclasses.replace(
+                getattr(cfg, part), **change[part])})
+    cfg = dataclasses.replace(cfg, **change)
+    with pytest.raises(NotImplementedError):
+        lio.run_sequence(lio.init_state(cfg), run["batches"], run["lut"],
+                         cfg=cfg)
+
+
+def test_bench_config_matches_bench_py():
+    """The port's bench_config carries bench.py's values; only the JAX-only
+    knobs are dropped and the kernel forms renamed."""
+    p, j = config.bench_config(), bench.bench_config()
+    for part in ("kiss", "cap", "ekf"):
+        a, b = dataclasses.asdict(getattr(p, part)), \
+            dataclasses.asdict(getattr(j, part))
+        for k in ("gn_backend", "gn_unroll"):
+            b.pop(k, None)
+        forms = {"icp_form": "cuda", "predict_batch": "cuda",
+                 "update_form": "cuda"}
+        for k, v in forms.items():
+            if k in a:
+                assert a.pop(k) == v
+                b.pop(k, None)
+        assert a == b, part
+    a = {k: v for k, v in dataclasses.asdict(p).items()
+         if k not in ("kiss", "cap", "ekf")}
+    b = {k: v for k, v in dataclasses.asdict(j).items()
+         if k not in ("kiss", "cap", "ekf", "scan_unroll")}
+    assert a == b
+
+
+def test_filter_log_is_not_ported(run):
+    cfg = port_config()
+    with pytest.raises(NotImplementedError):
+        lio.run_sequence(lio.init_state(cfg), run["batches"], run["lut"],
+                         cfg=cfg, log=True)

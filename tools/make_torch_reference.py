@@ -1,0 +1,74 @@
+"""Write the JAX reference poses that ``chip_smoke.py`` holds the PyTorch
+port to on the card (which has no JAX).
+
+Renders the bench scene with the port's numpy sim (``sim.bench_scene``:
+the ``bench.py:make_data`` scene, 50 scans of 128 x 1024), runs the JAX
+package's ``lio.run_sequence`` at ``bench.py:bench_config`` on the CPU with
+the XLA forms of the four kernels (``predict_batch="unroll"``,
+``update_form="xla"``, ``gn_backend="jnp"``), and writes one row of 12
+floats (the 3 x 4 top of each pose, row-major) per scan, after a header
+with the configuration and the JAX ATE RMSE.
+
+    JAX_PLATFORMS=cpu python tools/make_torch_reference.py \
+        [tests/data/bench_jax_poses.txt]
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main(path: str) -> None:
+    import jax
+    import jax.numpy as jnp
+
+    import bench
+    from ptudes_tpu.models import lio
+    from ptudes_tpu.ops.projection import XyzLut
+    from ptudes_tpu.utils.metrics import calc_ate_rmse
+    from ptudes_tpu_torch.models import sim
+
+    sensor, scans, scan_ts, gt_mid, imu = sim.bench_scene()
+    base = bench.bench_config()
+    cfg = dataclasses.replace(
+        base,
+        ekf=dataclasses.replace(base.ekf, predict_batch="unroll",
+                                update_form="xla"),
+        kiss=dataclasses.replace(base.kiss, gn_backend="jnp"),
+        scan_unroll=1)
+    batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
+                                imu.ts)
+    lut = XyzLut(jnp.asarray(sensor.lut.direction),
+                 jnp.asarray(sensor.lut.offset))
+    t0 = time.monotonic()
+    _, out = lio.run_sequence(lio.init_state(cfg), batches, lut, cfg=cfg)
+    poses = np.asarray(out.kiss_pose, np.float64)
+    _, ate = calc_ate_rmse(poses, gt_mid)
+    header = "\n".join([
+        "JAX reference poses of the bench scene (ptudes_tpu_torch.models."
+        "sim.bench_scene: 50 scans, 128x1024, bench.py:make_data)",
+        f"ptudes_tpu lio.run_sequence on {jax.devices()[0].platform} at "
+        "bench.py:bench_config with predict_batch='unroll', "
+        "update_form='xla', gn_backend='jnp', scan_unroll=1",
+        f"kiss={cfg.kiss}", f"cap={cfg.cap}", f"ekf={cfg.ekf}",
+        f"max_imu_per_scan={cfg.max_imu_per_scan} guess={cfg.guess} "
+        f"bootstrap_scans={cfg.bootstrap_scans} "
+        f"steady_insert_mode={cfg.steady_insert_mode}",
+        f"JAX ATE RMSE vs exact mid-sweep poses: {ate:.6f} m",
+        "one row per scan: the 3x4 top of kiss_pose, row-major"])
+    np.savetxt(path, poses[:, :3, :].reshape(len(poses), 12), fmt="%.9g",
+               header=header)
+    print(f"wrote {path}: {len(poses)} poses, JAX ATE RMSE {ate:.4f} m, "
+          f"{time.monotonic() - t0:.0f} s")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1] if len(sys.argv) > 1
+         else os.path.join(ROOT, "tests", "data", "bench_jax_poses.txt"))

@@ -1,0 +1,146 @@
+"""Where the time of the PyTorch port's steady scan step goes, on one CUDA
+card: ``torch.profiler`` over steady scans of the bench scene at
+``bench_config()``.
+
+    python3 tools/profile_torch_path.py [--scans 20] [--json PATH]
+
+Prints (and with ``--json`` also writes as JSON): wall time per scan
+(host clock around scans ending in a synchronize), device busy time per
+scan (the union of kernel intervals in the trace) and the idle share, the
+kernel launches per scan, and the top operators and kernels by device
+time. Runs the bootstrap scans and a warm-up before the profiled window.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def busy_us(events) -> float:
+    """Length of the union of the device kernel intervals (us)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scans", type=int, default=20,
+                    help="steady scans in the profiled window")
+    ap.add_argument("--json", help="also write the summary to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_path: no CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from ptudes_tpu_torch import config, kernels
+    from ptudes_tpu_torch.models import lio, sim
+    from ptudes_tpu_torch.utils import convert
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    sensor, scans, scan_ts, _, imu = sim.bench_scene()
+    cfg = config.bench_config()
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
+                                imu.ts, device=dev)
+    boot = lio.make_scan_step(lut, cfg, insert_overflow=True)
+    steady = lio.make_scan_step(lut, cfg, insert_overflow=False)
+    n0 = cfg.bootstrap_scans
+    window = range(n0 + 5, n0 + 5 + args.scans)
+    assert window[-1] < len(scans), "not enough scans for the window"
+
+    state = lio.init_state(cfg, dev)
+    for i in range(n0):
+        state, _ = boot(state, lio.scan_at(batches, i))
+    for i in range(n0, window[0]):             # warm-up steady scans
+        state, _ = steady(state, lio.scan_at(batches, i))
+    torch.cuda.synchronize()
+
+    t0 = time.monotonic()
+    s_unprof = state
+    for i in window:
+        s_unprof, _ = steady(s_unprof, lio.scan_at(batches, i))
+    torch.cuda.synchronize()
+    wall_plain = (time.monotonic() - t0) / args.scans
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for i in window:
+            state, _ = steady(state, lio.scan_at(batches, i))
+        torch.cuda.synchronize()
+        wall_prof = (time.monotonic() - t0) / args.scans
+
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_us(kern) / args.scans
+    by_kernel: dict[str, list[float]] = {}
+    for e in kern:
+        d = by_kernel.setdefault(e.name[:90], [0, 0.0])
+        d[0] += 1
+        d[1] += e.time_range.end - e.time_range.start
+    top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:25]
+    ops = [e for e in prof.key_averages() if e.device_type
+           == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")]
+    top_ops = sorted(ops, key=lambda e: -e.self_device_time_total)[:20]
+    summary = {
+        "card": card, "scans": args.scans,
+        "wall_ms_per_scan": wall_plain * 1e3,
+        "wall_ms_per_scan_profiled": wall_prof * 1e3,
+        "device_busy_ms_per_scan": busy / 1e3,
+        "device_idle_share": 1.0 - busy / 1e3 / (wall_plain * 1e3),
+        "device_idle_share_profiled": 1.0 - busy / 1e3 / (wall_prof * 1e3),
+        "kernel_launches_per_scan": len(kern) / args.scans,
+        "hand_kernels_device_us_per_scan": {
+            name: sum(v[1] for k, v in by_kernel.items()
+                      if f"{name}_kernel" in k) / args.scans
+            for name in kernels.KERNELS},
+        "top_kernels": [
+            dict(name=k, calls_per_scan=v[0] / args.scans,
+                 device_us_per_scan=v[1] / args.scans)
+            for k, v in top_kernels],
+        "top_ops": [
+            dict(op=e.key, calls_per_scan=e.count / args.scans,
+                 self_device_us_per_scan=e.self_device_time_total
+                 / args.scans,
+                 cpu_us_per_scan=e.cpu_time_total / args.scans)
+            for e in top_ops],
+    }
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(summary, f, indent=1)
+    print(json.dumps({k: v for k, v in summary.items()
+                      if not k.startswith("top")}))
+    for k in summary["top_kernels"]:
+        print(f"  {k['device_us_per_scan']:9.1f} us {k['calls_per_scan']:6.1f}"
+              f" x  {k['name']}")
+    for o in summary["top_ops"]:
+        print(f"  {o['self_device_us_per_scan']:9.1f} us dev "
+              f"{o['cpu_us_per_scan']:9.1f} us cpu "
+              f"{o['calls_per_scan']:6.1f} x  {o['op']}")
+
+
+if __name__ == "__main__":
+    main()
