@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's LIO main path once on one CUDA card.
+"""Drive the PyTorch port's LIO paths once on one CUDA card.
 
-    python3 chip_smoke.py            # 50 scans of 128 x 1024, bench_config
+    python3 chip_smoke.py            # 50 scans of 128 x 1024 per path
 
 Phases, each reported on its own line:
   1. device: fail without CUDA; print the card's name and power limit;
-  2. build the four CUDA kernels from ``ptudes_tpu_torch/csrc`` (nvcc);
+  2. build the five CUDA kernels from ``ptudes_tpu_torch/csrc`` (one nvcc
+     per source, in parallel);
   3. each kernel against its plain PyTorch twin on the card, with the
-     stated tolerances, and both times;
-  4. the main path: ``lio.run_sequence`` at ``bench_config()`` on the bench
-     scene (rendered by the port's numpy sim, cached in the temp dir), once
-     to warm up and once timed with host syncs made errors; each kernel
-     must launch once per scan, ATE RMSE <= 0.02 m, and every pose within
-     0.02 m of the JAX reference poses (``tests/data/bench_jax_poses.txt``);
-     then the same run with every kernel replaced by its twin.
+     stated tolerances, and both times; the candidate-refresh ICP loop
+     with the kernel against the loop with the twin;
+  4. the bench path: ``lio.run_sequence`` at ``bench_config()`` on the
+     bench scene (rendered by the port's numpy sim, cached in the temp
+     dir), once to warm up and once timed with host syncs made errors;
+     K1-K4 must each launch once per scan, ATE RMSE <= 0.02 m, and every
+     pose within 0.02 m of the JAX reference poses
+     (``tests/data/bench_jax_poses.txt``); then the same run with every
+     kernel replaced by its twin;
+  5. the flagship command's path: ``lio.run_sequence`` at
+     ``cli_config(128, 1024)`` on the same scene, warmed up and timed with
+     host syncs made errors except the refresh loop's counted reads
+     (``icp.read_flags``); K1 once per scan, K5 once per GN iteration,
+     K2-K4 never; ATE RMSE within 0.005 m of the JAX run's, every pose
+     within 0.02 m of ``tests/data/cli_jax_poses.txt``; then the twins.
 The last two lines before the final one are the kernel JSON summary and
 the card's name and power limit; the last line is the result JSON. Any
 failure raises, so the exit code is nonzero and no result line prints.
@@ -41,13 +50,16 @@ from ptudes_tpu_torch.utils import convert, metrics
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REF_POSES = os.path.join(HERE, "tests", "data", "bench_jax_poses.txt")
+CLI_REF_POSES = os.path.join(HERE, "tests", "data", "cli_jax_poses.txt")
 ATE_GATE_M = 0.02    # bench.py's absolute ATE gate
+CLI_ATE_SLACK_M = 0.005  # the CLI path's ATE may exceed the JAX run's by
 POSE_GATE_M = 0.02   # per-pose parity with the JAX reference poses
 REPLACES = {
     "ekf_predict": ("ekf_predict.cu", "ptudes_tpu/ops/pallas_ekf.py:438"),
     "ekf_update": ("ekf_update.cu", "ptudes_tpu/ops/pallas_ekf.py:381"),
     "gn_prep": ("gn_prep.cu", "ptudes_tpu/ops/pallas_gn.py:260"),
     "icp_loop": ("icp_loop.cu", "ptudes_tpu/ops/pallas_icp.py:432"),
+    "gn_iter": ("gn_iter.cu", "ptudes_tpu/ops/pallas_gn.py:351"),
 }
 
 
@@ -102,11 +114,10 @@ def generic_ekf_state(cfg, dev, rng):
     return s
 
 
-def check_ekf(dev, rng, results):
-    cfg = config.bench_config().ekf
+def check_predict(cfg, s, dev, rng, k, n_valid):
+    """K1 against its twin over a block of ``k`` IMU samples, ``n_valid``
+    of them valid; returns (max |kernel - twin|, kernel ms, twin ms)."""
     twin = dataclasses.replace(cfg, predict_batch="unroll")
-    s = generic_ekf_state(cfg, dev, rng)
-    k = 12
     imus = esekf.Imu(
         lacc=torch.tensor(rng.normal(0, 1, (k, 3)) + [0, 0, 9.78],
                           dtype=torch.float32, device=dev),
@@ -114,7 +125,7 @@ def check_ekf(dev, rng, results):
                           device=dev),
         ts=torch.tensor(0.2 + np.arange(1, k + 1) * 0.01,
                         dtype=torch.float32, device=dev))
-    valid = torch.arange(k, device=dev) < 10
+    valid = torch.arange(k, device=dev) < n_valid
 
     def kern():
         return cuda_ekf.predict_block(s, imus, valid, cfg=cfg,
@@ -133,18 +144,30 @@ def check_ekf(dev, rng, results):
             "twist": (tk - tp).abs().max()}
     errs = {n: float(v) for n, v in errs.items()}
     check(errs["pos"] <= 1e-6 and errs["vel"] <= 1e-6
-          and errs["quat"] <= 1e-6, f"ekf_predict state vs twin: {errs}")
-    check(errs["twist"] <= 2e-5, f"ekf_predict twist vs twin: {errs}")
+          and errs["quat"] <= 1e-6, f"ekf_predict K={k} state vs twin: "
+          f"{errs}")
+    check(errs["twist"] <= 2e-5, f"ekf_predict K={k} twist vs twin: {errs}")
     check(float(sk.imu_ts) == float(sp.imu_ts)
           and bool(sk.initialized) == bool(sp.initialized),
-          "ekf_predict clock/latch vs twin")
+          f"ekf_predict K={k} clock/latch vs twin")
     check(torch.allclose(sk.cov, sp.cov, rtol=1e-5, atol=1e-5),
-          f"ekf_predict cov vs twin: {float((sk.cov - sp.cov).abs().max())}")
+          f"ekf_predict K={k} cov vs twin: "
+          f"{float((sk.cov - sp.cov).abs().max())}")
     err = max(max(errs.values()), float((sk.cov - sp.cov).abs().max()))
-    results["ekf_predict"] = dict(max_abs_err=err, ms=cuda_ms(kern, 200),
-                                  plain_ms=cuda_ms(plain, 20))
-    say(f"  ekf_predict: max |kernel - twin| {err:.3e}  "
+    say(f"  ekf_predict K={k}: max |kernel - twin| {err:.3e}  "
         f"(state 1e-6, twist 2e-5, cov rtol/atol 1e-5)")
+    return err, cuda_ms(kern, 200), cuda_ms(plain, 20)
+
+
+def check_ekf(dev, rng, results):
+    cfg = config.bench_config().ekf
+    s = generic_ekf_state(cfg, dev, rng)
+    # K = 12: the bench path's max_imu_per_scan; K = 16: the CLI's
+    e12, ms12, plain12 = check_predict(cfg, s, dev, rng, 12, 10)
+    e16, ms16, plain16 = check_predict(cfg, s, dev, rng, 16, 14)
+    results["ekf_predict"] = dict(max_abs_err=max(e12, e16), ms=ms16,
+                                  plain_ms=plain16, ms_k12=ms12,
+                                  plain_ms_k12=plain12)
 
     pose = torch.eye(4, dtype=torch.float32, device=dev)
     pose[:3, :3] = so3.exp_rotvec(torch.tensor([0.02, -0.01, 0.03],
@@ -268,12 +291,170 @@ def check_icp(dev, results):
         f"{npl}, iterations {ik} vs {ip}")
 
 
+def gn_map(dev, pts, frame_voxel, voxel_size, capacity, ppv, new_capacity):
+    """A map of ``pts`` deduplicated at ``frame_voxel``, inserted in
+    chunks of ``new_capacity`` (the exact insert)."""
+    pts = torch.tensor(pts, dtype=torch.float32, device=dev)
+    frame, keep = voxel.first_in_voxel_sorted(
+        pts, torch.ones(len(pts), dtype=torch.bool, device=dev), frame_voxel,
+        len(pts))
+    return hashmap.insert_deduped(
+        hashmap.create(capacity, ppv, dev), frame, keep,
+        voxel_size=voxel_size, max_probes=2, new_capacity=new_capacity)
+
+
+def pallas_gn_scene(dev):
+    """tests/test_pallas_gn.py's scene (its hash dedup replaced by the
+    sort-based one): 40000 random points in a 2^14-slot map of 16 points
+    per voxel, 4096 source points, 7-neighbourhood over 4 voxels."""
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(-15, 15, (40000, 3))
+    m = gn_map(dev, pts, 0.15, 0.3, 1 << 14, 16, 8192)
+    n = 4096
+    src = torch.tensor(rng.uniform(-14, 14, (n, 3)), dtype=torch.float32,
+                       device=dev)
+    mask = torch.as_tensor(rng.uniform(size=n) < 0.9, device=dev)
+    t = torch.eye(4, dtype=torch.float32, device=dev)
+    t[:3, 3] = torch.tensor([0.05, -0.03, 0.02], device=dev)
+    cand = icp.gather_candidates(
+        m, se3.transform(t, src), voxel_size=0.3, max_probes=2,
+        neighborhood=7, n_voxels=4, fit_planes=True, plane_radius=0.6)
+    return t, src, mask, cand
+
+
+def cli_gn_scene(dev):
+    """The CLI path's shapes: a floor and four walls in a 60 m box, a
+    2^19-slot map of 20 points per voxel at the 0.7 m voxel of a 70 m
+    clip, 8192 source points, 27-neighbourhood over 4 voxels (C = 80)."""
+    rng = np.random.default_rng(9)
+    k = 60000
+    floor = np.stack([rng.uniform(-30, 30, k), rng.uniform(-30, 30, k),
+                      rng.normal(0, 0.02, k)], -1)
+    walls = []
+    for axis, at in ((0, -30.0), (0, 30.0), (1, -30.0), (1, 30.0)):
+        w = np.stack([rng.uniform(-30, 30, k // 2), rng.uniform(-30, 30, k // 2),
+                      rng.uniform(0, 5, k // 2)], -1)
+        w[:, axis] = at + rng.normal(0, 0.02, k // 2)
+        walls.append(w)
+    pts = np.vstack([floor, *walls])
+    m = gn_map(dev, pts, 0.35, 0.7, 1 << 19, 20, 8192)
+    n = 8192
+    idx = rng.choice(len(pts), n, replace=False)
+    src = torch.tensor(pts[idx] + rng.normal(0, 0.01, (n, 3)),
+                       dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(rng.uniform(size=n) < 0.95, device=dev)
+    t = se3.exp_twist(torch.tensor([0.002, -0.001, 0.003, 0.04, -0.03, 0.02],
+                                   device=dev))
+    cand = icp.gather_candidates(
+        m, se3.transform(t, src), voxel_size=0.7, max_probes=2,
+        neighborhood=27, n_voxels=4, fit_planes=True)
+    return t, src, mask, cand
+
+
+def check_gn_iter(dev, results):
+    kern = torch.tensor(0.1667, device=dev)
+    max_d2 = torch.tensor(2.25, device=dev)
+    worst, times = 0.0, {}
+    for name, scene in (("cli", cli_gn_scene), ("test_pallas_gn",
+                                                 pallas_gn_scene)):
+        t, src, mask, cand = scene(dev)
+        prepped = cuda_gn.prep_candidates(cand, mask)
+        c, n = prepped.cx.shape
+
+        def kern_build():
+            return cuda_gn.gn_prepped(t, src, prepped, kern, max_d2,
+                                      plane_min_quality=0.2)
+
+        def plain_build():
+            return cuda_gn.gn_prepped_torch(t, src, prepped, kern, max_d2,
+                                            plane_min_quality=0.2)
+
+        (jk, rk, nk, wk), (jp, rp, np_, wp) = kern_build(), plain_build()
+        rel_j = float((jk - jp).abs().max() / jp.abs().max())
+        rel_r = float((rk - rp).abs().max() / rp.abs().max())
+        rel_w = float((wk - wp).abs() / wp.abs())
+        # bars of tests/test_pallas_gn.py:test_pallas_gn_parity
+        check(int(nk) == int(np_) and int(np_) > 100,
+              f"gn_iter ({name}) n_corr {int(nk)} vs {int(np_)}")
+        check(rel_j < 1e-5, f"gn_iter ({name}) jtj rel {rel_j}")
+        check(rel_r < 1e-5, f"gn_iter ({name}) jtr rel {rel_r}")
+        check(rel_w <= 1e-5, f"gn_iter ({name}) total_w rel {rel_w}")
+        again = kern_build()
+        check(all(torch.equal(a, b) for a, b in zip(again, (jk, rk, nk, wk))),
+              f"gn_iter ({name}) does not repeat bit for bit")
+        worst = max(worst, float((jk - jp).abs().max()),
+                    float((rk - rp).abs().max()), float((wk - wp).abs()))
+        times[name] = (cuda_ms(kern_build, 200), cuda_ms(plain_build, 20))
+        say(f"  gn_iter {name} (N={n}, C={c}): n_corr {int(nk)} exact, jtj "
+            f"rel {rel_j:.2e}, jtr rel {rel_r:.2e}, total_w rel {rel_w:.2e} "
+            f"(1e-5); repeats bit for bit; {times[name][0]:.4f} ms vs twin "
+            f"{times[name][1]:.4f} ms")
+    results["gn_iter"] = dict(
+        max_abs_err=worst, ms=times["cli"][0], plain_ms=times["cli"][1],
+        ms_test_shape=times["test_pallas_gn"][0],
+        plain_ms_test_shape=times["test_pallas_gn"][1])
+
+
+def check_refresh_loop(dev):
+    """register_frame_cached with candidate refresh, kernel form against
+    twin form, on icp_scene (its guess drifts past the refresh threshold
+    on the way to the solution)."""
+    m, src, mask, guess = icp_scene(dev)
+    kw = dict(voxel_size=0.3, max_probes=2, max_iterations=30,
+              convergence=1e-5, plane_min_quality=0.2,
+              prior_rot_weight=0.01, prior_trans_weight=0.01,
+              neighborhood=27, n_voxels=4, plane_radius=0.6,
+              refresh_drift=0.5)
+    args = (src, mask, m, guess, torch.tensor(0.5, device=dev),
+            torch.tensor(0.1667, device=dev))
+    icp.reset_refresh_counts()
+    kernels.reset_launches()
+    rk = icp.register_frame_cached(*args, form="cuda", **kw)
+    counts, builds = dict(icp.REFRESH_COUNTS), kernels.LAUNCHES["gn_iter"]
+    rp = icp.register_frame_cached(*args, form="torch", **kw)
+    d = float(torch.linalg.vector_norm(
+        se3.log_pose(se3.inv(rp.pose) @ rk.pose)))
+    nk, npl = int(rk.num_corr), int(rp.num_corr)
+    ik, ip = int(rk.iterations), int(rp.iterations)
+    # bars of tests/test_pallas_icp.py:test_fused_loop_matches_xla_loop
+    check(counts["regathers"] >= 1, f"refresh loop re-gathered {counts}")
+    check(builds == ik, f"refresh loop: {builds} K5 launches, {ik} "
+          "iterations")
+    check(counts["host_reads"] <= ik, f"refresh loop reads {counts}")
+    check(d < 5e-4, f"refresh loop log-pose vs twin {d}")
+    check(abs(nk - npl) <= max(3, int(0.01 * npl)),
+          f"refresh loop n_corr {nk} vs {npl}")
+    check(abs(ik - ip) <= 2, f"refresh loop iterations {ik} vs {ip}")
+    check(npl > 1000, f"refresh loop twin found {npl} correspondences")
+    say(f"  refresh loop: |log(twin^-1 kernel)| {d:.2e} (5e-4), n_corr {nk} "
+        f"vs {npl}, iterations {ik} vs {ip}, re-gathers "
+        f"{counts['regathers']}, host reads {counts['host_reads']}")
+
+
 # --------------------------------------------------------------- phase 4
 
-def run_main_path(n_scans: int, dev) -> dict[str, int]:
-    """Phase 4; returns each kernel's launches in the timed run."""
+def timed_run(c, batches, lut, dev):
+    """One ``lio.run_sequence`` from a fresh state with host syncs made
+    errors (the refresh loop lifts that for its counted reads only);
+    returns (out, seconds)."""
+    state = lio.init_state(c, dev)
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, out = lio.run_sequence(state, batches, lut, cfg=c)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t
+
+
+def run_main_path(n_scans: int, dev):
+    """Phase 4; returns each kernel's launches in the timed run and the
+    scene."""
     t0 = time.monotonic()
-    sensor, scans, scan_ts, gt_mid, imu = sim.bench_scene(n_scans)
+    scene = sim.bench_scene(n_scans)
+    sensor, scans, scan_ts, gt_mid, imu = scene
     say(f"  scene: {n_scans} scans of {scans.shape[1]}x{scans.shape[2]} "
         f"ready in {time.monotonic() - t0:.1f} s")
     cfg = config.bench_config()
@@ -282,23 +463,15 @@ def run_main_path(n_scans: int, dev) -> dict[str, int]:
                                 imu.ts, device=dev)
 
     def timed(c):
-        state = lio.init_state(c, dev)
-        torch.cuda.synchronize()
-        t = time.monotonic()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            _, out = lio.run_sequence(state, batches, lut, cfg=c)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        return out, time.monotonic() - t
+        return timed_run(c, batches, lut, dev)
 
     timed(cfg)                                  # warm-up
     kernels.reset_launches()
     out, dt = timed(cfg)
     launches = dict(kernels.LAUNCHES)
     for name, count in launches.items():
-        check(count == n_scans,
+        want = 0 if name == "gn_iter" else n_scans   # K5: refresh only
+        check(count == want,
               f"{name} launched {count} times in {n_scans} scans")
     kp = out.kiss_pose.double().cpu().numpy()
     check(bool(np.isfinite(kp).all()), "non-finite poses")
@@ -320,6 +493,77 @@ def run_main_path(n_scans: int, dev) -> dict[str, int]:
                      cfg=tcfg)                          # warm-up
     kernels.reset_launches()
     out_t, dt_t = timed(tcfg)
+    check(sum(kernels.LAUNCHES.values()) == 0, "twin path launched kernels")
+    kt = out_t.kiss_pose.double().cpu().numpy()
+    _, ate_t = metrics.calc_ate_rmse(kt, gt_mid)
+    say(f"  twin path: {n_scans / dt_t:.2f} scans/s ({dt_t:.3f} s), ATE "
+        f"RMSE {ate_t:.4f} m, max |pose - kernel path| "
+        f"{np.linalg.norm(kt[:, :3, 3] - kp[:, :3, 3], axis=1).max():.4f} m")
+    return launches, scene
+
+
+# --------------------------------------------------------------- phase 5
+
+def reference_ate(path: str) -> float:
+    """The JAX ATE RMSE a reference poses file states in its header."""
+    with open(path) as f:
+        for line in f:
+            if "JAX ATE RMSE" in line:
+                return float(line.split(":")[1].split()[0])
+    raise ValueError(f"{path}: no JAX ATE RMSE in the header")
+
+
+def run_cli_path(scene, n_scans: int, dev) -> dict[str, int]:
+    """Phase 5: the flagship command's configuration on the bench scene;
+    returns each kernel's launches in the timed run."""
+    sensor, scans, scan_ts, gt_mid, imu = scene
+    cfg = config.cli_config(scans.shape[1], scans.shape[2])
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
+                                imu.ts, device=dev)
+    timed_run(cfg, batches, lut, dev)           # warm-up
+    kernels.reset_launches()
+    icp.reset_refresh_counts()
+    out, dt = timed_run(cfg, batches, lut, dev)
+    launches, counts = dict(kernels.LAUNCHES), dict(icp.REFRESH_COUNTS)
+    iters = int(out.aux.iterations.sum())
+    check(launches["ekf_predict"] == n_scans,
+          f"ekf_predict launched {launches['ekf_predict']} times in "
+          f"{n_scans} scans")
+    check(launches["gn_iter"] == iters,
+          f"gn_iter launched {launches['gn_iter']} times in {iters} GN "
+          "iterations")
+    for name in ("ekf_update", "gn_prep", "icp_loop"):
+        check(launches[name] == 0,
+              f"{name} launched {launches[name]} times on the CLI path")
+    check(counts["host_reads"] <= iters + n_scans,
+          f"{counts['host_reads']} host reads > {iters} iterations + "
+          f"{n_scans} scans")
+    kp = out.kiss_pose.double().cpu().numpy()
+    check(bool(np.isfinite(kp).all()), "non-finite poses")
+    check(kp.shape == (n_scans, 4, 4), f"pose shape {kp.shape}")
+    check(bool(out.scan_valid.all()), "a scan was skipped")
+    _, ate = metrics.calc_ate_rmse(kp, gt_mid)
+    jax_ate = reference_ate(CLI_REF_POSES)
+    check(ate <= jax_ate + CLI_ATE_SLACK_M,
+          f"ATE RMSE {ate:.4f} m > JAX {jax_ate:.4f} + {CLI_ATE_SLACK_M} m")
+    ref = np.loadtxt(CLI_REF_POSES).reshape(-1, 3, 4)[:n_scans]
+    ref_err = np.linalg.norm(kp[:, :3, 3] - ref[:, :, 3], axis=1)
+    check(float(ref_err.max()) <= POSE_GATE_M,
+          f"pose vs JAX reference {ref_err.max():.4f} m > {POSE_GATE_M} m")
+    say(f"  kernel path: {n_scans / dt:.2f} scans/s ({dt:.3f} s), ATE RMSE "
+        f"{ate:.4f} m (JAX {jax_ate:.4f} + {CLI_ATE_SLACK_M}), max |pose - "
+        f"JAX| {ref_err.max():.4f} m (<= {POSE_GATE_M}), {iters} GN "
+        f"iterations, {counts['regathers']} re-gathers, "
+        f"{counts['host_reads']} host reads (<= {iters + n_scans}), no "
+        f"other host sync, launches {launches}")
+
+    tcfg = config.twin_config(cfg)
+    lio.run_sequence(lio.init_state(tcfg, dev),
+                     lio.scan_at(batches, slice(0, 4)), lut,
+                     cfg=tcfg)                          # warm-up
+    kernels.reset_launches()
+    out_t, dt_t = timed_run(tcfg, batches, lut, dev)
     check(sum(kernels.LAUNCHES.values()) == 0, "twin path launched kernels")
     kt = out_t.kiss_pose.double().cpu().numpy()
     _, ate_t = metrics.calc_ate_rmse(kt, gt_mid)
@@ -361,16 +605,26 @@ def main() -> int:
     rng = np.random.default_rng(0)
     check_ekf(dev, rng, results)
     check_icp(dev, results)
+    check_gn_iter(dev, results)
+    check_refresh_loop(dev)
 
-    say("phase 4: main path")
-    launches = run_main_path(args.scans, dev)
+    say("phase 4: bench path")
+    bench_launches, scene = run_main_path(args.scans, dev)
+    say("phase 5: CLI path")
+    by_path = {"bench": bench_launches,
+               "cli": run_cli_path(scene, args.scans, dev)}
 
-    say(json.dumps({"kernels": [
-        dict(name=name, route="cuda",
-             source=f"ptudes_tpu_torch/csrc/{REPLACES[name][0]}",
-             replaces=REPLACES[name][1], launches=launches[name],
-             **results[name])
-        for name in kernels.KERNELS]}))
+    rows = []
+    for name in kernels.KERNELS:
+        paths = {p: n[name] for p, n in by_path.items() if n[name]}
+        check(bool(paths), f"{name} launched on no path")
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"ptudes_tpu_torch/csrc/{REPLACES[name][0]}",
+            replaces=REPLACES[name][1], path="+".join(paths),
+            launches=sum(paths.values()), launches_by_path=paths,
+            **results[name]))
+    say(json.dumps({"kernels": rows}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,8 @@ Frozen copies of ``ptudes_tpu.config`` with the same fields and defaults,
 minus the JAX-only knobs (``scan_unroll``, ``gn_unroll``, ``gn_backend``).
 The kernel forms are named for the port: ``EkfConfig.predict_batch`` and
 ``update_form`` take ``"cuda"`` where the JAX package takes ``"pallas"``, and
-``KissConfig.icp_form`` selects the CUDA candidate-prep + ICP-loop kernels
-(``"cuda"``) or their plain PyTorch twins (``"torch"``). There is no
+``KissConfig.icp_form`` selects the CUDA ICP kernels (``"cuda"``) or their
+plain PyTorch twins (``"torch"``). There is no
 ``"auto"``: the configuration says which form runs.
 
 Options the port does not carry yet raise ``NotImplementedError`` when a run
@@ -40,8 +40,9 @@ class KissConfig:
     prior_trans_weight: float = 0.01
     nn_neighborhood: int = 27
     fused_gather: bool = False
-    # "cuda": candidate prep (K3) and the whole GN loop (K4) as CUDA
-    # kernels; "torch": their plain PyTorch twins on any device
+    # "cuda": the ICP kernels — with nn_refresh_drift == 0 the candidate
+    # prep (K3) and the whole GN loop (K4), otherwise the per-iteration GN
+    # build (K5); "torch": their plain PyTorch twins on any device
     icp_form: str = "torch"
 
     @property
@@ -125,6 +126,23 @@ def bench_config() -> PipelineConfig:
     )
 
 
+def cli_config(h: int, w: int) -> PipelineConfig:
+    """The flagship command's configuration, ``ptudes ekf-bench ouster
+    --use-imu-prediction`` with no other flags (``ptudes_tpu/cli/main.py``
+    ``:441-452``) for an ``h`` x ``w`` sensor: the library defaults (50
+    iterations, 27-neighbourhood, 20 points per voxel, candidate refresh
+    at half a voxel of drift, the exact chunked steady insert) with a
+    1-70 m range, the EKF guess, and the card's kernel forms where the
+    command picks the TPU's: the predict block (K1) and the ICP kernels;
+    the pose update keeps the command's op chain."""
+    return PipelineConfig(
+        kiss=KissConfig(max_range=70.0, min_range=1.0, deskew=True,
+                        loss="plane", icp_form="cuda"),
+        cap=Capacity(max_points=h * w),
+        ekf=EkfConfig(predict_batch="cuda"),
+        guess="ekf")
+
+
 def twin_config(cfg: PipelineConfig) -> PipelineConfig:
     """``cfg`` with every kernel replaced by its plain PyTorch twin."""
     return dataclasses.replace(
@@ -146,21 +164,19 @@ def check_supported(cfg: PipelineConfig) -> None:
         (cfg.col_decimation != 1, f"col_decimation={cfg.col_decimation}"),
         (cfg.map_frozen, "map_frozen=True"),
         (k.nn_mode != "cached", f"nn_mode={k.nn_mode!r}"),
-        (k.nn_refresh_drift > 0.0,
-         f"nn_refresh_drift={k.nn_refresh_drift} (only 0: frozen "
-         "candidates)"),
         (k.nn_neighborhood not in (7, 27),
          f"nn_neighborhood={k.nn_neighborhood}"),
         (k.fused_gather, "fused_gather=True"),
         (k.loss != "plane", f"loss={k.loss!r}"),
-        (cfg.steady_insert_mode is not False and cfg.bootstrap_scans >= 0,
-         f"steady_insert_mode={cfg.steady_insert_mode!r} (only False)"),
         (e.predict_batch == "assoc", "predict_batch='assoc'"),
     ]
     for bad, what in todo:
         if bad:
             raise NotImplementedError(
                 f"the PyTorch port does not carry {what} yet; see ROADMAP.md")
+    if cfg.steady_insert_mode not in (False, True, "cond"):
+        raise ValueError(
+            f"unknown steady_insert_mode {cfg.steady_insert_mode!r}")
     if e.predict_batch not in ("unroll", "cuda"):
         raise ValueError(f"unknown predict_batch {e.predict_batch!r}")
     if e.update_form not in ("xla", "cuda"):

@@ -197,4 +197,121 @@ __device__ __forceinline__ void cholesky_solve(const float (*l)[N],
   }
 }
 
+// ---- the robust Gauss-Newton build shared by K4 (icp_loop.cu) and K5
+// (gn_iter.cu): ptudes_tpu/ops/pallas_gn.py:_kernel's moment rows.
+//
+// The 45 moment sums of one build, per correspondence p (transformed),
+// nearest candidate q, residual r = p - q, patch normal n and centroid c:
+//   0 sum w_pt; 1-3 sum w_pt p; 4-9 sum w_pt p p^T (xx yy zz xy xz yz);
+//   10-12 sum w_pt p x r; 13-15 sum w_pt r;
+//   16-36 sum w_pl row row^T (upper triangle, row = [p x n, n]);
+//   37-42 sum w_pl row s (s = n . (p - c)); 43 correspondences; 44 sum w_pl.
+constexpr int kGnAcc = 45;
+
+// Add source point p's terms (already transformed to (px, py, pz)) to
+// acc: masked first-argmin nearest neighbour over the c lane-major
+// candidate rows (the lowest row wins ties; invalid rows carry +1e30),
+// robust weights k^2 / (k + r^2)^2, the plane row where the patch fit has
+// quality >= plane_q, point-to-point moments elsewhere.
+__device__ __forceinline__ void gn_point_moments(
+    float px, float py, float pz, int p, int n, int c,
+    const float* __restrict__ feat, const float* __restrict__ cx,
+    const float* __restrict__ cy, const float* __restrict__ cz,
+    const float* __restrict__ inf, float kern, float max_d2, float plane_q,
+    float* acc) {
+  float d2min = INFINITY, qx = 0.0f, qy = 0.0f, qz = 0.0f;
+  for (int k = 0; k < c; ++k) {
+    const int o = k * n + p;
+    const float ux = cx[o], uy = cy[o], uz = cz[o];
+    const float dx = ux - px, dy = uy - py, dz = uz - pz;
+    const float d2 = dx * dx + dy * dy + dz * dz + inf[o];
+    if (d2 < d2min) {  // strict: the lowest row wins ties
+      d2min = d2;
+      qx = ux; qy = uy; qz = uz;
+    }
+  }
+  const float nx = feat[p], ny = feat[n + p], nz = feat[2 * n + p];
+  const float ccx = feat[3 * n + p], ccy = feat[4 * n + p],
+              ccz = feat[5 * n + p];
+  const float quality = feat[6 * n + p], mask = feat[7 * n + p];
+  const bool corr = (mask > 0.0f) && (d2min < 1e30f) && (d2min <= max_d2);
+  const float s = nx * (px - ccx) + ny * (py - ccy) + nz * (pz - ccz);
+  const bool use_pl = corr && (quality >= plane_q);
+  const bool use_pt = corr && !use_pl;
+  const float kp = kern + s * s, kq = kern + d2min;
+  const float w_pl = use_pl ? (kern * kern) / (kp * kp) : 0.0f;
+  const float w_pt = use_pt ? (kern * kern) / (kq * kq) : 0.0f;
+  const float rx = px - qx, ry = py - qy, rz = pz - qz;
+  acc[0] += w_pt;
+  acc[1] += w_pt * px; acc[2] += w_pt * py; acc[3] += w_pt * pz;
+  acc[4] += w_pt * px * px; acc[5] += w_pt * py * py;
+  acc[6] += w_pt * pz * pz;
+  acc[7] += w_pt * px * py; acc[8] += w_pt * px * pz;
+  acc[9] += w_pt * py * pz;
+  acc[10] += w_pt * (py * rz - pz * ry);
+  acc[11] += w_pt * (pz * rx - px * rz);
+  acc[12] += w_pt * (px * ry - py * rx);
+  acc[13] += w_pt * rx; acc[14] += w_pt * ry; acc[15] += w_pt * rz;
+  const float rv[6] = {py * nz - pz * ny, pz * nx - px * nz,
+                       px * ny - py * nx, nx, ny, nz};
+  int k = 16;
+#pragma unroll
+  for (int u = 0; u < 6; ++u)
+#pragma unroll
+    for (int v = u; v < 6; ++v) acc[k++] += w_pl * rv[u] * rv[v];
+#pragma unroll
+  for (int u = 0; u < 6; ++u) acc[37 + u] += w_pl * rv[u] * s;
+  acc[43] += corr ? 1.0f : 0.0f;
+  acc[44] += w_pl;
+}
+
+// Sum each thread's kGnAcc values over the block into sums (shared):
+// warp shuffles, then one pass over the warps' partials in warp order, so
+// the result does not depend on scheduling. Ends with a barrier.
+template <int kWarps>
+__device__ __forceinline__ void gn_block_sum(const float* acc,
+                                             float (*red)[kGnAcc],
+                                             float* sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kGnAcc; ++k) {
+    float v = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kGnAcc) {
+    float v = 0.0f;
+    for (int w = 0; w < kWarps; ++w) v += red[w][threadIdx.x];
+    sums[threadIdx.x] = v;
+  }
+  __syncthreads();
+}
+
+// The 6x6 normal equations (a, symmetric, and b) from the moment sums m:
+// the point-to-point block [trace I - Spp, hat(Sp); -hat(Sp), Sw I] and
+// [Sum p x r, Sum r], plus the plane rows' sums.
+__device__ __forceinline__ void gn_assemble(const float* m, float (*a)[6],
+                                            float* b) {
+  const float trc = m[4] + m[5] + m[6];
+  for (int u = 0; u < 6; ++u) {
+    b[u] = m[10 + u];
+    for (int v = 0; v < 6; ++v) a[u][v] = 0.0f;
+  }
+  a[0][0] = trc - m[4]; a[1][1] = trc - m[5]; a[2][2] = trc - m[6];
+  a[0][1] = -m[7]; a[0][2] = -m[8]; a[1][2] = -m[9];
+  a[0][4] = -m[3]; a[0][5] = m[2];
+  a[1][3] = m[3]; a[1][5] = -m[1];
+  a[2][3] = -m[2]; a[2][4] = m[1];
+  a[3][3] = m[0]; a[4][4] = m[0]; a[5][5] = m[0];
+  int k = 16;
+  for (int u = 0; u < 6; ++u)
+    for (int v = u; v < 6; ++v) a[u][v] += m[k++];
+  for (int u = 0; u < 6; ++u) b[u] += m[37 + u];
+  for (int u = 0; u < 6; ++u)
+    for (int v = 0; v < u; ++v) a[u][v] = a[v][u];
+}
+
 }  // namespace ptudes

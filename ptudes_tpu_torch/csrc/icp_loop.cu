@@ -27,7 +27,7 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kAcc = 45;  // 16 point moments, 21 + 6 plane sums, corr, w_pl
+constexpr int kAcc = ptudes::kGnAcc;
 
 // scal: kern, max_d2, guess 3x4 row-major (12)                      (14)
 // out:  pose 4x4 row-major (16), n_corr, iters, dev_t, dev_r        (20)
@@ -49,7 +49,7 @@ icp_loop_kernel(const float* __restrict__ src,   // [3, N]
   __shared__ int iters;
   __shared__ float n_corr;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const float kern = scal[0], max_d2 = scal[1];
   if (tid == 0) {
     for (int a = 0; a < 3; ++a) {
@@ -79,86 +79,15 @@ icp_loop_kernel(const float* __restrict__ src,   // [3, N]
       const float px = r[0] * sx + r[1] * sy + r[2] * sz + r[9];
       const float py = r[3] * sx + r[4] * sy + r[5] * sz + r[10];
       const float pz = r[6] * sx + r[7] * sy + r[8] * sz + r[11];
-      float d2min = INFINITY, qx = 0.0f, qy = 0.0f, qz = 0.0f;
-      for (int k = 0; k < c; ++k) {
-        const int o = k * n + p;
-        const float ux = cx[o], uy = cy[o], uz = cz[o];
-        const float dx = ux - px, dy = uy - py, dz = uz - pz;
-        const float d2 = dx * dx + dy * dy + dz * dz + inf[o];
-        if (d2 < d2min) {  // strict: the lowest row wins ties
-          d2min = d2;
-          qx = ux; qy = uy; qz = uz;
-        }
-      }
-      const float nx = feat[p], ny = feat[n + p], nz = feat[2 * n + p];
-      const float ccx = feat[3 * n + p], ccy = feat[4 * n + p],
-                  ccz = feat[5 * n + p];
-      const float quality = feat[6 * n + p], mask = feat[7 * n + p];
-      const bool corr = (mask > 0.0f) && (d2min < 1e30f) && (d2min <= max_d2);
-      const float s = nx * (px - ccx) + ny * (py - ccy) + nz * (pz - ccz);
-      const bool use_pl = corr && (quality >= plane_q);
-      const bool use_pt = corr && !use_pl;
-      const float kp = kern + s * s, kq = kern + d2min;
-      const float w_pl = use_pl ? (kern * kern) / (kp * kp) : 0.0f;
-      const float w_pt = use_pt ? (kern * kern) / (kq * kq) : 0.0f;
-      const float rx = px - qx, ry = py - qy, rz = pz - qz;
-      acc[0] += w_pt;
-      acc[1] += w_pt * px; acc[2] += w_pt * py; acc[3] += w_pt * pz;
-      acc[4] += w_pt * px * px; acc[5] += w_pt * py * py;
-      acc[6] += w_pt * pz * pz;
-      acc[7] += w_pt * px * py; acc[8] += w_pt * px * pz;
-      acc[9] += w_pt * py * pz;
-      acc[10] += w_pt * (py * rz - pz * ry);
-      acc[11] += w_pt * (pz * rx - px * rz);
-      acc[12] += w_pt * (px * ry - py * rx);
-      acc[13] += w_pt * rx; acc[14] += w_pt * ry; acc[15] += w_pt * rz;
-      const float rv[6] = {py * nz - pz * ny, pz * nx - px * nz,
-                           px * ny - py * nx, nx, ny, nz};
-      int k = 16;
-#pragma unroll
-      for (int u = 0; u < 6; ++u)
-#pragma unroll
-        for (int v = u; v < 6; ++v) acc[k++] += w_pl * rv[u] * rv[v];
-#pragma unroll
-      for (int u = 0; u < 6; ++u) acc[37 + u] += w_pl * rv[u] * s;
-      acc[43] += corr ? 1.0f : 0.0f;
-      acc[44] += w_pl;
+      ptudes::gn_point_moments(px, py, pz, p, n, c, feat, cx, cy, cz, inf,
+                               kern, max_d2, plane_q, acc);
     }
-
-#pragma unroll
-    for (int k = 0; k < kAcc; ++k) {
-      float v = acc[k];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) red[warp][k] = v;
-    }
-    __syncthreads();
-    if (tid < kAcc) {
-      float v = 0.0f;
-      for (int w = 0; w < kWarps; ++w) v += red[w][tid];
-      sums[tid] = v;
-    }
-    __syncthreads();
+    ptudes::gn_block_sum<kWarps>(acc, red, sums);
 
     if (tid == 0) {
       const float* m = sums;
-      const float trc = m[4] + m[5] + m[6];
-      float a[6][6] = {};
-      float b[6] = {m[10], m[11], m[12], m[13], m[14], m[15]};
-      // point-to-point block [trace I - Spp, hat(Sp); -hat(Sp), Sw I]
-      a[0][0] = trc - m[4]; a[1][1] = trc - m[5]; a[2][2] = trc - m[6];
-      a[0][1] = -m[7]; a[0][2] = -m[8]; a[1][2] = -m[9];
-      a[0][4] = -m[3]; a[0][5] = m[2];
-      a[1][3] = m[3]; a[1][5] = -m[1];
-      a[2][3] = -m[2]; a[2][4] = m[1];
-      a[3][3] = m[0]; a[4][4] = m[0]; a[5][5] = m[0];
-      int k = 16;
-      for (int u = 0; u < 6; ++u)
-        for (int v = u; v < 6; ++v) a[u][v] += m[k++];
-      for (int u = 0; u < 6; ++u) b[u] += m[37 + u];
-      for (int u = 0; u < 6; ++u)
-        for (int v = 0; v < u; ++v) a[u][v] = a[v][u];
+      float a[6][6], b[6];
+      ptudes::gn_assemble(m, a, b);
       const float tot_w = m[0] + m[44];
       if (prior_rot > 0.0f || prior_trans > 0.0f) {
         // xi = log(T_cur guess^-1)

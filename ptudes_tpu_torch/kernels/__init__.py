@@ -1,7 +1,8 @@
 """Build, load, launch and count the hand-written CUDA kernels.
 
 The sources in ``ptudes_tpu_torch/csrc`` have a plain C interface. At first
-use, ``nvcc`` compiles them for ``sm_90a`` into one shared library under
+use, one ``nvcc`` per source compiles them for ``sm_90a`` in parallel, and a
+last one links the objects into one shared library under
 ``kernels/_build/<hash of the sources>/`` (listed in ``.gitignore``), which
 ``ctypes`` loads. Every entry point takes device pointers and the stream as
 ``c_void_p``, launches on the stream it is given and returns
@@ -31,7 +32,8 @@ CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types, the stream last
@@ -40,8 +42,9 @@ _SIGNATURES = {
     "ptudes_ekf_update": [_P] * 4 + [_I, _P],
     "ptudes_gn_prep": [_P] * 6 + [_I, _I, _F, _P],
     "ptudes_icp_loop": [_P] * 8 + [_I, _I] + [_F] * 4 + [_I, _P],
+    "ptudes_gn_iter": [_P] * 9 + [_I, _I, _F, _P],
 }
-KERNELS = ("ekf_predict", "ekf_update", "gn_prep", "icp_loop")
+KERNELS = ("ekf_predict", "ekf_update", "gn_prep", "icp_loop", "gn_iter")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lib = None
@@ -93,20 +96,45 @@ def build(build_dir: str | None = None) -> str:
         return lib_path
     nvcc = find_nvcc()
     os.makedirs(out_dir, exist_ok=True)
+    cus = [p for p in sources() if p.endswith(".cu")]
+    objs = [os.path.join(out_dir, os.path.basename(p)[:-3] + ".o")
+            for p in cus]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[p for p in sources() if p.endswith(".cu")]]
+    procs = []
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        build_log = r.stdout + r.stderr
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(cus, objs)]
+        logs, failed = [], []
+        for p, proc in zip(cus, procs):
+            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(p)} (rc "
+                              f"{proc.returncode})")
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                               f"{build_log[-4000:]}")
+        r = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                            *objs], capture_output=True, text=True,
+                           timeout=NVCC_TIMEOUT_S)
+        build_log += r.stdout + r.stderr
         if r.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (rc {r.returncode}):\n{build_log[-4000:]}")
+                f"nvcc link failed (rc {r.returncode}):\n"
+                f"{build_log[-4000:]}")
         os.replace(tmp, lib_path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in [tmp, *objs]:
+            if os.path.exists(path):
+                os.unlink(path)
     return lib_path
 
 

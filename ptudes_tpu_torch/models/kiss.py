@@ -3,9 +3,10 @@
 Per scan: deskew by the EKF twist -> range clip -> window pre-dedup on the
 range-image grid -> compaction -> two sort-based first-in-voxel passes
 (0.5 and 1.5 voxel) -> evenly decimated ICP source -> adaptive threshold
--> frozen-candidate robust ICP -> model-deviation statistics -> map insert
-with fused eviction. Every stage has a static shape, so the step never
-synchronises with the host.
+-> cached-candidate robust ICP -> model-deviation statistics -> map insert
+with fused eviction. Every stage has a static shape; the step synchronises
+with the host only in the ICP's candidate-refresh loop (one read per GN
+iteration, ``icp.read_flags``), never with frozen candidates.
 """
 from __future__ import annotations
 
@@ -70,7 +71,7 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
                   ts01: torch.Tensor, *, cfg: KissConfig, cap: Capacity,
                   initial_guess: torch.Tensor, deskew_twist: torch.Tensor,
                   update_ok: torch.Tensor, grid_hw: tuple[int, int],
-                  insert_overflow: bool = True
+                  insert_overflow: bool | str = True
                   ) -> tuple[KissState, torch.Tensor, KissAux]:
     """Register one scan at the given guess; returns (new state, pose,
     diagnostics). ``update_ok`` (scalar bool) gates all state mutation
@@ -99,7 +100,8 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
         prior_rot_weight=cfg.prior_rot_weight,
         prior_trans_weight=cfg.prior_trans_weight,
         neighborhood=cfg.nn_neighborhood, n_voxels=cfg.nn_voxels,
-        plane_radius=cfg.plane_fit_radius, form=cfg.icp_form)
+        plane_radius=cfg.plane_fit_radius,
+        refresh_drift=cfg.nn_refresh_drift, form=cfg.icp_form)
     new_pose = res.pose
 
     err = model_error(res.dev_t, res.dev_r, cfg.max_range)

@@ -7,7 +7,8 @@ guess -> map insert -> EKF pose update -> one packed output row. Scans
 with no IMU samples are skipped as masked updates. The same entry points
 as the JAX package: :func:`init_state`, :func:`build_batches`,
 :func:`run_sequence`; here ``run_sequence`` is a Python loop over scans
-whose steps never synchronise with the host.
+whose steps synchronise with the host only in the ICP's candidate-refresh
+loop (``nn_refresh_drift > 0``: one small read per GN iteration).
 """
 from __future__ import annotations
 
@@ -94,11 +95,13 @@ def init_state(cfg: PipelineConfig, device="cpu") -> LioState:
 
 
 def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
-                   insert_overflow: bool = True):
+                   insert_overflow: bool | str = True):
     """The scan step closure over the projection LUT: (state, one scan of
     the batch) -> (state, packed output row). ``insert_overflow=True`` is
-    the bootstrap body (whole frame inserted as one chunk), ``False`` the
-    steady body (decimated to ``cap.max_new_per_scan``)."""
+    the bootstrap body (whole frame inserted as one chunk); the steady
+    body takes ``cfg.steady_insert_mode``: ``"cond"`` inserts every new
+    point in chunks of ``cap.max_new_per_scan``, ``False`` decimates them
+    to one such chunk."""
     check_supported(cfg)
     h, w = lut.direction.shape[:2]
 

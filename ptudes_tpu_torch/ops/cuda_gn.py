@@ -1,10 +1,15 @@
-"""K3: the per-point patch plane fit over the gathered ICP candidates
-(``csrc/gn_prep.cu``), the counterpart of
-``ptudes_tpu.ops.pallas_gn.prep_with_plane_pallas``.
+"""The ICP candidate kernels on the lane-major [C, N] layout:
 
-The candidates are transposed ONCE per registration to the lane-major
-[C, N] layout both K3 and the ICP loop K4 read; the plane fit then emits
-the feat rows (normal, centroid, quality, source mask).
+- K3, the per-point patch plane fit over the gathered candidates
+  (``csrc/gn_prep.cu``), the counterpart of
+  ``ptudes_tpu.ops.pallas_gn.prep_with_plane_pallas``;
+- K5, one robust GN build against prepped candidates (``csrc/gn_iter.cu``),
+  the counterpart of ``ptudes_tpu.ops.pallas_gn.gn_prepped_pallas``.
+
+The candidates are transposed ONCE per gather to the lane-major layout K3,
+K4 and K5 read; the feat rows (normal, centroid, quality, source mask) come
+from K3 on the frozen path and from the gather's own plane fit
+(:func:`prep_candidates`) on the refresh path.
 """
 from __future__ import annotations
 
@@ -14,9 +19,11 @@ import numpy as np
 import torch
 
 from .. import kernels
+from .icp import CandidateSet, gn_from_candidates
 from .plane import smallest_eigvec_sym3
 
 _F32 = torch.float32
+GN_BLOCK = 128  # points per CTA of K5 (csrc/gn_iter.cu:kThreads)
 
 
 class PreppedCandidates(NamedTuple):
@@ -77,3 +84,72 @@ def prep_with_plane(cand, source_mask: torch.Tensor, q_w: torch.Tensor,
         kernels.ptr(inf, "inf"), kernels.ptr(feat, "feat"), n, c,
         _radius2(radius))
     return PreppedCandidates(feat, cx, cy, cz, inf)
+
+
+def prep_candidates(cand, source_mask: torch.Tensor, *,
+                    loss: str = "plane") -> PreppedCandidates:
+    """The lane-major candidates with the feat rows taken from ``cand``'s
+    own patch plane fit (``pallas_gn.prep_candidates``); ``loss="point"``
+    sets quality -1, so no correspondence takes the plane row."""
+    n = cand.pts.shape[0]
+    if loss == "plane":
+        normal, centroid, quality = cand.normal, cand.centroid, cand.quality
+    else:
+        normal = torch.zeros((n, 3), dtype=_F32, device=cand.pts.device)
+        centroid = normal
+        quality = torch.full((n,), -1.0, dtype=_F32, device=cand.pts.device)
+    feat = torch.cat([normal, centroid, quality[:, None],
+                      source_mask.to(_F32)[:, None]], 1).T.contiguous()
+    return PreppedCandidates(feat, *lane_major(cand))
+
+
+def candidates_from_prepped(prepped: PreppedCandidates
+                            ) -> tuple[CandidateSet, torch.Tensor]:
+    """The inverse of the lane-major prep: (CandidateSet, source mask)."""
+    f = prepped.feat
+    cand = CandidateSet(
+        pts=torch.stack([prepped.cx.T, prepped.cy.T, prepped.cz.T], -1),
+        valid=(prepped.inf == 0).T, normal=f[0:3].T, centroid=f[3:6].T,
+        quality=f[6])
+    return cand, f[7] > 0
+
+
+def gn_prepped_torch(t_cur: torch.Tensor, source: torch.Tensor,
+                     prepped: PreppedCandidates, kernel: torch.Tensor,
+                     max_d2: torch.Tensor, *, plane_min_quality: float):
+    """K5's plain twin: ``icp.gn_from_candidates`` on the candidates the
+    prepped tensors hold. Returns (jtj [6, 6], jtr [6], n_corr int32,
+    total weight)."""
+    cand, mask = candidates_from_prepped(prepped)
+    return gn_from_candidates(t_cur, source, mask, cand, kernel, max_d2,
+                              plane_min_quality=plane_min_quality)
+
+
+def gn_prepped(t_cur: torch.Tensor, source: torch.Tensor,
+               prepped: PreppedCandidates, kernel: torch.Tensor,
+               max_d2: torch.Tensor, *, plane_min_quality: float):
+    """K5: CUDA tensors launch ``gn_iter``; CPU tensors take the twin.
+    The kernel transforms ``source`` [N, 3] by ``t_cur`` itself."""
+    if kernels.device_kind(source, "gn_iter") == "cpu":
+        return gn_prepped_torch(t_cur, source, prepped, kernel, max_d2,
+                                plane_min_quality=plane_min_quality)
+    c, n = prepped.cx.shape
+    if source.shape != (n, 3) or prepped.feat.shape != (8, n) or any(
+            x.shape != (c, n) for x in prepped[2:]):
+        raise ValueError(
+            f"gn_iter: source {tuple(source.shape)}, feat "
+            f"{tuple(prepped.feat.shape)}, candidates {c} x {n}")
+    scal = torch.cat([kernel.reshape(1), max_d2.reshape(1),
+                      t_cur[:3].reshape(12)]).to(_F32)
+    partial = torch.empty(-(-n // GN_BLOCK) * 45, dtype=_F32,
+                          device=source.device)
+    out = torch.empty(44, dtype=_F32, device=source.device)
+    kernels.launch(
+        "gn_iter", kernels.ptr(source, "source"),
+        kernels.ptr(prepped.feat, "feat"), kernels.ptr(prepped.cx, "cx"),
+        kernels.ptr(prepped.cy, "cy"), kernels.ptr(prepped.cz, "cz"),
+        kernels.ptr(prepped.inf, "inf"), kernels.ptr(scal, "scal"),
+        kernels.ptr(partial, "partial"), kernels.ptr(out, "out"), n, c,
+        plane_min_quality)
+    return (out[:36].reshape(6, 6), out[36:42], out[42].to(torch.int32),
+            out[43])

@@ -14,9 +14,8 @@ import torch
 
 from .. import kernels
 from ..geom import se3, so3
-from ..geom.linalg import solve_spd6
-from .cuda_gn import PreppedCandidates
-from .icp import CandidateSet, gn_from_candidates
+from .cuda_gn import PreppedCandidates, candidates_from_prepped
+from .icp import gn_from_candidates, gn_twist
 
 _F32 = torch.float32
 
@@ -29,18 +28,8 @@ def icp_loop_torch(source: torch.Tensor, prepped: PreppedCandidates,
     """K4's plain twin: ``max_iterations`` GN steps, each masked once
     converged, so the step count never depends on data (no host sync)."""
     dev = source.device
-    f = prepped.feat
-    cand = CandidateSet(
-        pts=torch.stack([prepped.cx.T, prepped.cy.T, prepped.cz.T], -1),
-        valid=(prepped.inf == 0).T, normal=f[0:3].T, centroid=f[3:6].T,
-        quality=f[6])
-    mask = f[7] > 0
+    cand, mask = candidates_from_prepped(prepped)
     ginv = se3.inv(guess)
-    eye6 = torch.eye(6, dtype=_F32, device=dev)
-    wvec = torch.cat([torch.full((3,), prior_rot_weight, dtype=_F32,
-                                 device=dev),
-                      torch.full((3,), prior_trans_weight, dtype=_F32,
-                                 device=dev)])
     t_cur = guess
     conv = torch.zeros((), dtype=torch.bool, device=dev)
     n_corr = torch.zeros((), dtype=torch.int32, device=dev)
@@ -49,12 +38,9 @@ def icp_loop_torch(source: torch.Tensor, prepped: PreppedCandidates,
         jtj, jtr, corr_n, total_w = gn_from_candidates(
             t_cur, source, mask, cand, kernel, max_d2,
             plane_min_quality=plane_min_quality)
-        if prior_rot_weight > 0.0 or prior_trans_weight > 0.0:
-            xi = se3.log_pose(t_cur @ ginv)
-            wp = total_w * wvec
-            jtj = jtj + torch.diag(wp)
-            jtr = jtr + wp * xi
-        dx = solve_spd6(jtj + 1e-8 * eye6, -jtr)
+        dx = gn_twist(t_cur, ginv, jtj, jtr, total_w,
+                      prior_rot_weight=prior_rot_weight,
+                      prior_trans_weight=prior_trans_weight)
         dx = torch.where(conv, 0.0, dx)
         t_cur = se3.exp_twist(dx) @ t_cur
         iters = torch.where(conv, iters, iters + 1)

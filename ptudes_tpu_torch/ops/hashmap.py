@@ -110,62 +110,16 @@ def _popcount_below(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return (((x + (x >> 4)) & 0x0F0F0F0F) * 0x01010101) >> 24
 
 
-def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
-                   *, voxel_size: float, max_probes: int = 2,
-                   new_capacity: int = 8192, overflow: bool = True,
-                   evict_origin: torch.Tensor | None = None,
-                   evict_r2: torch.Tensor | None = None) -> VoxelHashMap:
-    """Occupancy-deduped insert of points unique at voxel_size/2, with the
-    distance eviction fused into the meta rebuild.
-
-    The two forms of the main path: ``overflow=True`` with the whole frame
-    as ONE chunk (``new_capacity >= len(pts)``: the bootstrap scans), and
-    ``overflow=False``, where the new points decimate evenly to
-    ``new_capacity`` and the rest retry on the next scan. The chunk loop of
-    the JAX package (``overflow=True`` over several chunks, ``"cond"``) is
-    not ported.
-    """
-    cap, ppv = m.meta.shape[0], m.points.shape[1]
-    n = pts.shape[0]
-    assert ppv >= 8 and cap & (cap - 1) == 0
-    n_chunks = -(-n // new_capacity)
-    if overflow is not False and (overflow is not True or n_chunks > 1):
-        raise NotImplementedError(
-            f"insert_deduped(overflow={overflow!r}) over {n_chunks} chunks "
-            "(the chunk loop) is not ported; see ROADMAP.md")
+def _insert_chunk(state, pts: torch.Tensor, payload: torch.Tensor,
+                  chunk: torch.Tensor, *, voxel_size: float, max_probes: int,
+                  new_capacity: int):
+    """Claim + write one compacted chunk of new points into ``state``, the
+    (fps, counts, occupancy, reps, points) columns with their spare rows.
+    A chunk with an empty mask writes only to the spare rows."""
+    fps, counts, occ_col, reps, points = state
+    cap = fps.shape[0] - 1
+    ppv = points.shape[1]
     dev = pts.device
-
-    coords = voxel_coords(pts, voxel_size)
-    sub = voxel_coords(pts, 0.5 * voxel_size) - 2 * coords
-    sub_id = sub[:, 0] + 2 * sub[:, 1] + 4 * sub[:, 2]
-    fp, h0 = _fingerprint_and_slot(coords, cap)
-
-    # phase A: one meta-row gather per probe -> fingerprint + occupancy
-    slot = torch.full((n,), cap, dtype=torch.int32, device=dev)
-    occ = torch.zeros((n,), dtype=torch.int32, device=dev)
-    found = torch.zeros((n,), dtype=torch.bool, device=dev)
-    free_seen = torch.zeros((n,), dtype=torch.bool, device=dev)
-    for r in range(max_probes):
-        s = (h0 + r) & (cap - 1)
-        rows = m.meta[s.long()]
-        match = (rows[:, 0] == fp) & ~found
-        slot = torch.where(match, s, slot)
-        occ = torch.where(match, rows[:, 5], occ)
-        found = found | match
-        free_seen = free_seen | (rows[:, 0] == 0)
-    # storable-new points: a free octant of an existing voxel, or a free
-    # slot to claim somewhere in the probe chain
-    is_new = mask & torch.where(found, ((occ >> sub_id) & 1) == 0, free_seen)
-    new_pos = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
-    if n_chunks == 1:
-        chunk = is_new & (new_pos < new_capacity)
-    else:
-        assert n * new_capacity < 2 ** 31
-        n_new = torch.clamp(is_new.to(torch.int32).sum(), min=1)
-        chunk = is_new & (torch.remainder(new_pos * new_capacity, n_new)
-                          < new_capacity)
-
-    payload = torch.stack([slot, found.to(torch.int32)], 1)
     cpts, cpay, cmask = compact_with_payload(pts, payload, chunk,
                                              new_capacity)
     cslot = torch.where(cmask, cpay[:, 0], cap)
@@ -176,12 +130,6 @@ def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
                           0)
     cfp, ch0 = _fingerprint_and_slot(ccoords, cap)
     cidx = torch.arange(new_capacity, dtype=torch.int32, device=dev)
-
-    fps = _spare(m.meta[:, 0])
-    counts = _spare(m.meta[:, 1])
-    occ_col = _spare(m.meta[:, 5])
-    reps = _spare(m.meta[:, 2:5])
-    points = _spare(m.points)
 
     # claim rounds for points whose voxel does not exist yet
     resolved = ~cmask | cfound
@@ -219,9 +167,81 @@ def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
     rep_tgt = torch.where(accept & (write_pos == 0), cslot, cap).long()
     rep_tgt = torch.where(_last_writer(rep_tgt), rep_tgt, cap)
     reps = reps.index_put((rep_tgt,), cpts.view(torch.int32))
+    return fps, counts, occ_col, reps, points
 
-    fps, counts, occ_col, reps = fps[:cap], counts[:cap], occ_col[:cap], \
-        reps[:cap]
+
+def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
+                   *, voxel_size: float, max_probes: int = 2,
+                   new_capacity: int = 8192, overflow: bool | str = True,
+                   evict_origin: torch.Tensor | None = None,
+                   evict_r2: torch.Tensor | None = None) -> VoxelHashMap:
+    """Occupancy-deduped insert of points unique at voxel_size/2, with the
+    distance eviction fused into the meta rebuild.
+
+    The new points go in chunks of ``new_capacity``. ``overflow=True`` or
+    ``"cond"``: every new point, the first chunk holding the first
+    ``new_capacity`` of them and the rest following chunk by chunk (the
+    exact insert). ``overflow=False``: one chunk, the new points decimated
+    evenly to ``new_capacity``; the rest retry on the next scan.
+
+    The JAX package runs the overflow chunks in a loop whose trip count
+    depends on the data (under a ``lax.cond`` for ``"cond"``). Here all
+    ``ceil(len(pts) / new_capacity) - 1`` of them always run, each masked
+    to its slice of the new points, so the step never reads the count on
+    the host; a chunk with no points writes only to the spare rows, so the
+    tables are the same, and ``True`` and ``"cond"`` are one path.
+    """
+    cap, ppv = m.meta.shape[0], m.points.shape[1]
+    n = pts.shape[0]
+    assert ppv >= 8 and cap & (cap - 1) == 0
+    n_chunks = -(-n // new_capacity)
+    dev = pts.device
+
+    coords = voxel_coords(pts, voxel_size)
+    sub = voxel_coords(pts, 0.5 * voxel_size) - 2 * coords
+    sub_id = sub[:, 0] + 2 * sub[:, 1] + 4 * sub[:, 2]
+    fp, h0 = _fingerprint_and_slot(coords, cap)
+
+    # phase A: one meta-row gather per probe -> fingerprint + occupancy
+    slot = torch.full((n,), cap, dtype=torch.int32, device=dev)
+    occ = torch.zeros((n,), dtype=torch.int32, device=dev)
+    found = torch.zeros((n,), dtype=torch.bool, device=dev)
+    free_seen = torch.zeros((n,), dtype=torch.bool, device=dev)
+    for r in range(max_probes):
+        s = (h0 + r) & (cap - 1)
+        rows = m.meta[s.long()]
+        match = (rows[:, 0] == fp) & ~found
+        slot = torch.where(match, s, slot)
+        occ = torch.where(match, rows[:, 5], occ)
+        found = found | match
+        free_seen = free_seen | (rows[:, 0] == 0)
+    # storable-new points: a free octant of an existing voxel, or a free
+    # slot to claim somewhere in the probe chain
+    is_new = mask & torch.where(found, ((occ >> sub_id) & 1) == 0, free_seen)
+    new_pos = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
+    if overflow is not False or n_chunks == 1:
+        first = is_new & (new_pos < new_capacity)
+    else:
+        assert n * new_capacity < 2 ** 31
+        n_new = torch.clamp(is_new.to(torch.int32).sum(), min=1)
+        first = is_new & (torch.remainder(new_pos * new_capacity, n_new)
+                          < new_capacity)
+
+    payload = torch.stack([slot, found.to(torch.int32)], 1)
+    state = (_spare(m.meta[:, 0]), _spare(m.meta[:, 1]),
+             _spare(m.meta[:, 5]), _spare(m.meta[:, 2:5]), _spare(m.points))
+    kw = dict(voxel_size=voxel_size, max_probes=max_probes,
+              new_capacity=new_capacity)
+    state = _insert_chunk(state, pts, payload, first, **kw)
+    if overflow is not False:
+        for c in range(1, n_chunks):
+            lo = c * new_capacity
+            state = _insert_chunk(
+                state, pts, payload,
+                is_new & (new_pos >= lo) & (new_pos < lo + new_capacity),
+                **kw)
+
+    fps, counts, occ_col, reps, points = (x[:cap] for x in state)
     if evict_origin is not None:
         d2 = torch.sum((reps.view(torch.float32) - evict_origin) ** 2, -1)
         evict = (counts > 0) & (d2 > evict_r2)
@@ -230,4 +250,4 @@ def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
         occ_col = torch.where(evict, 0, occ_col)
     meta = torch.cat([fps[:, None], counts[:, None], reps, occ_col[:, None],
                       m.meta[:, 6:]], 1)
-    return VoxelHashMap(meta=meta, points=points[:cap])
+    return VoxelHashMap(meta=meta, points=points)

@@ -1,12 +1,20 @@
-"""Robust ICP against the voxel hash map, frozen-candidate form
+"""Robust ICP against the voxel hash map, cached-candidate form
 (``ptudes_tpu.ops.icp``).
 
-Per registration: gather each source point's candidates ONCE at the guess
-pose (top-V voxels of its neighbourhood by representative distance), fit a
-patch plane per point (K3, ``ops.cuda_gn``), then run the whole robust
-point-to-plane / point-to-point Gauss-Newton loop against the frozen
-candidates (K4, ``ops.cuda_icp``). ``KissConfig.icp_form`` says whether the
-two kernels or their plain PyTorch twins run.
+Per registration: gather each source point's candidates at the guess pose
+(top-V voxels of its neighbourhood by representative distance) with a
+patch plane per point, then run the robust point-to-plane / point-to-point
+Gauss-Newton loop against them. Two forms:
+
+- frozen candidates (``refresh_drift == 0``): one gather, the plane fit in
+  K3 and the whole loop in K4 (``ops.cuda_gn``, ``ops.cuda_icp``);
+- refresh (``refresh_drift > 0``): a host loop of GN builds (K5,
+  ``ops.cuda_gn.gn_prepped``) that re-gathers the candidates whenever the
+  pose has drifted ``refresh_drift`` voxels from the pose they were
+  gathered at.
+
+``KissConfig.icp_form`` says whether the kernels or their plain PyTorch
+twins run.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..geom import se3, so3
+from ..geom.linalg import solve_spd6
 from . import hashmap
 from .plane import smallest_eigvec_sym3
 from .voxel import voxel_coords
@@ -162,7 +171,64 @@ def gn_from_candidates(t_cur: torch.Tensor, source: torch.Tensor,
     jw = j * w_pt[:, None, None]
     jtj = torch.einsum("nij,nik->jk", jw, j) + jtj_pl
     jtr = torch.einsum("nij,ni->j", jw, r_vec) + jtr_pl
-    return jtj, jtr, corr.to(torch.int32).sum(), w_pt.sum() + w_pl.sum()
+    return jtj, jtr, corr.sum(dtype=torch.int32), w_pt.sum() + w_pl.sum()
+
+
+def drift_metric(t_gather: torch.Tensor, t_cur: torch.Tensor
+                 ) -> torch.Tensor:
+    """Worst-case candidate staleness: translation + rotation sweep at a
+    nominal 17.5 m lever arm (half a typical clip range)."""
+    rel = se3.inv(t_gather) @ t_cur
+    dt = torch.linalg.vector_norm(se3.trans(rel))
+    theta = torch.linalg.vector_norm(so3.log_rotmat(se3.rot(rel)))
+    return dt + theta * 0.5 * 35.0
+
+
+def gn_twist(t_cur: torch.Tensor, guess_inv: torch.Tensor,
+             jtj: torch.Tensor, jtr: torch.Tensor, total_w: torch.Tensor, *,
+             prior_rot_weight: float, prior_trans_weight: float
+             ) -> torch.Tensor:
+    """The GN update twist: the motion prior toward the guess (weighted by
+    the total robust weight), a 1e-8 Tikhonov floor, the 6x6 solve."""
+    dev = jtj.device
+    if prior_rot_weight > 0.0 or prior_trans_weight > 0.0:
+        xi = se3.log_pose(t_cur @ guess_inv)
+        wp = total_w * torch.cat([
+            torch.full((3,), prior_rot_weight, dtype=torch.float32,
+                       device=dev),
+            torch.full((3,), prior_trans_weight, dtype=torch.float32,
+                       device=dev)])
+        jtj = jtj + torch.diag(wp)
+        jtr = jtr + wp * xi
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    return solve_spd6(jtj + 1e-8 * eye6, -jtr)
+
+
+# the refresh loop's device-to-host reads (read_flags) and re-gathers
+# since the last reset_refresh_counts()
+REFRESH_COUNTS = {"host_reads": 0, "regathers": 0}
+
+
+def reset_refresh_counts() -> None:
+    for k in REFRESH_COUNTS:
+        REFRESH_COUNTS[k] = 0
+
+
+def read_flags(flags: torch.Tensor) -> list[bool]:
+    """Copy the small bool tensor ``flags`` to the host and count the read.
+
+    On a CUDA tensor this synchronises with the card: it is the refresh
+    loop's one read per iteration, and the one place that lifts
+    ``torch.cuda.set_sync_debug_mode("error")`` (restored on return)."""
+    REFRESH_COUNTS["host_reads"] += 1
+    if flags.device.type != "cuda":
+        return [bool(x) for x in flags.tolist()]
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        return [bool(x) for x in flags.tolist()]
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
 
 def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
@@ -176,16 +242,30 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
                           prior_trans_weight: float = 0.0,
                           neighborhood: int = 27, n_voxels: int = 4,
                           plane_radius: float | None = None,
+                          refresh_drift: float = 0.0,
                           form: str = "torch") -> IcpResult:
-    """Gather-once robust GN ICP with frozen candidates, plane loss.
+    """Cached-candidate robust GN ICP, plane loss.
 
-    ``form="cuda"``: the candidate prep (K3) and the loop (K4) run through
-    their kernel wrappers (which take the twins for CPU tensors);
-    ``"torch"``: the twins on any device."""
+    ``refresh_drift == 0``: the candidates gathered at the guess stay
+    frozen; ``form="cuda"`` runs the candidate prep (K3) and the loop (K4)
+    through their kernel wrappers (which take the twins for CPU tensors),
+    ``"torch"`` the twins on any device. ``refresh_drift > 0``:
+    :func:`_register_refresh`."""
     from . import cuda_gn, cuda_icp
     if form not in ("cuda", "torch"):
         raise ValueError(f"unknown icp form {form!r}")
     guess = initial_guess.to(torch.float32)
+    if refresh_drift > 0.0:
+        return _register_refresh(
+            source, source_mask, vmap_, guess, max_distance * max_distance,
+            kernel, voxel_size=voxel_size, max_probes=max_probes,
+            max_iterations=max_iterations, convergence=convergence,
+            plane_min_quality=plane_min_quality,
+            prior_rot_weight=prior_rot_weight,
+            prior_trans_weight=prior_trans_weight,
+            neighborhood=neighborhood, n_voxels=n_voxels,
+            plane_radius=plane_radius, refresh_drift=refresh_drift,
+            form=form)
     q_w = se3.transform(guess, source)
     cand = gather_candidates(
         vmap_, q_w, voxel_size=voxel_size, max_probes=max_probes,
@@ -201,3 +281,61 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
         max_iterations=max_iterations, prior_rot_weight=prior_rot_weight,
         prior_trans_weight=prior_trans_weight)
     return IcpResult(pose, n_corr, iters, dev_t, dev_r)
+
+
+def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
+                      voxel_size, max_probes, max_iterations, convergence,
+                      plane_min_quality, prior_rot_weight,
+                      prior_trans_weight, neighborhood, n_voxels,
+                      plane_radius, refresh_drift, form) -> IcpResult:
+    """The refresh loop (``ptudes_tpu.ops.icp.register_frame_cached`` with
+    ``refresh_drift > 0``). Per iteration: stale check; re-gather at the
+    current pose if stale; one GN build (K5 or its twin); prior, Tikhonov
+    floor, solve, SE(3) update; convergence.
+
+    The JAX package runs this as a ``while_loop`` around a ``lax.cond``.
+    Here the loop is on the host, and from the second iteration on it
+    reads both predicates ("not converged", "stale") from the card at once
+    through :func:`read_flags`: at most one read per iteration. Everything
+    else stays on the card. The candidates are prepped once per gather."""
+    from . import cuda_gn
+    gn = cuda_gn.gn_prepped if form == "cuda" else cuda_gn.gn_prepped_torch
+    refresh_th = refresh_drift * voxel_size
+
+    def fetch(t_at):
+        cand = gather_candidates(
+            vmap_, se3.transform(t_at, source), voxel_size=voxel_size,
+            max_probes=max_probes, neighborhood=neighborhood,
+            n_voxels=n_voxels, fit_planes=True, plane_radius=plane_radius)
+        return cuda_gn.prep_candidates(cand, source_mask)
+
+    guess_inv = se3.inv(guess)
+    prepped = fetch(guess)
+    t_cur = t_gather = guess
+    n_corr = torch.zeros((), dtype=torch.int32, device=source.device)
+    iters = 0
+    while iters < max_iterations:
+        if iters > 0:
+            go, stale = read_flags(torch.stack(
+                [~converged, drift_metric(t_gather, t_cur) > refresh_th]))
+            if not go:
+                break
+            if stale:
+                prepped = fetch(t_cur)
+                t_gather = t_cur
+                REFRESH_COUNTS["regathers"] += 1
+        jtj, jtr, n_corr, total_w = gn(t_cur, source, prepped, kernel,
+                                       max_d2,
+                                       plane_min_quality=plane_min_quality)
+        dx = gn_twist(t_cur, guess_inv, jtj, jtr, total_w,
+                      prior_rot_weight=prior_rot_weight,
+                      prior_trans_weight=prior_trans_weight)
+        t_cur = se3.exp_twist(dx) @ t_cur
+        converged = torch.linalg.vector_norm(dx) < convergence
+        iters += 1
+    dev_pose = guess_inv @ t_cur
+    return IcpResult(
+        t_cur, n_corr,
+        torch.full((), iters, dtype=torch.int32, device=source.device),
+        torch.linalg.vector_norm(se3.trans(dev_pose)),
+        torch.linalg.vector_norm(so3.log_rotmat(se3.rot(dev_pose))))

@@ -76,6 +76,10 @@ def test_wrappers_take_the_twin_on_cpu_and_count_nothing():
     kw = dict(plane_min_quality=0.2, max_iterations=5, prior_rot_weight=0.01,
               prior_trans_weight=0.01)
     _same(cuda_icp.icp_loop(*args, **kw), cuda_icp.icp_loop_torch(*args, **kw))
+    gn_args = (torch.eye(4), src, cuda_gn.prep_candidates(cand, mask),
+               torch.tensor(0.1), torch.tensor(0.25))
+    _same(cuda_gn.gn_prepped(*gn_args, plane_min_quality=0.2),
+          cuda_gn.gn_prepped_torch(*gn_args, plane_min_quality=0.2))
     assert kernels.LAUNCHES == {name: 0 for name in kernels.KERNELS}
 
 
@@ -84,6 +88,12 @@ def test_other_devices_raise():
     meta = esekf.EkfState(*[x.to("meta") for x in s])
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_ekf.predict_block(meta, imus, valid, cfg=cfg)
+    with pytest.raises(ValueError, match="unsupported device"):
+        src, mask, cand = _icp_inputs()
+        cuda_gn.gn_prepped(torch.eye(4), src.to("meta"),
+                           cuda_gn.prep_candidates(cand, mask),
+                           torch.tensor(0.1), torch.tensor(0.25),
+                           plane_min_quality=0.2)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.ptr(torch.zeros(3), "x")
 
@@ -110,4 +120,7 @@ def test_build_is_keyed_by_the_sources():
     assert len(h) == 16 and h == kernels.source_hash()
     names = {p.rsplit("/", 1)[-1] for p in kernels.sources()}
     assert {"ekf_predict.cu", "ekf_update.cu", "gn_prep.cu",
-            "icp_loop.cu", "common.cuh"} <= names
+            "icp_loop.cu", "gn_iter.cu", "common.cuh"} <= names
+    assert set(kernels.KERNELS) == set(kernels.LAUNCHES)
+    assert {f"ptudes_{name}" for name in kernels.KERNELS} \
+        == set(kernels._SIGNATURES)

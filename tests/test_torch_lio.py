@@ -52,8 +52,9 @@ def jax_config(**kw):
         scan_unroll=1, **kw)
 
 
-@pytest.fixture(scope="module")
-def run():
+def render_scene():
+    """(sensor, scans, scan_ts, imu_ts, imu, gt_mid) of the 32 x 256
+    scene, from seeds."""
     ts = np.arange(N_SCANS + 1) * 0.1
     sweep = sim.circle_poses_at(ts, radius=8.0, speed=2.0, ramp=1.0)
     world = sim.make_sim_world(seed=0, extent=25.0, n_boxes=40,
@@ -68,7 +69,12 @@ def run():
     scan_ts = ts[:N_SCANS] + 0.1
     gt_mid = sim.circle_poses_at(ts[:N_SCANS] + 0.05, radius=8.0, speed=2.0,
                                  ramp=1.0)
+    return sensor, scans, scan_ts, imu_ts, imu, gt_mid
 
+
+@pytest.fixture(scope="module")
+def run():
+    sensor, scans, scan_ts, imu_ts, imu, gt_mid = render_scene()
     jcfg = jax_config()
     jb = jlio.build_batches(jcfg, scans, scan_ts, imu.lacc, imu.avel,
                             imu_ts)
@@ -145,8 +151,7 @@ def test_cuda_device_is_not_a_fallback():
 
 @pytest.mark.parametrize("change", [
     dict(guess="kiss"), dict(deskew_mode="kiss"), dict(col_decimation=2),
-    dict(map_frozen=True), dict(steady_insert_mode="cond"),
-    dict(kiss=dict(nn_mode="every")), dict(kiss=dict(nn_refresh_drift=0.5)),
+    dict(map_frozen=True), dict(kiss=dict(nn_mode="every")),
     dict(ekf=dict(predict_batch="assoc")),
 ])
 def test_unported_options_raise(run, change):
@@ -182,6 +187,45 @@ def test_bench_config_matches_bench_py():
     b = {k: v for k, v in dataclasses.asdict(j).items()
          if k not in ("kiss", "cap", "ekf", "scan_unroll")}
     assert a == b
+
+
+def test_cli_config_matches_the_cli():
+    """The port's cli_config carries the configuration that ``ekf-bench
+    ouster --use-imu-prediction`` builds (ptudes_tpu/cli/main.py:441-452,
+    rebuilt here with no other flags); only the JAX-only knobs are dropped
+    and the kernel forms renamed (the command's TPU branch picks the
+    predict kernel; the ICP kernels are the refresh path's)."""
+    from ptudes_tpu.config import Capacity, EkfConfig, KissConfig, \
+        PipelineConfig
+    h, w = 128, 1024
+    j = PipelineConfig(
+        kiss=KissConfig(max_range=70.0, min_range=1.0, deskew=True,
+                        loss="plane", voxel_size=None),
+        cap=Capacity(max_points=h * w),
+        ekf=EkfConfig(predict_batch="pallas"),
+        guess="ekf", map_frozen=False)
+    p = config.cli_config(h, w)
+    forms = {"icp_form": ("cuda", None), "predict_batch": ("cuda", "pallas"),
+             "update_form": ("xla", "xla")}
+    for part in ("kiss", "cap", "ekf"):
+        a, b = dataclasses.asdict(getattr(p, part)), \
+            dataclasses.asdict(getattr(j, part))
+        for k in ("gn_backend", "gn_unroll"):
+            b.pop(k, None)
+        for k, (pv, jv) in forms.items():
+            if k in a:
+                assert a.pop(k) == pv
+                assert b.pop(k, None) == jv
+        assert a == b, part
+    a = {k: v for k, v in dataclasses.asdict(p).items()
+         if k not in ("kiss", "cap", "ekf")}
+    b = {k: v for k, v in dataclasses.asdict(j).items()
+         if k not in ("kiss", "cap", "ekf", "scan_unroll")}
+    assert a == b
+    config.check_supported(p)
+    twin = config.twin_config(p)
+    assert (twin.kiss.icp_form, twin.ekf.predict_batch,
+            twin.ekf.update_form) == ("torch", "unroll", "xla")
 
 
 def test_filter_log_is_not_ported(run):

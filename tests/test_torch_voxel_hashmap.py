@@ -157,19 +157,6 @@ def test_map_tables_bit_exact_after_bootstrap_and_steady_inserts():
     assert int(evicted.sum()) > 100 and int(hashmap.num_points(pm)) > 1000
 
 
-def test_chunk_loop_is_not_ported():
-    pm = hashmap.create(1 << 10, 8, "cpu")
-    pts = torch.zeros((64, 3))
-    with pytest.raises(NotImplementedError):
-        hashmap.insert_deduped(pm, pts, torch.ones(64, dtype=torch.bool),
-                               voxel_size=0.3, new_capacity=16,
-                               overflow=True)
-    with pytest.raises(NotImplementedError):
-        hashmap.insert_deduped(pm, pts, torch.ones(64, dtype=torch.bool),
-                               voxel_size=0.3, new_capacity=16,
-                               overflow="cond")
-
-
 def test_unpack_points_matches_jax():
     rng = np.random.default_rng(7)
     packed = rng.integers(0, 2 ** 30, (100, 8)).astype(np.int32)

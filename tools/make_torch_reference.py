@@ -3,17 +3,23 @@ port to on the card (which has no JAX).
 
 Renders the bench scene with the port's numpy sim (``sim.bench_scene``:
 the ``bench.py:make_data`` scene, 50 scans of 128 x 1024), runs the JAX
-package's ``lio.run_sequence`` at ``bench.py:bench_config`` on the CPU with
-the XLA forms of the four kernels (``predict_batch="unroll"``,
-``update_form="xla"``, ``gn_backend="jnp"``), and writes one row of 12
-floats (the 3 x 4 top of each pose, row-major) per scan, after a header
-with the configuration and the JAX ATE RMSE.
+package's ``lio.run_sequence`` on the CPU with the XLA forms of the kernels
+(``predict_batch="unroll"``, ``update_form="xla"``, ``gn_backend="jnp"``),
+and writes one row of 12 floats (the 3 x 4 top of each pose, row-major) per
+scan, after a header with the configuration and the JAX ATE RMSE.
 
     JAX_PLATFORMS=cpu python tools/make_torch_reference.py \
-        [tests/data/bench_jax_poses.txt]
+        [--config bench|cli] [PATH]
+
+``--config bench`` (default): ``bench.py:bench_config``, written to
+``tests/data/bench_jax_poses.txt``. ``--config cli``: the flagship command's
+configuration (``ptudes_tpu/cli/main.py:441-452`` with
+``--use-imu-prediction``; the port's ``config.cli_config(128, 1024)``),
+written to ``tests/data/cli_jax_poses.txt``.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 import sys
@@ -25,24 +31,41 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def main(path: str) -> None:
+def jax_config(which: str):
+    """The JAX configuration of ``which`` with the kernels' XLA forms."""
+    from ptudes_tpu.config import Capacity, KissConfig, PipelineConfig
+
+    if which == "bench":
+        import bench
+        base = bench.bench_config()
+    else:
+        h, w = 128, 1024
+        base = PipelineConfig(
+            kiss=KissConfig(max_range=70.0, min_range=1.0, deskew=True,
+                            loss="plane"),
+            cap=Capacity(max_points=h * w), guess="ekf")
+    return dataclasses.replace(
+        base,
+        ekf=dataclasses.replace(base.ekf, predict_batch="unroll",
+                                update_form="xla"),
+        kiss=dataclasses.replace(base.kiss, gn_backend="jnp"),
+        scan_unroll=1)
+
+
+def main(which: str, path: str) -> None:
     import jax
     import jax.numpy as jnp
 
-    import bench
     from ptudes_tpu.models import lio
     from ptudes_tpu.ops.projection import XyzLut
     from ptudes_tpu.utils.metrics import calc_ate_rmse
     from ptudes_tpu_torch.models import sim
 
     sensor, scans, scan_ts, gt_mid, imu = sim.bench_scene()
-    base = bench.bench_config()
-    cfg = dataclasses.replace(
-        base,
-        ekf=dataclasses.replace(base.ekf, predict_batch="unroll",
-                                update_form="xla"),
-        kiss=dataclasses.replace(base.kiss, gn_backend="jnp"),
-        scan_unroll=1)
+    cfg = jax_config(which)
+    where = ("bench.py:bench_config" if which == "bench"
+             else "ptudes_tpu/cli/main.py:441-452 (ekf-bench ouster "
+                  "--use-imu-prediction, 128x1024)")
     batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
                                 imu.ts)
     lut = XyzLut(jnp.asarray(sensor.lut.direction),
@@ -55,7 +78,7 @@ def main(path: str) -> None:
         "JAX reference poses of the bench scene (ptudes_tpu_torch.models."
         "sim.bench_scene: 50 scans, 128x1024, bench.py:make_data)",
         f"ptudes_tpu lio.run_sequence on {jax.devices()[0].platform} at "
-        "bench.py:bench_config with predict_batch='unroll', "
+        f"{where} with predict_batch='unroll', "
         "update_form='xla', gn_backend='jnp', scan_unroll=1",
         f"kiss={cfg.kiss}", f"cap={cfg.cap}", f"ekf={cfg.ekf}",
         f"max_imu_per_scan={cfg.max_imu_per_scan} guess={cfg.guess} "
@@ -70,5 +93,10 @@ def main(path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1
-         else os.path.join(ROOT, "tests", "data", "bench_jax_poses.txt"))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=("bench", "cli"), default="bench")
+    ap.add_argument("path", nargs="?", help="output file (default "
+                    "tests/data/<config>_jax_poses.txt)")
+    args = ap.parse_args()
+    main(args.config, args.path or os.path.join(
+        ROOT, "tests", "data", f"{args.config}_jax_poses.txt"))

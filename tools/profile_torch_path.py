@@ -1,14 +1,18 @@
 """Where the time of the PyTorch port's steady scan step goes, on one CUDA
 card: ``torch.profiler`` over steady scans of the bench scene at
-``bench_config()``.
+``bench_config()`` (``--config bench``) or at the flagship command's
+``cli_config(128, 1024)`` (``--config cli``).
 
-    python3 tools/profile_torch_path.py [--scans 20] [--json PATH]
+    python3 tools/profile_torch_path.py [--config bench|cli] [--scans 20]
+        [--json PATH]
 
 Prints (and with ``--json`` also writes as JSON): wall time per scan
 (host clock around scans ending in a synchronize), device busy time per
 scan (the union of kernel intervals in the trace) and the idle share, the
-kernel launches per scan, and the top operators and kernels by device
-time. Runs the bootstrap scans and a warm-up before the profiled window.
+kernel launches per scan, the refresh loop's host reads and re-gathers
+per scan, each hand kernel's device time per scan, and the top operators
+and kernels by device time. Runs the bootstrap scans and a warm-up before
+the profiled window.
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ def busy_us(events) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=("bench", "cli"), default="bench",
+                    help="bench_config() or cli_config(128, 1024)")
     ap.add_argument("--scans", type=int, default=20,
                     help="steady scans in the profiled window")
     ap.add_argument("--json", help="also write the summary to this file")
@@ -53,6 +59,7 @@ def main() -> None:
 
     from ptudes_tpu_torch import config, kernels
     from ptudes_tpu_torch.models import lio, sim
+    from ptudes_tpu_torch.ops import hashmap, icp
     from ptudes_tpu_torch.utils import convert
 
     dev = torch.device("cuda", 0)
@@ -61,12 +68,14 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     sensor, scans, scan_ts, _, imu = sim.bench_scene()
-    cfg = config.bench_config()
+    cfg = (config.bench_config() if args.config == "bench"
+           else config.cli_config(*scans.shape[1:]))
     lut = convert.lut_from_numpy(sensor.lut, dev)
     batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
                                 imu.ts, device=dev)
     boot = lio.make_scan_step(lut, cfg, insert_overflow=True)
-    steady = lio.make_scan_step(lut, cfg, insert_overflow=False)
+    steady = lio.make_scan_step(lut, cfg,
+                                insert_overflow=cfg.steady_insert_mode)
     n0 = cfg.bootstrap_scans
     window = range(n0 + 5, n0 + 5 + args.scans)
     assert window[-1] < len(scans), "not enough scans for the window"
@@ -78,12 +87,14 @@ def main() -> None:
         state, _ = steady(state, lio.scan_at(batches, i))
     torch.cuda.synchronize()
 
+    icp.reset_refresh_counts()
     t0 = time.monotonic()
     s_unprof = state
     for i in window:
         s_unprof, _ = steady(s_unprof, lio.scan_at(batches, i))
     torch.cuda.synchronize()
     wall_plain = (time.monotonic() - t0) / args.scans
+    refresh = {k: v / args.scans for k, v in icp.REFRESH_COUNTS.items()}
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -92,6 +103,32 @@ def main() -> None:
             state, _ = steady(state, lio.scan_at(batches, i))
         torch.cuda.synchronize()
         wall_prof = (time.monotonic() - t0) / args.scans
+
+    # one overflow chunk with no points (what the exact steady insert runs
+    # ceil(max_frame / max_new_per_scan) - 1 times per scan when the new
+    # points fit the first chunk), timed alone with CUDA events
+    m = state.kiss.local_map
+    nf = cfg.cap.max_frame
+    cols = tuple(hashmap._spare(x) for x in (
+        m.meta[:, 0], m.meta[:, 1], m.meta[:, 5], m.meta[:, 2:5], m.points))
+    empty = (torch.zeros((nf, 3), device=dev),
+             torch.zeros((nf, 2), dtype=torch.int32, device=dev),
+             torch.zeros(nf, dtype=torch.bool, device=dev))
+
+    def chunk():
+        hashmap._insert_chunk(
+            cols, *empty, voxel_size=cfg.kiss.resolved_voxel_size,
+            max_probes=cfg.cap.max_probes,
+            new_capacity=cfg.cap.max_new_per_scan)
+
+    chunk()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    for _ in range(20):
+        chunk()
+    ev1.record()
+    torch.cuda.synchronize()
+    empty_chunk_ms = ev0.elapsed_time(ev1) / 20
 
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -106,16 +143,23 @@ def main() -> None:
            == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")]
     top_ops = sorted(ops, key=lambda e: -e.self_device_time_total)[:20]
     summary = {
-        "card": card, "scans": args.scans,
+        "card": card, "config": args.config, "scans": args.scans,
         "wall_ms_per_scan": wall_plain * 1e3,
         "wall_ms_per_scan_profiled": wall_prof * 1e3,
         "device_busy_ms_per_scan": busy / 1e3,
         "device_idle_share": 1.0 - busy / 1e3 / (wall_plain * 1e3),
         "device_idle_share_profiled": 1.0 - busy / 1e3 / (wall_prof * 1e3),
         "kernel_launches_per_scan": len(kern) / args.scans,
+        "empty_insert_chunk_ms": empty_chunk_ms,
+        "extra_insert_chunks_per_scan": (
+            -(-nf // cfg.cap.max_new_per_scan) - 1
+            if cfg.steady_insert_mode is not False else 0),
+        "host_reads_per_scan": refresh["host_reads"],
+        "regathers_per_scan": refresh["regathers"],
+        # K5 is two kernels: gn_iter_kernel and gn_iter_reduce_kernel
         "hand_kernels_device_us_per_scan": {
             name: sum(v[1] for k, v in by_kernel.items()
-                      if f"{name}_kernel" in k) / args.scans
+                      if f"{name}_" in k) / args.scans
             for name in kernels.KERNELS},
         "top_kernels": [
             dict(name=k, calls_per_scan=v[0] / args.scans,
