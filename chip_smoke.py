@@ -5,11 +5,13 @@
 
 Phases, each reported on its own line:
   1. device: fail without CUDA; print the card's name and power limit;
-  2. build the five CUDA kernels from ``ptudes_tpu_torch/csrc`` (one nvcc
-     per source, in parallel);
+  2. build the CUDA kernels from ``ptudes_tpu_torch/csrc`` (one nvcc per
+     source, in parallel);
   3. each kernel against its plain PyTorch twin on the card, with the
      stated tolerances, and both times; the candidate-refresh ICP loop
-     with the kernel against the loop with the twin;
+     with the kernel against the loop with the twin; the fused gather
+     (K6) at the bench and CLI shapes, and K6 -> K4 against the gather ->
+     K3 -> K4 chain; the plane moments (K7), which no path launches;
   4. the bench path: ``lio.run_sequence`` at ``bench_config()`` on the
      bench scene (rendered by the port's numpy sim, cached in the temp
      dir), once to warm up and once timed with host syncs made errors;
@@ -22,10 +24,20 @@ Phases, each reported on its own line:
      host syncs made errors except the refresh loop's counted reads
      (``icp.read_flags``); K1 once per scan, K5 once per GN iteration,
      K2-K4 never; ATE RMSE within 0.005 m of the JAX run's, every pose
-     within 0.02 m of ``tests/data/cli_jax_poses.txt``; then the twins.
-The last two lines before the final one are the kernel JSON summary and
-the card's name and power limit; the last line is the result JSON. Any
-failure raises, so the exit code is nonzero and no result line prints.
+     within 0.02 m of ``tests/data/cli_jax_poses.txt``; then the twins;
+  6. the fused bench path: ``bench_config()`` with ``fused_gather=True``
+     on the same scene, warmed up and timed with host syncs made errors;
+     K6's two launches, K4, K1 and K2 once per scan, K3 and K5 never; ATE
+     RMSE <= 0.02 m and every pose within 0.02 m of
+     ``tests/data/bench_fused_jax_poses.txt``; then the twins; scans/s
+     printed beside phase 4's from the same call.
+Every kernel's line in the JSON summary carries its bound: the larger of
+the bytes it must move (each input read once, each output written once)
+over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the H100 SXM data
+sheet), for the inputs it was timed on. The last two lines before the
+final one are the kernel JSON summary and the card's name and power
+limit; the last line is the result JSON. Any failure raises, so the exit
+code is nonzero and no result line prints.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -44,13 +56,16 @@ import torch
 from ptudes_tpu_torch import config, kernels
 from ptudes_tpu_torch.geom import se3, so3
 from ptudes_tpu_torch.models import esekf, lio, sim
-from ptudes_tpu_torch.ops import cuda_ekf, cuda_gn, cuda_icp, hashmap, icp
+from ptudes_tpu_torch.ops import (cuda_ekf, cuda_gather, cuda_gn, cuda_icp,
+                                  hashmap, icp)
 from ptudes_tpu_torch.ops import voxel
 from ptudes_tpu_torch.utils import convert, metrics
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REF_POSES = os.path.join(HERE, "tests", "data", "bench_jax_poses.txt")
 CLI_REF_POSES = os.path.join(HERE, "tests", "data", "cli_jax_poses.txt")
+FUSED_REF_POSES = os.path.join(HERE, "tests", "data",
+                               "bench_fused_jax_poses.txt")
 ATE_GATE_M = 0.02    # bench.py's absolute ATE gate
 CLI_ATE_SLACK_M = 0.005  # the CLI path's ATE may exceed the JAX run's by
 POSE_GATE_M = 0.02   # per-pose parity with the JAX reference poses
@@ -60,7 +75,13 @@ REPLACES = {
     "gn_prep": ("gn_prep.cu", "ptudes_tpu/ops/pallas_gn.py:260"),
     "icp_loop": ("icp_loop.cu", "ptudes_tpu/ops/pallas_icp.py:432"),
     "gn_iter": ("gn_iter.cu", "ptudes_tpu/ops/pallas_gn.py:351"),
+    "gather_select": ("gather_fused.cu",
+                      "ptudes_tpu/ops/pallas_gather.py:342"),
+    "gather_prep": ("gather_fused.cu", "ptudes_tpu/ops/pallas_gather.py:359"),
+    "plane_moments": ("plane_moments.cu", "ptudes_tpu/ops/pallas_gn.py:200"),
 }
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 
 
 def say(msg: str) -> None:
@@ -92,6 +113,22 @@ def cuda_ms(fn, reps: int) -> float:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def nbytes(*xs) -> int:
+    """Bytes of the tensors in ``xs`` (nested tuples and lists too)."""
+    return sum(nbytes(*x) if isinstance(x, (tuple, list))
+               else x.numel() * x.element_size() for x in xs)
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the f32 operations over the peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=int(n_bytes), bound_flops=int(flops))
 
 
 # --------------------------------------------------------------- phase 3
@@ -156,18 +193,20 @@ def check_predict(cfg, s, dev, rng, k, n_valid):
     err = max(max(errs.values()), float((sk.cov - sp.cov).abs().max()))
     say(f"  ekf_predict K={k}: max |kernel - twin| {err:.3e}  "
         f"(state 1e-6, twist 2e-5, cov rtol/atol 1e-5)")
-    return err, cuda_ms(kern, 200), cuda_ms(plain, 20)
+    # per valid sample, the covariance step F P F^T: two 18^3 products
+    b = bound(nbytes(s, imus, valid, sk, tk), n_valid * 4 * 18 ** 3)
+    return err, cuda_ms(kern, 200), cuda_ms(plain, 20), b
 
 
 def check_ekf(dev, rng, results):
     cfg = config.bench_config().ekf
     s = generic_ekf_state(cfg, dev, rng)
     # K = 12: the bench path's max_imu_per_scan; K = 16: the CLI's
-    e12, ms12, plain12 = check_predict(cfg, s, dev, rng, 12, 10)
-    e16, ms16, plain16 = check_predict(cfg, s, dev, rng, 16, 14)
+    e12, ms12, plain12, _ = check_predict(cfg, s, dev, rng, 12, 10)
+    e16, ms16, plain16, b16 = check_predict(cfg, s, dev, rng, 16, 14)
     results["ekf_predict"] = dict(max_abs_err=max(e12, e16), ms=ms16,
                                   plain_ms=plain16, ms_k12=ms12,
-                                  plain_ms_k12=plain12)
+                                  plain_ms_k12=plain12, **b16)
 
     pose = torch.eye(4, dtype=torch.float32, device=dev)
     pose[:3, :3] = so3.exp_rotvec(torch.tensor([0.02, -0.01, 0.03],
@@ -192,8 +231,12 @@ def check_ekf(dev, rng, results):
               f"{float((uk.cov - up.cov).abs().max())}")
         worst = max(worst, eq, float((uk.cov - up.cov).abs().max()))
     mc = esekf.default_meas_cov(cfg, dev)
+    # Joseph form (I - KH) P (I - KH)^T: two 18^3 products, and the gain's
+    # 18 x 18 x 6 products
+    b = bound(nbytes(s, pose, mc, cuda_ekf.update_pose(s, pose, mc)),
+              4 * 18 ** 3 + 8 * 18 * 18 * 6)
     results["ekf_update"] = dict(
-        max_abs_err=worst,
+        max_abs_err=worst, **b,
         ms=cuda_ms(lambda: cuda_ekf.update_pose(s, pose, mc), 200),
         plain_ms=cuda_ms(lambda: esekf.process_pose(
             s, pose, cfg=dataclasses.replace(cfg, update_form="xla"),
@@ -252,8 +295,12 @@ def check_icp(dev, results):
     check(qual <= 2e-2, f"gn_prep quality {qual}")
     check(bool((pk.feat[7] == pp.feat[7]).all()), "gn_prep mask row")
     err = max(cen, qual, 1.0 - float(dots.min()))
+    c, n = pk.cx.shape
+    # reads query + mask [4, N] and the candidates [4 x C, N], writes feat
+    # [8, N]; ~20 operations per candidate, ~150 per point for the finish
     results["gn_prep"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, **bound(4 * (4 * n + 4 * c * n + 8 * n),
+                                 n * (20 * c + 150)),
         ms=cuda_ms(lambda: cuda_gn.prep_with_plane(cand, mask, q_w, r), 200),
         plain_ms=cuda_ms(
             lambda: cuda_gn.prep_with_plane_torch(cand, mask, q_w, r), 20))
@@ -285,8 +332,13 @@ def check_icp(dev, results):
           f"icp_loop n_corr {nk} vs {npl}")
     check(abs(ik - ip) <= 2, f"icp_loop iterations {ik} vs {ip}")
     check(npl > 1000, f"icp_loop twin found {npl} correspondences")
-    results["icp_loop"] = dict(max_abs_err=d, ms=cuda_ms(kern_loop, 50),
-                               plain_ms=cuda_ms(plain_loop, 5))
+    # reads the source, feat and candidates once; per iteration ~8
+    # operations per candidate and ~120 per point
+    c, n = pp.cx.shape
+    results["icp_loop"] = dict(
+        max_abs_err=d, ms=cuda_ms(kern_loop, 50),
+        plain_ms=cuda_ms(plain_loop, 5),
+        **bound(nbytes(src, pp, guess), ik * n * (8 * c + 120)))
     say(f"  icp_loop: |log(twin^-1 kernel)| {d:.2e} (5e-4), n_corr {nk} vs "
         f"{npl}, iterations {ik} vs {ip}")
 
@@ -322,10 +374,10 @@ def pallas_gn_scene(dev):
     return t, src, mask, cand
 
 
-def cli_gn_scene(dev):
-    """The CLI path's shapes: a floor and four walls in a 60 m box, a
-    2^19-slot map of 20 points per voxel at the 0.7 m voxel of a 70 m
-    clip, 8192 source points, 27-neighbourhood over 4 voxels (C = 80)."""
+def cli_map_scene(dev):
+    """The CLI path's map and source: a floor and four walls in a 60 m
+    box, a 2^19-slot map of 20 points per voxel at the 0.7 m voxel of a
+    70 m clip, 8192 source points, a perturbed gather pose."""
     rng = np.random.default_rng(9)
     k = 60000
     floor = np.stack([rng.uniform(-30, 30, k), rng.uniform(-30, 30, k),
@@ -345,6 +397,13 @@ def cli_gn_scene(dev):
     mask = torch.as_tensor(rng.uniform(size=n) < 0.95, device=dev)
     t = se3.exp_twist(torch.tensor([0.002, -0.001, 0.003, 0.04, -0.03, 0.02],
                                    device=dev))
+    return m, src, mask, t
+
+
+def cli_gn_scene(dev):
+    """The CLI path's shapes: :func:`cli_map_scene`'s candidates over the
+    27-neighbourhood and 4 voxels (C = 80)."""
+    m, src, mask, t = cli_map_scene(dev)
     cand = icp.gather_candidates(
         m, se3.transform(t, src), voxel_size=0.7, max_probes=2,
         neighborhood=27, n_voxels=4, fit_planes=True)
@@ -354,7 +413,7 @@ def cli_gn_scene(dev):
 def check_gn_iter(dev, results):
     kern = torch.tensor(0.1667, device=dev)
     max_d2 = torch.tensor(2.25, device=dev)
-    worst, times = 0.0, {}
+    worst, times, bounds = 0.0, {}, {}
     for name, scene in (("cli", cli_gn_scene), ("test_pallas_gn",
                                                  pallas_gn_scene)):
         t, src, mask, cand = scene(dev)
@@ -385,12 +444,16 @@ def check_gn_iter(dev, results):
         worst = max(worst, float((jk - jp).abs().max()),
                     float((rk - rp).abs().max()), float((wk - wp).abs()))
         times[name] = (cuda_ms(kern_build, 200), cuda_ms(plain_build, 20))
+        # one build: the source, feat and candidates once, ~8 operations
+        # per candidate and ~120 per point
+        bounds[name] = bound(nbytes(src, prepped, t), n * (8 * c + 120))
         say(f"  gn_iter {name} (N={n}, C={c}): n_corr {int(nk)} exact, jtj "
             f"rel {rel_j:.2e}, jtr rel {rel_r:.2e}, total_w rel {rel_w:.2e} "
             f"(1e-5); repeats bit for bit; {times[name][0]:.4f} ms vs twin "
             f"{times[name][1]:.4f} ms")
     results["gn_iter"] = dict(
         max_abs_err=worst, ms=times["cli"][0], plain_ms=times["cli"][1],
+        **bounds["cli"],
         ms_test_shape=times["test_pallas_gn"][0],
         plain_ms_test_shape=times["test_pallas_gn"][1])
 
@@ -431,6 +494,240 @@ def check_refresh_loop(dev):
         f"{counts['regathers']}, host reads {counts['host_reads']}")
 
 
+def fit_errors(got, ref, what: str) -> dict:
+    """K3's phase-3 bars for the patch plane fit of ``got`` against
+    ``ref`` (both PreppedCandidates): where the reference quality > 0.3,
+    normal |dot| 1%-quantile > 0.999 and min > 0.995, centroid <= 2e-3,
+    quality <= 2e-2; the mask row equal everywhere."""
+    ok = ref.feat[6] > 0.3
+    check(int(ok.sum()) > 100, f"{what}: {int(ok.sum())} plane fits > 0.3")
+    dots = (got.feat[0:3, ok] * ref.feat[0:3, ok]).sum(0).abs()
+    e = dict(q01=float(torch.quantile(dots, 0.01)), dot_min=float(dots.min()),
+             centroid=float((got.feat[3:6, ok] - ref.feat[3:6, ok])
+                            .abs().max()),
+             quality=float((got.feat[6, ok] - ref.feat[6, ok]).abs().max()))
+    check(e["q01"] > 0.999 and e["dot_min"] > 0.995,
+          f"{what}: normal dots {e}")
+    check(e["centroid"] <= 2e-3, f"{what}: centroid {e}")
+    check(e["quality"] <= 2e-2, f"{what}: quality {e}")
+    check(torch.equal(got.feat[7], ref.feat[7]), f"{what}: mask row")
+    return e
+
+
+def probed_meta_rows(vmap_, pts_w, voxel_size, max_probes,
+                     neighborhood) -> int:
+    """The distinct meta rows (32 bytes each) the select function needs for
+    these points: per neighbour, the probes up to the first match (all of
+    them without one)."""
+    cap = vmap_.meta.shape[0]
+    keys = voxel.voxel_coords(pts_w, voxel_size)[:, None, :] \
+        + icp.neighbor_offsets(neighborhood, pts_w.device)[None]
+    _, h0 = hashmap._fingerprint_and_slot(keys, cap)
+    slot, _, _, found = hashmap.probe(vmap_, keys, max_probes, miss_slot=0)
+    last = torch.where(found, (slot - h0) & (cap - 1), max_probes - 1)
+    rows = torch.cat([((h0 + r) & (cap - 1))[last >= r]
+                      for r in range(max_probes)])
+    return int(torch.unique(rows).numel())
+
+
+def needed_point_sectors(vmap_, aux) -> int:
+    """The distinct 32-byte sectors of the points table that hold the
+    stored points of the selected voxels (picks with count > 0)."""
+    v = aux.shape[0] // 5
+    row_bytes = 4 * vmap_.points.shape[1]
+    used = aux[v:2 * v] > 0
+    start = aux[:v].long()[used] * row_bytes
+    lo = start // 32
+    hi = (start + 4 * aux[v:2 * v].long()[used] - 1) // 32
+    sec = lo[:, None] + torch.arange(row_bytes // 32 + 2, device=aux.device)
+    return int(torch.unique(sec[sec <= hi[:, None]]).numel())
+
+
+def gather_shapes(dev):
+    """K6's shape sets: (name, map, source, mask, gather pose, kwargs)."""
+    m, src, mask, guess = icp_scene(dev)
+    bench = [(f"bench R={r}", m, src, mask, guess,
+              dict(voxel_size=0.3, max_probes=r, neighborhood=7, n_voxels=4,
+                   plane_radius=0.6)) for r in (1, 2)]
+    cm, csrc, cmask, ct = cli_map_scene(dev)
+    return bench + [("cli", cm, csrc, cmask, ct,
+                     dict(voxel_size=0.7, max_probes=2, neighborhood=27,
+                          n_voxels=4, plane_radius=1.05))]
+
+
+def check_gather(dev, results):
+    """K6 against its twin on the card: the selection (aux) bit for bit,
+    the candidates and inf bit for bit where they matter, the fit at K3's
+    bars, a repeated launch bit for bit; both loss forms."""
+    for name, m, src, mask, t, kw in gather_shapes(dev):
+        sel_kw = {k: kw[k] for k in ("voxel_size", "max_probes",
+                                     "neighborhood", "n_voxels")}
+        pts_w = se3.transform(t, src).contiguous()
+        ak = cuda_gather.select_voxels(m, pts_w, **sel_kw)
+        ap = cuda_gather.select_voxels_torch(m, pts_w, **sel_kw)
+        v = kw["n_voxels"]
+        cnt = ap[v:2 * v]
+        check(torch.equal(ak[v:2 * v], cnt), f"gather_select {name}: counts")
+        used = (cnt > 0).repeat(4, 1)
+        rows = torch.cat([ak[:v], ak[2 * v:]]), torch.cat([ap[:v], ap[2 * v:]])
+        check(torch.equal(rows[0][used], rows[1][used]),
+              f"gather_select {name}: slot or corner where count > 0")
+        # what the checks above compared: every count, slot and corner of
+        # the picks with count > 0
+        sel_err = float(torch.cat([(ak[v:2 * v] - cnt).flatten(),
+                                   (rows[0] - rows[1])[used]]).abs().max())
+        r2 = cuda_gather.fused_radius2(kw["plane_radius"])
+        prep_kw = dict(voxel_size=kw["voxel_size"], radius2=r2, loss="plane")
+        gk = cuda_gather.prep_selected(m, pts_w, mask, ak, **prep_kw)
+        gp = cuda_gather.prep_selected_torch(m, pts_w, mask, ap, **prep_kw)
+        check(torch.equal(gk.inf, gp.inf), f"gather_prep {name}: inf")
+        valid = gp.inf == 0
+        check(int(valid.sum()) > 1000, f"gather_prep {name}: "
+              f"{int(valid.sum())} valid candidates")
+        for a, b, ax in ((gk.cx, gp.cx, "x"), (gk.cy, gp.cy, "y"),
+                         (gk.cz, gp.cz, "z")):
+            check(torch.equal(a[valid], b[valid]),
+                  f"gather_prep {name}: candidate {ax} where valid")
+        e = fit_errors(gk, gp, f"gather_prep {name}")
+        again = cuda_gather.gather_prep_fused(m, src, mask, t, **kw)
+        full = cuda_gather.gather_prep_fused(m, src, mask, t, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(again, full))
+              and all(torch.equal(a, b) for a, b in zip(full, gk)),
+              f"gather_prep_fused {name} does not repeat bit for bit")
+        pk = cuda_gather.prep_selected(m, pts_w, mask, ak, **dict(
+            prep_kw, loss="point"))
+        pp = cuda_gather.prep_selected_torch(m, pts_w, mask, ap, **dict(
+            prep_kw, loss="point"))
+        check(torch.equal(pk.feat, pp.feat) and torch.equal(pk.inf, pp.inf),
+              f"gather_prep {name}: loss='point' feat rows")
+        t_full = (cuda_ms(lambda: cuda_gather.gather_prep_fused(
+            m, src, mask, t, **kw), 200), cuda_ms(
+            lambda: cuda_gather.gather_prep_fused_torch(
+                m, src, mask, t, **kw), 20))
+        t_sel = (cuda_ms(lambda: cuda_gather.select_voxels(
+            m, pts_w, **sel_kw), 200), cuda_ms(
+            lambda: cuda_gather.select_voxels_torch(m, pts_w, **sel_kw), 20))
+        t_prep = (cuda_ms(lambda: cuda_gather.prep_selected(
+            m, pts_w, mask, ak, **prep_kw), 200), cuda_ms(
+            lambda: cuda_gather.prep_selected_torch(
+                m, pts_w, mask, ap, **prep_kw), 20))
+        n = src.shape[0]
+        c = gk.cx.shape[0]
+        rows_read = probed_meta_rows(m, pts_w, kw["voxel_size"],
+                                     kw["max_probes"], kw["neighborhood"])
+        sectors = needed_point_sectors(m, ap)
+        # select: the query points, each probed 32-byte meta row once, aux
+        # out; prep: the query points, mask and aux, each sector of stored
+        # points of the picked voxels once, the candidates and feat out;
+        # ~26 operations per candidate
+        b_sel = bound(nbytes(pts_w, ak) + 32 * rows_read,
+                      8 * n * kw["neighborhood"])
+        b_prep = bound(nbytes(pts_w, mask, ak, gk) + 32 * sectors,
+                       n * (26 * c + 150))
+        err = max(e["centroid"], e["quality"], 1.0 - e["dot_min"])
+        say(f"  gather {name} (N={n}, J={kw['neighborhood']}, "
+            f"R={kw['max_probes']}, C={c}): aux counts exact, slot/corner "
+            f"exact where count > 0, inf and valid candidates exact, "
+            f"normal dot q01 {e['q01']:.6f} min {e['dot_min']:.6f}, "
+            f"centroid {e['centroid']:.2e}, quality {e['quality']:.2e}; "
+            f"point-loss feat exact; repeats bit for bit; whole aux equal "
+            f"{torch.equal(ak, ap)}; {rows_read} distinct meta rows probed, "
+            f"{sectors} point sectors needed")
+        say(f"    K6 call {t_full[0]:.4f} ms vs twin {t_full[1]:.4f} ms; "
+            f"select {t_sel[0]:.4f} vs {t_sel[1]:.4f} ms (bound "
+            f"{b_sel['bound_ms'] * 1e3:.3f} us); prep {t_prep[0]:.4f} vs "
+            f"{t_prep[1]:.4f} ms (bound {b_prep['bound_ms'] * 1e3:.3f} us)")
+        if name == "bench R=1":          # the bench path's shapes
+            results["gather_select"] = dict(
+                max_abs_err=sel_err, ms=t_sel[0], plain_ms=t_sel[1], **b_sel)
+            results["gather_prep"] = dict(
+                max_abs_err=err, ms=t_prep[0], plain_ms=t_prep[1],
+                fused_call_ms=t_full[0], fused_plain_ms=t_full[1], **b_prep)
+        elif name == "cli":
+            for k, tt, b in (("gather_select", t_sel, b_sel),
+                             ("gather_prep", t_prep, b_prep)):
+                results[k].update(ms_cli=tt[0], plain_ms_cli=tt[1],
+                                  bound_ms_cli=b["bound_ms"])
+            results["gather_prep"]["max_abs_err"] = max(
+                results["gather_prep"]["max_abs_err"], err)
+
+
+def check_fused_registration(dev):
+    """K6 -> K4 against gather_candidates -> K3 -> K4 on icp_scene, at
+    tests/test_pallas_gather.py:100-124's bars (pose atol 2e-4,
+    iterations within 2)."""
+    m, src, mask, guess = icp_scene(dev)
+    kw = dict(voxel_size=0.3, max_probes=2, max_iterations=30,
+              convergence=1e-5, plane_min_quality=0.2,
+              prior_rot_weight=0.01, prior_trans_weight=0.01,
+              neighborhood=7, n_voxels=4, plane_radius=0.6, form="cuda")
+    args = (src, mask, m, guess, torch.tensor(0.5, device=dev),
+            torch.tensor(0.1667, device=dev))
+    kernels.reset_launches()
+    rf = icp.register_frame_cached(*args, fused_gather=True, **kw)
+    fused = dict(kernels.LAUNCHES)
+    ru = icp.register_frame_cached(*args, fused_gather=False, **kw)
+    check(fused["gather_select"] == fused["gather_prep"] == 1
+          and fused["gn_prep"] == 0 and fused["icp_loop"] == 1,
+          f"fused registration launches {fused}")
+    d = float((rf.pose - ru.pose).abs().max())
+    i_f, i_u = int(rf.iterations), int(ru.iterations)
+    check(d <= 2e-4, f"K6 -> K4 pose vs gather -> K3 -> K4: {d}")
+    check(abs(i_f - i_u) <= 2, f"K6 -> K4 iterations {i_f} vs {i_u}")
+    say(f"  K6 -> K4 vs gather -> K3 -> K4: max |pose diff| {d:.2e} "
+        f"(2e-4), iterations {i_f} vs {i_u}, n_corr {int(rf.num_corr)} vs "
+        f"{int(ru.num_corr)}")
+
+
+def check_plane_moments(dev, results):
+    """K7 against its twin at the bench and CLI shapes: the count row
+    exact, the other rows within 1e-5 of each row's largest magnitude,
+    rows 10-15 zero. Returns its launches in the checks (the timing
+    loops' not counted)."""
+    checked = 0
+    cm, csrc, _, ct = cli_map_scene(dev)
+    m, src, _, guess = icp_scene(dev)
+    for name, (vm, s_, t, vs, nb, r) in (
+            ("bench", (m, src, guess, 0.3, 7, 0.6)),
+            ("cli", (cm, csrc, ct, 0.7, 27, 1.05))):
+        q_w = se3.transform(t, s_)
+        cand = icp.gather_candidates(vm, q_w, voxel_size=vs, max_probes=2,
+                                     neighborhood=nb, n_voxels=4,
+                                     fit_planes=False)
+        cx, cy, cz, inf = cuda_gn.lane_major(cand)
+        n = q_w.shape[0]
+        ptq = torch.cat([q_w.T, torch.zeros((5, n), device=dev)]).contiguous()
+        r2 = cuda_gn._radius2(r)
+        before = kernels.LAUNCHES["plane_moments"]
+        ok_ = cuda_gn.plane_moments(ptq, cx, cy, cz, inf, r2)
+        checked += kernels.LAUNCHES["plane_moments"] - before
+        op = cuda_gn.plane_moments_torch(ptq, cx, cy, cz, inf, r2)
+        check(torch.equal(ok_[0], op[0]) and float(op[0].sum()) > 4 * n,
+              f"plane_moments {name}: count row")
+        rel = max(float((ok_[i] - op[i]).abs().max() / op[i].abs().max())
+                  for i in range(1, 10))
+        check(rel <= 1e-5, f"plane_moments {name}: rows 1-9 rel {rel}")
+        check(bool((ok_[10:] == 0).all()), f"plane_moments {name}: pad rows")
+        tk = cuda_ms(lambda: cuda_gn.plane_moments(ptq, cx, cy, cz, inf, r2),
+                     200)
+        tp = cuda_ms(lambda: cuda_gn.plane_moments_torch(
+            ptq, cx, cy, cz, inf, r2), 20)
+        c = cx.shape[0]
+        # the kernel reads ptq's query rows 0-2 only
+        b = bound(nbytes(ptq[:3], cx, cy, cz, inf, ok_), 20 * n * c)
+        say(f"  plane_moments {name} (N={n}, C={c}): count row exact, rows "
+            f"1-9 rel {rel:.2e} (1e-5), pad rows zero; {tk:.4f} ms vs twin "
+            f"{tp:.4f} ms (bound {b['bound_ms'] * 1e3:.3f} us)")
+        if name == "bench":
+            results["plane_moments"] = dict(max_abs_err=rel, ms=tk,
+                                            plain_ms=tp, **b)
+        else:
+            results["plane_moments"].update(
+                max_abs_err=max(rel, results["plane_moments"]["max_abs_err"]),
+                ms_cli=tk, plain_ms_cli=tp, bound_ms_cli=b["bound_ms"])
+    return checked
+
+
 # --------------------------------------------------------------- phase 4
 
 def timed_run(c, batches, lut, dev):
@@ -450,8 +747,8 @@ def timed_run(c, batches, lut, dev):
 
 
 def run_main_path(n_scans: int, dev):
-    """Phase 4; returns each kernel's launches in the timed run and the
-    scene."""
+    """Phase 4; returns each kernel's launches in the timed run, the scene,
+    and the timed run's poses and scans/s."""
     t0 = time.monotonic()
     scene = sim.bench_scene(n_scans)
     sensor, scans, scan_ts, gt_mid, imu = scene
@@ -470,7 +767,9 @@ def run_main_path(n_scans: int, dev):
     out, dt = timed(cfg)
     launches = dict(kernels.LAUNCHES)
     for name, count in launches.items():
-        want = 0 if name == "gn_iter" else n_scans   # K5: refresh only
+        # K1-K4 once a scan; K5 (refresh), K6 (fused gather), K7 never
+        want = n_scans if name in ("ekf_predict", "ekf_update", "gn_prep",
+                                   "icp_loop") else 0
         check(count == want,
               f"{name} launched {count} times in {n_scans} scans")
     kp = out.kiss_pose.double().cpu().numpy()
@@ -499,7 +798,61 @@ def run_main_path(n_scans: int, dev):
     say(f"  twin path: {n_scans / dt_t:.2f} scans/s ({dt_t:.3f} s), ATE "
         f"RMSE {ate_t:.4f} m, max |pose - kernel path| "
         f"{np.linalg.norm(kt[:, :3, 3] - kp[:, :3, 3], axis=1).max():.4f} m")
-    return launches, scene
+    return launches, scene, kp, n_scans / dt
+
+
+# --------------------------------------------------------------- phase 6
+
+def run_fused_path(scene, n_scans: int, dev, bench_poses, bench_rate
+                   ) -> dict[str, int]:
+    """Phase 6: ``bench_config()`` with ``fused_gather=True`` on the bench
+    scene; returns each kernel's launches in the timed run."""
+    sensor, scans, scan_ts, gt_mid, imu = scene
+    base = config.bench_config()
+    cfg = dataclasses.replace(base, kiss=dataclasses.replace(
+        base.kiss, fused_gather=True))
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
+                                imu.ts, device=dev)
+    timed_run(cfg, batches, lut, dev)           # warm-up
+    kernels.reset_launches()
+    out, dt = timed_run(cfg, batches, lut, dev)
+    launches = dict(kernels.LAUNCHES)
+    for name, count in launches.items():
+        want = 0 if name in ("gn_prep", "gn_iter", "plane_moments") \
+            else n_scans
+        check(count == want,
+              f"{name} launched {count} times in {n_scans} fused scans")
+    kp = out.kiss_pose.double().cpu().numpy()
+    check(bool(np.isfinite(kp).all()), "non-finite poses")
+    check(kp.shape == (n_scans, 4, 4), f"pose shape {kp.shape}")
+    _, ate = metrics.calc_ate_rmse(kp, gt_mid)
+    check(ate <= ATE_GATE_M, f"ATE RMSE {ate:.4f} m > {ATE_GATE_M} m")
+    ref = np.loadtxt(FUSED_REF_POSES).reshape(-1, 3, 4)[:n_scans]
+    ref_err = np.linalg.norm(kp[:, :3, 3] - ref[:, :, 3], axis=1)
+    check(float(ref_err.max()) <= POSE_GATE_M,
+          f"pose vs JAX reference {ref_err.max():.4f} m > {POSE_GATE_M} m")
+    vs_bench = np.linalg.norm(kp[:, :3, 3] - bench_poses[:, :3, 3], axis=1)
+    say(f"  kernel path: {n_scans / dt:.2f} scans/s ({dt:.3f} s; phase 4 "
+        f"in this call {bench_rate:.2f} scans/s), ATE RMSE {ate:.4f} m "
+        f"(<= {ATE_GATE_M}; JAX {reference_ate(FUSED_REF_POSES):.4f}), max "
+        f"|pose - JAX| {ref_err.max():.4f} m (<= {POSE_GATE_M}), max |pose "
+        f"- phase 4| {vs_bench.max():.4f} m, no host sync, launches "
+        f"{launches}")
+
+    tcfg = config.twin_config(cfg)
+    lio.run_sequence(lio.init_state(tcfg, dev),
+                     lio.scan_at(batches, slice(0, 4)), lut,
+                     cfg=tcfg)                          # warm-up
+    kernels.reset_launches()
+    out_t, dt_t = timed_run(tcfg, batches, lut, dev)
+    check(sum(kernels.LAUNCHES.values()) == 0, "twin path launched kernels")
+    kt = out_t.kiss_pose.double().cpu().numpy()
+    _, ate_t = metrics.calc_ate_rmse(kt, gt_mid)
+    say(f"  twin path: {n_scans / dt_t:.2f} scans/s ({dt_t:.3f} s), ATE "
+        f"RMSE {ate_t:.4f} m, max |pose - kernel path| "
+        f"{np.linalg.norm(kt[:, :3, 3] - kp[:, :3, 3], axis=1).max():.4f} m")
+    return launches
 
 
 # --------------------------------------------------------------- phase 5
@@ -533,7 +886,8 @@ def run_cli_path(scene, n_scans: int, dev) -> dict[str, int]:
     check(launches["gn_iter"] == iters,
           f"gn_iter launched {launches['gn_iter']} times in {iters} GN "
           "iterations")
-    for name in ("ekf_update", "gn_prep", "icp_loop"):
+    for name in ("ekf_update", "gn_prep", "icp_loop", "gather_select",
+                 "gather_prep", "plane_moments"):
         check(launches[name] == 0,
               f"{name} launched {launches[name]} times on the CLI path")
     check(counts["host_reads"] <= iters + n_scans,
@@ -607,23 +961,35 @@ def main() -> int:
     check_icp(dev, results)
     check_gn_iter(dev, results)
     check_refresh_loop(dev)
+    check_gather(dev, results)
+    check_fused_registration(dev)
+    phase3 = {"plane_moments": check_plane_moments(dev, results)}
 
     say("phase 4: bench path")
-    bench_launches, scene = run_main_path(args.scans, dev)
+    bench_launches, scene, bench_poses, bench_rate = run_main_path(
+        args.scans, dev)
     say("phase 5: CLI path")
-    by_path = {"bench": bench_launches,
-               "cli": run_cli_path(scene, args.scans, dev)}
+    cli_launches = run_cli_path(scene, args.scans, dev)
+    say("phase 6: fused bench path")
+    by_path = {"bench": bench_launches, "cli": cli_launches,
+               "bench_fused": run_fused_path(scene, args.scans, dev,
+                                             bench_poses, bench_rate)}
 
     rows = []
     for name in kernels.KERNELS:
         paths = {p: n[name] for p, n in by_path.items() if n[name]}
+        if name in phase3:
+            # K7: no pipeline path calls it (the JAX package moved the fit
+            # into K3), so its row reports its phase-3 checks
+            check(not paths, f"{name} launched on a path: {paths}")
+            paths = {"phase3": phase3[name]}
         check(bool(paths), f"{name} launched on no path")
         rows.append(dict(
             name=name, route="cuda",
             source=f"ptudes_tpu_torch/csrc/{REPLACES[name][0]}",
             replaces=REPLACES[name][1], path="+".join(paths),
             launches=sum(paths.values()), launches_by_path=paths,
-            **results[name]))
+            library_ms=None, **results[name]))
     say(json.dumps({"kernels": rows}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

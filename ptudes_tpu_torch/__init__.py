@@ -3,11 +3,12 @@ NVIDIA Hopper card (sm_90a).
 
 The package mirrors ``ptudes_tpu``'s module names so each function has an
 obvious counterpart, but imports neither JAX nor ``ptudes_tpu``: the machine
-with the card has no JAX. Plain tensor code is PyTorch; the four kernels of
-the main path (EKF predict, EKF update, ICP candidate prep, the whole ICP
-Gauss-Newton loop) are hand-written CUDA C++ under ``csrc/``, built with
-``nvcc`` on first use (``kernels``). Every kernel has a plain PyTorch twin
-that the CPU tests run and ``chip_smoke.py`` compares it with on the card.
+with the card has no JAX. Plain tensor code is PyTorch; the JAX package's
+seven TPU kernels (EKF predict, EKF update, ICP candidate prep, the whole
+ICP Gauss-Newton loop, one GN build, the fused candidate gather, the patch
+moments) are hand-written CUDA C++ under ``csrc/``, built with ``nvcc`` on
+first use (``kernels``). Every kernel has a plain PyTorch twin that the CPU
+tests run and ``chip_smoke.py`` compares it with on the card.
 """
 import torch as _torch
 

@@ -41,8 +41,9 @@ class KissConfig:
     nn_neighborhood: int = 27
     fused_gather: bool = False
     # "cuda": the ICP kernels — with nn_refresh_drift == 0 the candidate
-    # prep (K3) and the whole GN loop (K4), otherwise the per-iteration GN
-    # build (K5); "torch": their plain PyTorch twins on any device
+    # prep (K3, or with fused_gather the whole gather and prep, K6) and the
+    # whole GN loop (K4), otherwise the per-iteration GN build (K5);
+    # "torch": their plain PyTorch twins on any device
     icp_form: str = "torch"
 
     @property
@@ -166,7 +167,6 @@ def check_supported(cfg: PipelineConfig) -> None:
         (k.nn_mode != "cached", f"nn_mode={k.nn_mode!r}"),
         (k.nn_neighborhood not in (7, 27),
          f"nn_neighborhood={k.nn_neighborhood}"),
-        (k.fused_gather, "fused_gather=True"),
         (k.loss != "plane", f"loss={k.loss!r}"),
         (e.predict_batch == "assoc", "predict_batch='assoc'"),
     ]

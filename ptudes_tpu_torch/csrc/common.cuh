@@ -314,4 +314,137 @@ __device__ __forceinline__ void gn_assemble(const float* m, float (*a)[6],
     for (int v = 0; v < u; ++v) a[u][v] = a[v][u];
 }
 
+// ---- the voxel hash (ops/voxel.py, ops/hashmap.py) in native uint32:
+// CUDA's 32-bit multiply wraps mod 2^32 as the JAX package's uint32 does.
+
+// murmur3 finalizer (voxel.mix32).
+__device__ __forceinline__ unsigned mix32(unsigned h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+
+// The per-axis-mixed hash of a voxel coordinate (voxel.coord_hash).
+__device__ __forceinline__ unsigned coord_hash(int x, int y, int z) {
+  return mix32(static_cast<unsigned>(x) * 73856093u)
+         ^ (mix32(static_cast<unsigned>(y) * 19349669u) * 0x9E3779B9u)
+         ^ (mix32(static_cast<unsigned>(z) * 83492791u) * 0x517CC1B7u);
+}
+
+// Fingerprint (never 0) and home slot of a voxel in a power-of-two table
+// of cap slots (hashmap._fingerprint_and_slot).
+__device__ __forceinline__ void fingerprint_and_slot(int x, int y, int z,
+                                                     int cap, int* fp,
+                                                     int* slot) {
+  const unsigned h = coord_hash(x, y, z);
+  *slot = static_cast<int>(mix32(h) & static_cast<unsigned>(cap - 1));
+  const unsigned f = mix32(h ^ 0xDEADBEEFu);
+  *fp = static_cast<int>(f == 0u ? 1u : f);
+}
+
+// ---- the patch plane fit shared by K3 (gn_prep.cu), K6 (gather_fused.cu)
+// and K7 (plane_moments.cu): ptudes_tpu/ops/pallas_gn.py:_moments_kernel
+// and _prep_feat_kernel.
+
+// Moments of the candidate offsets d = c - q within the patch radius.
+struct PatchMoments {
+  float s0 = 0, sx = 0, sy = 0, sz = 0, sxx = 0, syy = 0, szz = 0, sxy = 0,
+        sxz = 0, syz = 0;
+};
+
+// Add one candidate at offset (dx, dy, dz) from the query point; inf is 0
+// for a valid candidate and 1e30 otherwise, so only valid candidates within
+// the radius (d2 <= r2) count.
+__device__ __forceinline__ void patch_add(PatchMoments& m, float dx, float dy,
+                                          float dz, float inf, float r2) {
+  const float d2 = dx * dx + dy * dy + dz * dz + inf;
+  if (d2 <= r2) {
+    m.s0 += 1.0f;
+    m.sx += dx; m.sy += dy; m.sz += dz;
+    m.sxx += dx * dx; m.syy += dy * dy; m.szz += dz * dz;
+    m.sxy += dx * dy; m.sxz += dx * dz; m.syz += dy * dz;
+  }
+}
+
+// The moments of point p (query (px, py, pz)) over its c lane-major
+// candidate rows cx/cy/cz/inf [c, n].
+__device__ __forceinline__ PatchMoments patch_moments(
+    float px, float py, float pz, int p, int n, int c,
+    const float* __restrict__ cx, const float* __restrict__ cy,
+    const float* __restrict__ cz, const float* __restrict__ inf, float r2) {
+  PatchMoments m;
+  for (int k = 0; k < c; ++k) {
+    const int o = k * n + p;
+    patch_add(m, cx[o] - px, cy[o] - py, cz[o] - pz, inf[o], r2);
+  }
+  return m;
+}
+
+// Elementwise ops/plane.smallest_eigvec_sym3: closed-form trigonometric
+// eigenvalues, eigenvector from the largest row-pair cross product
+// (first maximum wins, like argmax). The TPU kernels seed a Newton arccos
+// because Mosaic lowers none; acosf is exact to f32 here.
+__device__ __forceinline__ void smallest_eig(float axx, float ayy, float azz,
+                                             float axy, float axz, float ayz,
+                                             float* n, float* quality) {
+  const float eps = 1e-12f;
+  const float m = (axx + ayy + azz) / 3.0f;
+  const float bxx = axx - m, byy = ayy - m, bzz = azz - m;
+  const float q = (bxx * bxx + byy * byy + bzz * bzz
+                   + 2.0f * (axy * axy + axz * axz + ayz * ayz)) / 6.0f;
+  const float det = (bxx * (byy * bzz - ayz * ayz) - axy * (axy * bzz - ayz * axz)
+                     + axz * (axy * ayz - byy * axz)) / 2.0f;
+  const float sq = sqrtf(fmaxf(q, eps));
+  const float r = fminf(fmaxf(det / fmaxf(sq * sq * sq, eps), -1.0f), 1.0f);
+  const float phi = acosf(r) / 3.0f;
+  const float l1 = m + 2.0f * sq * cosf(phi);
+  const float l3 = m + 2.0f * sq * cosf(phi + 2.0f * 3.14159265358979f / 3.0f);
+  const float l2 = 3.0f * m - l1 - l3;
+  const float c00 = axx - l3, c11 = ayy - l3, c22 = azz - l3;
+  const float v01x = axy * ayz - axz * c11, v01y = axz * axy - c00 * ayz,
+              v01z = c00 * c11 - axy * axy;
+  const float v02x = axy * c22 - axz * ayz, v02y = axz * axz - c00 * c22,
+              v02z = c00 * ayz - axy * axz;
+  const float v12x = c11 * c22 - ayz * ayz, v12y = ayz * axz - axy * c22,
+              v12z = axy * ayz - c11 * axz;
+  const float n01 = v01x * v01x + v01y * v01y + v01z * v01z;
+  const float n02 = v02x * v02x + v02y * v02y + v02z * v02z;
+  const float n12 = v12x * v12x + v12y * v12y + v12z * v12z;
+  const bool use01 = (n01 >= n02) && (n01 >= n12);
+  const bool use02 = !use01 && (n02 >= n12);
+  const float vx = use01 ? v01x : (use02 ? v02x : v12x);
+  const float vy = use01 ? v01y : (use02 ? v02y : v12y);
+  const float vz = use01 ? v01z : (use02 ? v02z : v12z);
+  const float vn = sqrtf(fmaxf(vx * vx + vy * vy + vz * vz, eps));
+  n[0] = vx / vn;
+  n[1] = vy / vn;
+  n[2] = vz / vn;
+  *quality = fminf(fmaxf((l2 - l3) / fmaxf(l1, eps), 0.0f), 1.0f);
+}
+
+// Finish the fit of point p into the feat rows [8, n]: normal, centroid
+// (query + mean offset), quality (0 under 4 candidates), source mask.
+__device__ __forceinline__ void plane_feat(const PatchMoments& m, float px,
+                                           float py, float pz, float mask,
+                                           float* __restrict__ feat, int p,
+                                           int n) {
+  const float denom = fmaxf(m.s0, 1.0f);
+  const float mx = m.sx / denom, my = m.sy / denom, mz = m.sz / denom;
+  float nrm[3], quality;
+  smallest_eig(m.sxx / denom - mx * mx, m.syy / denom - my * my,
+               m.szz / denom - mz * mz, m.sxy / denom - mx * my,
+               m.sxz / denom - mx * mz, m.syz / denom - my * mz, nrm,
+               &quality);
+  feat[p] = nrm[0];
+  feat[n + p] = nrm[1];
+  feat[2 * n + p] = nrm[2];
+  feat[3 * n + p] = px + mx;
+  feat[4 * n + p] = py + my;
+  feat[5 * n + p] = pz + mz;
+  feat[6 * n + p] = (m.s0 >= 4.0f) ? quality : 0.0f;
+  feat[7 * n + p] = mask;
+}
+
 }  // namespace ptudes

@@ -43,8 +43,12 @@ _SIGNATURES = {
     "ptudes_gn_prep": [_P] * 6 + [_I, _I, _F, _P],
     "ptudes_icp_loop": [_P] * 8 + [_I, _I] + [_F] * 4 + [_I, _P],
     "ptudes_gn_iter": [_P] * 9 + [_I, _I, _F, _P],
+    "ptudes_gather_select": [_P] * 3 + [_I] * 5 + [_F, _P],
+    "ptudes_gather_prep": [_P] * 9 + [_I] * 3 + [_F, _F, _I, _P],
+    "ptudes_plane_moments": [_P] * 6 + [_I, _I, _F, _P],
 }
-KERNELS = ("ekf_predict", "ekf_update", "gn_prep", "icp_loop", "gn_iter")
+KERNELS = ("ekf_predict", "ekf_update", "gn_prep", "icp_loop", "gn_iter",
+           "gather_select", "gather_prep", "plane_moments")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lib = None
@@ -153,13 +157,17 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def ptr(t: torch.Tensor, what: str) -> int:
-    """Device pointer of a contiguous float32 CUDA tensor (checked)."""
-    if t.device.type != "cuda" or t.dtype != torch.float32 \
-            or not t.is_contiguous():
+def ptr(t: torch.Tensor, what: str, dtype: torch.dtype = torch.float32,
+        align: int = 1) -> int:
+    """Device pointer of a contiguous CUDA tensor of ``dtype`` (float32 by
+    default; int32 for the hash map's tables, bool for masks) whose data
+    starts on an ``align``-byte boundary (checked)."""
+    if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(
-            f"{what}: needs a contiguous float32 CUDA tensor, got "
+            f"{what}: needs a contiguous {dtype} CUDA tensor, got "
             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    if t.data_ptr() % align:
+        raise ValueError(f"{what}: data not aligned to {align} bytes")
     return t.data_ptr()
 
 

@@ -101,7 +101,8 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
         prior_trans_weight=cfg.prior_trans_weight,
         neighborhood=cfg.nn_neighborhood, n_voxels=cfg.nn_voxels,
         plane_radius=cfg.plane_fit_radius,
-        refresh_drift=cfg.nn_refresh_drift, form=cfg.icp_form)
+        refresh_drift=cfg.nn_refresh_drift, fused_gather=cfg.fused_gather,
+        form=cfg.icp_form)
     new_pose = res.pose
 
     err = model_error(res.dev_t, res.dev_r, cfg.max_range)

@@ -89,9 +89,23 @@ def unpack_out(p: torch.Tensor) -> LioOut:
                     map_points=i32(6)))
 
 
-def init_state(cfg: PipelineConfig, device="cpu") -> LioState:
-    return LioState(kiss=kiss.init_state(cfg.kiss, cfg.cap, device),
-                    ekf=esekf.init_state(cfg.ekf, device))
+def _device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device on a machine without
+    a card raises instead of leaving the run on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r}: no CUDA card is available (pass "
+            "device='cpu' to run on the CPU)")
+    return dev
+
+
+def init_state(cfg: PipelineConfig, device="cuda") -> LioState:
+    """A fresh state on ``device``: the card unless the caller asks for
+    another."""
+    dev = _device(device)
+    return LioState(kiss=kiss.init_state(cfg.kiss, cfg.cap, dev),
+                    ekf=esekf.init_state(cfg.ekf, dev))
 
 
 def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
@@ -171,12 +185,13 @@ _time_origin_fn = time_origin  # un-shadowed alias for build_batches
 
 def build_batches(cfg: PipelineConfig, range_m, scan_ts, imu_lacc, imu_avel,
                   imu_ts, guess_poses=None, time_origin=None,
-                  prev_scan_ts=None, *, device="cpu") -> ScanBatch:
+                  prev_scan_ts=None, *, device="cuda") -> ScanBatch:
     """Host-side batcher: scan i gets the IMU samples with ts in
     (scan_ts[i-1], scan_ts[i]] (first scan: everything up to its
     timestamp), padded or truncated to ``cfg.max_imu_per_scan``;
     timestamps rebased in f64 before the f32 cast. The tensors land on
-    ``device``."""
+    ``device``: the card unless the caller asks for another."""
+    device = _device(device)
     scan_ts = np.asarray(scan_ts, np.float64)
     imu_ts = np.asarray(imu_ts, np.float64)
     t0 = (_time_origin_fn(scan_ts, imu_ts) if time_origin is None

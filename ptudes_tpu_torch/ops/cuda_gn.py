@@ -4,7 +4,10 @@
   (``csrc/gn_prep.cu``), the counterpart of
   ``ptudes_tpu.ops.pallas_gn.prep_with_plane_pallas``;
 - K5, one robust GN build against prepped candidates (``csrc/gn_iter.cu``),
-  the counterpart of ``ptudes_tpu.ops.pallas_gn.gn_prepped_pallas``.
+  the counterpart of ``ptudes_tpu.ops.pallas_gn.gn_prepped_pallas``;
+- K7, the patch moments alone (``csrc/plane_moments.cu``), the counterpart
+  of ``ptudes_tpu.ops.pallas_gn.plane_moments_pallas``, which no pipeline
+  path calls.
 
 The candidates are transposed ONCE per gather to the lane-major layout K3,
 K4 and K5 read; the feat rows (normal, centroid, quality, source mask) come
@@ -46,14 +49,20 @@ def _radius2(radius: float) -> float:
     return float(np.float32(radius) * np.float32(radius))
 
 
-def prep_with_plane_torch(cand, source_mask: torch.Tensor,
-                          q_w: torch.Tensor, radius: float
-                          ) -> PreppedCandidates:
-    """K3's plain twin: offset moments within the radius, covariance,
-    ``plane.smallest_eigvec_sym3``."""
-    cx, cy, cz, inf = lane_major(cand)
+def _patch_weights(q_w: torch.Tensor, cx, cy, cz, inf, r2: float):
+    """(w, dx, dy, dz), each [C, N]: the candidate offsets d = c - q and
+    w = 1 for the valid ones within the patch radius (d2 + inf <= r2)."""
     dx, dy, dz = cx - q_w[:, 0], cy - q_w[:, 1], cz - q_w[:, 2]
-    w = ((dx * dx + dy * dy + dz * dz + inf) <= _radius2(radius)).to(_F32)
+    w = ((dx * dx + dy * dy + dz * dz + inf) <= r2).to(_F32)
+    return w, dx, dy, dz
+
+
+def plane_feat_torch(q_w: torch.Tensor, source_mask: torch.Tensor, cx, cy,
+                     cz, inf, r2: float) -> torch.Tensor:
+    """The patch plane fit's feat rows [8, N] (normal, centroid, quality,
+    mask) over lane-major candidates: offset moments within the radius,
+    covariance, ``plane.smallest_eigvec_sym3``."""
+    w, dx, dy, dz = _patch_weights(q_w, cx, cy, cz, inf, r2)
     n_in = w.sum(0)
     denom = torch.clamp(n_in, min=1.0)
     m = torch.stack([(w * dx).sum(0), (w * dy).sum(0), (w * dz).sum(0)],
@@ -62,10 +71,20 @@ def prep_with_plane_torch(cand, source_mask: torch.Tensor,
     cov = torch.einsum("cni,cnj->nij", d, d) / denom[:, None, None] \
         - m[:, :, None] * m[:, None, :]
     normal, quality = smallest_eigvec_sym3(cov)
-    feat = torch.cat([normal, q_w + m,
+    return torch.cat([normal, q_w + m,
                       torch.where(n_in >= 4, quality, 0.0)[:, None],
                       source_mask.to(_F32)[:, None]], 1).T.contiguous()
-    return PreppedCandidates(feat, cx, cy, cz, inf)
+
+
+def prep_with_plane_torch(cand, source_mask: torch.Tensor,
+                          q_w: torch.Tensor, radius: float
+                          ) -> PreppedCandidates:
+    """K3's plain twin: :func:`plane_feat_torch` on the lane-major
+    candidates."""
+    cx, cy, cz, inf = lane_major(cand)
+    return PreppedCandidates(
+        plane_feat_torch(q_w, source_mask, cx, cy, cz, inf,
+                         _radius2(radius)), cx, cy, cz, inf)
 
 
 def prep_with_plane(cand, source_mask: torch.Tensor, q_w: torch.Tensor,
@@ -153,3 +172,41 @@ def gn_prepped(t_cur: torch.Tensor, source: torch.Tensor,
         plane_min_quality)
     return (out[:36].reshape(6, 6), out[36:42], out[42].to(torch.int32),
             out[43])
+
+
+MOMENT_ROWS = 16  # plane_moments output rows (10 used, the rest zero)
+
+
+def plane_moments_torch(ptq: torch.Tensor, cx, cy, cz, inf,
+                        radius2) -> torch.Tensor:
+    """K7's plain twin: [16, N], row 0 the count, rows 1-3 sum d, rows 4-9
+    sum d d^T (xx yy zz xy xz yz) of the valid candidates' offsets from the
+    query points ``ptq[0:3]`` within the radius; rows 10-15 zero."""
+    w, dx, dy, dz = _patch_weights(ptq[0:3].T, cx, cy, cz, inf,
+                                   float(np.float32(radius2)))
+    rows = [w, w * dx, w * dy, w * dz, w * dx * dx, w * dy * dy, w * dz * dz,
+            w * dx * dy, w * dx * dz, w * dy * dz]
+    sums = torch.stack([r.sum(0) for r in rows])
+    return torch.cat([sums, sums.new_zeros((MOMENT_ROWS - 10,
+                                            sums.shape[1]))])
+
+
+def plane_moments(ptq: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
+                  cz: torch.Tensor, inf: torch.Tensor, radius2
+                  ) -> torch.Tensor:
+    """K7: CUDA tensors launch ``plane_moments``; CPU tensors take the
+    twin. ``ptq`` [8, N] (rows 0-2 the query points), candidates [C, N],
+    ``radius2`` a Python float or 0-d tensor (cast to f32)."""
+    if kernels.device_kind(ptq, "plane_moments") == "cpu":
+        return plane_moments_torch(ptq, cx, cy, cz, inf, radius2)
+    c, n = cx.shape
+    if ptq.shape != (8, n) or any(x.shape != (c, n) for x in (cy, cz, inf)):
+        raise ValueError(f"plane_moments: ptq {tuple(ptq.shape)}, "
+                         f"candidates {c} x {n}")
+    out = torch.empty((MOMENT_ROWS, n), dtype=_F32, device=ptq.device)
+    kernels.launch(
+        "plane_moments", kernels.ptr(ptq, "ptq"), kernels.ptr(cx, "cx"),
+        kernels.ptr(cy, "cy"), kernels.ptr(cz, "cz"),
+        kernels.ptr(inf, "inf"), kernels.ptr(out, "out"), n, c,
+        float(np.float32(radius2)))
+    return out

@@ -77,6 +77,32 @@ def gather_rows(table: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return torch.where(inside[..., None], rows, 0)
 
 
+def probe(m: VoxelHashMap, keys: torch.Tensor, max_probes: int,
+          miss_slot: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """The first fingerprint match of each voxel key [..., 3] within
+    ``max_probes`` linear probes from its home slot: (slot, count,
+    representative point [..., 3], found). A miss has slot ``miss_slot``,
+    count 0 and representative 0."""
+    cap = m.meta.shape[0]
+    fp, h0 = _fingerprint_and_slot(keys, cap)
+    slot = torch.full_like(fp, miss_slot)
+    cnt = torch.zeros_like(fp)
+    found = torch.zeros_like(fp, dtype=torch.bool)
+    rep = torch.zeros(fp.shape + (3,), dtype=torch.float32, device=fp.device)
+    for r in range(max_probes):
+        s = (h0 + r) & (cap - 1)
+        rows = m.meta[s.long()]
+        match = (rows[..., 0] == fp) & ~found
+        slot = torch.where(match, s, slot)
+        cnt = torch.where(match, rows[..., 1], cnt)
+        rep = torch.where(match[..., None],
+                          rows[..., 2:5].contiguous().view(torch.float32),
+                          rep)
+        found = found | match
+    return slot, cnt, rep, found
+
+
 def num_points(m: VoxelHashMap) -> torch.Tensor:
     return m.meta[:, 1].sum()
 

@@ -7,7 +7,9 @@ patch plane per point, then run the robust point-to-plane / point-to-point
 Gauss-Newton loop against them. Two forms:
 
 - frozen candidates (``refresh_drift == 0``): one gather, the plane fit in
-  K3 and the whole loop in K4 (``ops.cuda_gn``, ``ops.cuda_icp``);
+  K3 and the whole loop in K4 (``ops.cuda_gn``, ``ops.cuda_icp``); with
+  ``fused_gather`` the gather and the plane fit are K6's two launches
+  (``ops.cuda_gather``) instead;
 - refresh (``refresh_drift > 0``): a host loop of GN builds (K5,
   ``ops.cuda_gn.gn_prepped``) that re-gathers the candidates whenever the
   pose has drifted ``refresh_drift`` voxels from the pose they were
@@ -74,24 +76,8 @@ def gather_candidates(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor, *,
     dev = pts_w.device
     qc = voxel_coords(pts_w, voxel_size)
     keys = qc[:, None, :] + neighbor_offsets(neighborhood, dev)[None]
-    fp, h0 = hashmap._fingerprint_and_slot(keys, cap)
-
-    found_slot = torch.full((mnum, neighborhood), cap, dtype=torch.int32,
-                            device=dev)
-    found = torch.zeros((mnum, neighborhood), dtype=torch.bool, device=dev)
-    cnt = torch.zeros((mnum, neighborhood), dtype=torch.int32, device=dev)
-    rep = torch.zeros((mnum, neighborhood, 3), dtype=torch.float32,
-                      device=dev)
-    for r in range(max_probes):
-        s = (h0 + r) & (cap - 1)
-        rows = vmap_.meta[s.long()]
-        match = (rows[..., 0] == fp) & ~found
-        found_slot = torch.where(match, s, found_slot)
-        cnt = torch.where(match, rows[..., 1], cnt)
-        rep = torch.where(match[..., None],
-                          rows[..., 2:5].contiguous().view(torch.float32),
-                          rep)
-        found = found | match
+    found_slot, cnt, rep, found = hashmap.probe(vmap_, keys, max_probes,
+                                                miss_slot=cap)
 
     d = torch.where(found, torch.sum((rep - pts_w[:, None, :]) ** 2, -1),
                     torch.inf)
@@ -243,15 +229,20 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
                           neighborhood: int = 27, n_voxels: int = 4,
                           plane_radius: float | None = None,
                           refresh_drift: float = 0.0,
+                          fused_gather: bool = False,
                           form: str = "torch") -> IcpResult:
     """Cached-candidate robust GN ICP, plane loss.
 
     ``refresh_drift == 0``: the candidates gathered at the guess stay
     frozen; ``form="cuda"`` runs the candidate prep (K3) and the loop (K4)
     through their kernel wrappers (which take the twins for CPU tensors),
-    ``"torch"`` the twins on any device. ``refresh_drift > 0``:
-    :func:`_register_refresh`."""
-    from . import cuda_gn, cuda_icp
+    ``"torch"`` the twins on any device. ``fused_gather``: the gather and
+    the prep are K6 (``cuda_gather.gather_prep_fused``, or its twin for
+    ``"torch"``) instead of :func:`gather_candidates` and K3.
+    ``refresh_drift > 0``: :func:`_register_refresh`, which always gathers
+    with :func:`gather_candidates` (``fused_gather`` has no effect there,
+    as in the JAX package)."""
+    from . import cuda_gather, cuda_gn, cuda_icp
     if form not in ("cuda", "torch"):
         raise ValueError(f"unknown icp form {form!r}")
     guess = initial_guess.to(torch.float32)
@@ -266,14 +257,22 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
             neighborhood=neighborhood, n_voxels=n_voxels,
             plane_radius=plane_radius, refresh_drift=refresh_drift,
             form=form)
-    q_w = se3.transform(guess, source)
-    cand = gather_candidates(
-        vmap_, q_w, voxel_size=voxel_size, max_probes=max_probes,
-        neighborhood=neighborhood, n_voxels=n_voxels, fit_planes=False)
     r = 1.5 * voxel_size if plane_radius is None else plane_radius
-    prep = (cuda_gn.prep_with_plane if form == "cuda"
-            else cuda_gn.prep_with_plane_torch)
-    prepped = prep(cand, source_mask, q_w, r)
+    if fused_gather:
+        fused = (cuda_gather.gather_prep_fused if form == "cuda"
+                 else cuda_gather.gather_prep_fused_torch)
+        prepped = fused(vmap_, source, source_mask, guess,
+                        voxel_size=voxel_size, max_probes=max_probes,
+                        neighborhood=neighborhood, n_voxels=n_voxels,
+                        plane_radius=r)
+    else:
+        q_w = se3.transform(guess, source)
+        cand = gather_candidates(
+            vmap_, q_w, voxel_size=voxel_size, max_probes=max_probes,
+            neighborhood=neighborhood, n_voxels=n_voxels, fit_planes=False)
+        prep = (cuda_gn.prep_with_plane if form == "cuda"
+                else cuda_gn.prep_with_plane_torch)
+        prepped = prep(cand, source_mask, q_w, r)
     loop = cuda_icp.icp_loop if form == "cuda" else cuda_icp.icp_loop_torch
     pose, n_corr, iters, dev_t, dev_r = loop(
         source, prepped, guess, kernel, max_distance * max_distance,

@@ -14,7 +14,8 @@ import torch
 from ptudes_tpu_torch import config, kernels
 from ptudes_tpu_torch.geom import se3
 from ptudes_tpu_torch.models import esekf
-from ptudes_tpu_torch.ops import cuda_ekf, cuda_gn, cuda_icp, hashmap, icp
+from ptudes_tpu_torch.ops import (cuda_ekf, cuda_gather, cuda_gn, cuda_icp,
+                                  hashmap, icp)
 
 torch.set_num_threads(2)
 
@@ -52,7 +53,7 @@ def _icp_inputs():
     mask = torch.ones(256, dtype=torch.bool)
     cand = icp.gather_candidates(m, src, voxel_size=0.3, neighborhood=7,
                                  n_voxels=4, fit_planes=False)
-    return src, mask, cand
+    return src, mask, cand, m
 
 
 def test_wrappers_take_the_twin_on_cpu_and_count_nothing():
@@ -68,7 +69,7 @@ def test_wrappers_take_the_twin_on_cpu_and_count_nothing():
           esekf.process_pose(s1, pose, cfg=dataclasses.replace(
               cfg, update_form="xla"), meas_cov=mc))
 
-    src, mask, cand = _icp_inputs()
+    src, mask, cand, m = _icp_inputs()
     prepped = cuda_gn.prep_with_plane(cand, mask, src, 0.6)
     _same(prepped, cuda_gn.prep_with_plane_torch(cand, mask, src, 0.6))
     args = (src, prepped, torch.eye(4), torch.tensor(0.1),
@@ -80,6 +81,14 @@ def test_wrappers_take_the_twin_on_cpu_and_count_nothing():
                torch.tensor(0.1), torch.tensor(0.25))
     _same(cuda_gn.gn_prepped(*gn_args, plane_min_quality=0.2),
           cuda_gn.gn_prepped_torch(*gn_args, plane_min_quality=0.2))
+    g_kw = dict(voxel_size=0.3, max_probes=1, neighborhood=7, n_voxels=4,
+                plane_radius=0.6)
+    _same(cuda_gather.gather_prep_fused(m, src, mask, torch.eye(4), **g_kw),
+          cuda_gather.gather_prep_fused_torch(m, src, mask, torch.eye(4),
+                                              **g_kw))
+    ptq = torch.cat([src.T, torch.zeros(5, 256)])
+    _same([cuda_gn.plane_moments(ptq, *prepped[1:], 0.36)],
+          [cuda_gn.plane_moments_torch(ptq, *prepped[1:], 0.36)])
     assert kernels.LAUNCHES == {name: 0 for name in kernels.KERNELS}
 
 
@@ -89,13 +98,17 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_ekf.predict_block(meta, imus, valid, cfg=cfg)
     with pytest.raises(ValueError, match="unsupported device"):
-        src, mask, cand = _icp_inputs()
+        src, mask, cand, _ = _icp_inputs()
         cuda_gn.gn_prepped(torch.eye(4), src.to("meta"),
                            cuda_gn.prep_candidates(cand, mask),
                            torch.tensor(0.1), torch.tensor(0.25),
                            plane_min_quality=0.2)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.ptr(torch.zeros(3), "x")
+    with pytest.raises(ValueError, match="int32 CUDA tensor"):
+        kernels.ptr(torch.zeros(3, dtype=torch.int32), "x", torch.int32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_gn.plane_moments(*[torch.zeros(8, 4, device="meta")] * 5, 0.36)
 
 
 def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
@@ -120,7 +133,8 @@ def test_build_is_keyed_by_the_sources():
     assert len(h) == 16 and h == kernels.source_hash()
     names = {p.rsplit("/", 1)[-1] for p in kernels.sources()}
     assert {"ekf_predict.cu", "ekf_update.cu", "gn_prep.cu",
-            "icp_loop.cu", "gn_iter.cu", "common.cuh"} <= names
+            "icp_loop.cu", "gn_iter.cu", "gather_fused.cu",
+            "plane_moments.cu", "common.cuh"} <= names
     assert set(kernels.KERNELS) == set(kernels.LAUNCHES)
     assert {f"ptudes_{name}" for name in kernels.KERNELS} \
         == set(kernels._SIGNATURES)

@@ -43,9 +43,9 @@ def port_config(**kw):
     return dataclasses.replace(_cut(config.bench_config()), **kw)
 
 
-def jax_config(**kw):
+def jax_config(gn_backend="jnp", fused_gather=False, **kw):
     base = bench.bench_config()
-    cfg = _cut(base, gn_backend="jnp")
+    cfg = _cut(base, gn_backend=gn_backend, fused_gather=fused_gather)
     return dataclasses.replace(
         cfg, ekf=dataclasses.replace(base.ekf, predict_batch="unroll",
                                      update_form="xla"),
@@ -87,13 +87,14 @@ def run():
 
     cfg = port_config()
     batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
-                                imu_ts)
+                                imu_ts, device="cpu")
     lut = convert.lut_from_numpy(sensor.lut, "cpu")
     kernels.reset_launches()
-    _, out = lio.run_sequence(lio.init_state(cfg), batches, lut, cfg=cfg)
+    _, out = lio.run_sequence(lio.init_state(cfg, "cpu"), batches, lut,
+                              cfg=cfg)
     return dict(jposes=np.asarray(jout.kiss_pose, np.float64), out=out,
                 jboot=jboot, batches=batches, lut=lut, gt_mid=gt_mid,
-                launches=dict(kernels.LAUNCHES))
+                launches=dict(kernels.LAUNCHES), jb=jb, jlut=jlut)
 
 
 def _pose_err(a, b):
@@ -118,6 +119,27 @@ def test_sequence_matches_jax(run):
     assert sum(run["launches"].values()) == 0
 
 
+def test_fused_gather_sequence_matches_jax(run):
+    """The same sequence with ``fused_gather=True`` (K6's twin in place of
+    the gather and K3's twin) against JAX's fused gather and fused loop
+    kernels in interpret mode (``gn_backend="fused"``)."""
+    jcfg = jax_config(gn_backend="fused", fused_gather=True)
+    _, jout = jlio.run_sequence(jlio.init_state(jcfg), run["jb"], run["jlut"],
+                                cfg=jcfg)
+    cfg = _cut(config.bench_config(), fused_gather=True)
+    kernels.reset_launches()
+    _, out = lio.run_sequence(lio.init_state(cfg, "cpu"), run["batches"],
+                              run["lut"], cfg=cfg)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    kp = out.kiss_pose.double().numpy()
+    assert np.isfinite(kp).all() and bool(out.scan_valid.all())
+    err = _pose_err(kp, np.asarray(jout.kiss_pose, np.float64))
+    assert err.max() <= POSE_BAR_M, err
+    # and the fused gather tracks the unfused run of the same port
+    assert _pose_err(kp, run["out"].kiss_pose.double().numpy()).max() \
+        <= POSE_BAR_M
+
+
 def test_state_carry_over_from_jax(run):
     leaves = [np.asarray(x) for x in jax.tree.leaves(run["jboot"])]
     state = convert.lio_state_from_numpy(leaves, "cpu")
@@ -139,12 +161,19 @@ def test_state_carry_over_from_jax(run):
 
 
 def test_cuda_device_is_not_a_fallback():
-    """On a machine without a card, asking for CUDA raises."""
+    """On a machine without a card, asking for CUDA raises, and so do the
+    entry points given no device: they default to the card."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     cfg = port_config()
     with pytest.raises((RuntimeError, AssertionError)):
         lio.init_state(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        lio.init_state(cfg)
+    scan_ts, imu_ts = np.array([0.1, 0.2]), np.array([0.05, 0.15])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        lio.build_batches(cfg, np.zeros((2, 4, 8)), scan_ts,
+                          np.zeros((2, 3)), np.zeros((2, 3)), imu_ts)
     with pytest.raises((RuntimeError, AssertionError)):
         convert.lut_from_numpy(sim.make_sim_sensor(4, 8).lut, "cuda")
 
@@ -162,8 +191,8 @@ def test_unported_options_raise(run, change):
                 getattr(cfg, part), **change[part])})
     cfg = dataclasses.replace(cfg, **change)
     with pytest.raises(NotImplementedError):
-        lio.run_sequence(lio.init_state(cfg), run["batches"], run["lut"],
-                         cfg=cfg)
+        lio.run_sequence(lio.init_state(cfg, "cpu"), run["batches"],
+                         run["lut"], cfg=cfg)
 
 
 def test_bench_config_matches_bench_py():
@@ -231,5 +260,5 @@ def test_cli_config_matches_the_cli():
 def test_filter_log_is_not_ported(run):
     cfg = port_config()
     with pytest.raises(NotImplementedError):
-        lio.run_sequence(lio.init_state(cfg), run["batches"], run["lut"],
-                         cfg=cfg, log=True)
+        lio.run_sequence(lio.init_state(cfg, "cpu"), run["batches"],
+                         run["lut"], cfg=cfg, log=True)

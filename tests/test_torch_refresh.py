@@ -223,11 +223,12 @@ def run():
 
     cfg = _cut(config.cli_config(32, 256))
     batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
-                                imu_ts)
+                                imu_ts, device="cpu")
     lut = convert.lut_from_numpy(sensor.lut, "cpu")
     kernels.reset_launches()
     icp.reset_refresh_counts()
-    _, out = lio.run_sequence(lio.init_state(cfg), batches, lut, cfg=cfg)
+    _, out = lio.run_sequence(lio.init_state(cfg, "cpu"), batches, lut,
+                              cfg=cfg)
     return dict(jposes=np.asarray(jout.kiss_pose, np.float64), out=out,
                 jout=jout, jboot=jboot, batches=batches, lut=lut, cfg=cfg,
                 launches=dict(kernels.LAUNCHES),

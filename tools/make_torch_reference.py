@@ -9,11 +9,14 @@ and writes one row of 12 floats (the 3 x 4 top of each pose, row-major) per
 scan, after a header with the configuration and the JAX ATE RMSE.
 
     JAX_PLATFORMS=cpu python tools/make_torch_reference.py \
-        [--config bench|cli] [PATH]
+        [--config bench|bench_fused|cli] [PATH]
 
 ``--config bench`` (default): ``bench.py:bench_config``, written to
-``tests/data/bench_jax_poses.txt``. ``--config cli``: the flagship command's
-configuration (``ptudes_tpu/cli/main.py:441-452`` with
+``tests/data/bench_jax_poses.txt``. ``--config bench_fused``: the same with
+``fused_gather=True``, run through the fused gather and the fused loop
+kernels in interpret mode (``gn_backend="fused"``), written to
+``tests/data/bench_fused_jax_poses.txt``. ``--config cli``: the flagship
+command's configuration (``ptudes_tpu/cli/main.py:441-452`` with
 ``--use-imu-prediction``; the port's ``config.cli_config(128, 1024)``),
 written to ``tests/data/cli_jax_poses.txt``.
 """
@@ -35,7 +38,7 @@ def jax_config(which: str):
     """The JAX configuration of ``which`` with the kernels' XLA forms."""
     from ptudes_tpu.config import Capacity, KissConfig, PipelineConfig
 
-    if which == "bench":
+    if which in ("bench", "bench_fused"):
         import bench
         base = bench.bench_config()
     else:
@@ -48,7 +51,10 @@ def jax_config(which: str):
         base,
         ekf=dataclasses.replace(base.ekf, predict_batch="unroll",
                                 update_form="xla"),
-        kiss=dataclasses.replace(base.kiss, gn_backend="jnp"),
+        kiss=dataclasses.replace(
+            base.kiss, **(dict(gn_backend="fused", fused_gather=True)
+                          if which == "bench_fused" else
+                          dict(gn_backend="jnp"))),
         scan_unroll=1)
 
 
@@ -63,9 +69,10 @@ def main(which: str, path: str) -> None:
 
     sensor, scans, scan_ts, gt_mid, imu = sim.bench_scene()
     cfg = jax_config(which)
-    where = ("bench.py:bench_config" if which == "bench"
-             else "ptudes_tpu/cli/main.py:441-452 (ekf-bench ouster "
-                  "--use-imu-prediction, 128x1024)")
+    where = {"bench": "bench.py:bench_config",
+             "bench_fused": "bench.py:bench_config with fused_gather=True",
+             "cli": "ptudes_tpu/cli/main.py:441-452 (ekf-bench ouster "
+                    "--use-imu-prediction, 128x1024)"}[which]
     batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
                                 imu.ts)
     lut = XyzLut(jnp.asarray(sensor.lut.direction),
@@ -79,7 +86,8 @@ def main(which: str, path: str) -> None:
         "sim.bench_scene: 50 scans, 128x1024, bench.py:make_data)",
         f"ptudes_tpu lio.run_sequence on {jax.devices()[0].platform} at "
         f"{where} with predict_batch='unroll', "
-        "update_form='xla', gn_backend='jnp', scan_unroll=1",
+        f"update_form='xla', gn_backend={cfg.kiss.gn_backend!r}, "
+        "scan_unroll=1",
         f"kiss={cfg.kiss}", f"cap={cfg.cap}", f"ekf={cfg.ekf}",
         f"max_imu_per_scan={cfg.max_imu_per_scan} guess={cfg.guess} "
         f"bootstrap_scans={cfg.bootstrap_scans} "
@@ -94,7 +102,8 @@ def main(which: str, path: str) -> None:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("bench", "cli"), default="bench")
+    ap.add_argument("--config", choices=("bench", "bench_fused", "cli"),
+                    default="bench")
     ap.add_argument("path", nargs="?", help="output file (default "
                     "tests/data/<config>_jax_poses.txt)")
     args = ap.parse_args()

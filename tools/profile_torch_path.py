@@ -1,12 +1,16 @@
 """Where the time of the PyTorch port's steady scan step goes, on one CUDA
 card: ``torch.profiler`` over steady scans of the bench scene at
-``bench_config()`` (``--config bench``) or at the flagship command's
-``cli_config(128, 1024)`` (``--config cli``).
+``bench_config()`` (``--config bench``), at the same with
+``fused_gather=True`` (``--config bench_fused``: K6 in place of the gather
+and K3) or at the flagship command's ``cli_config(128, 1024)``
+(``--config cli``). Several configurations profile one after another in
+one process, so their numbers compare on one card and host.
 
-    python3 tools/profile_torch_path.py [--config bench|cli] [--scans 20]
-        [--json PATH]
+    python3 tools/profile_torch_path.py [--config bench|bench_fused|cli
+        [...]] [--scans 20] [--json PATH]
 
-Prints (and with ``--json`` also writes as JSON): wall time per scan
+Prints per configuration (and with ``--json`` also writes as JSON, a list
+with one summary per configuration): wall time per scan
 (host clock around scans ending in a synchronize), device busy time per
 scan (the union of kernel intervals in the trace) and the idle share, the
 kernel launches per scan, the refresh loop's host reads and re-gathers
@@ -17,6 +21,7 @@ the profiled window.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -45,31 +50,57 @@ def busy_us(events) -> float:
     return total
 
 
+def make_config(name: str, h: int, w: int):
+    from ptudes_tpu_torch import config
+
+    if name == "cli":
+        return config.cli_config(h, w)
+    cfg = config.bench_config()
+    if name == "bench_fused":
+        cfg = dataclasses.replace(cfg, kiss=dataclasses.replace(
+            cfg.kiss, fused_gather=True))
+    return cfg
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("bench", "cli"), default="bench",
-                    help="bench_config() or cli_config(128, 1024)")
+    ap.add_argument("--config", choices=("bench", "bench_fused", "cli"),
+                    nargs="+", default=["bench"],
+                    help="bench_config(), the same with fused_gather=True, "
+                         "or cli_config(128, 1024); several run in turn")
     ap.add_argument("--scans", type=int, default=20,
                     help="steady scans in the profiled window")
-    ap.add_argument("--json", help="also write the summary to this file")
+    ap.add_argument("--json", help="also write the summaries to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_path: no CUDA device")
-    from torch.profiler import ProfilerActivity, profile
+    from ptudes_tpu_torch.models import sim
 
-    from ptudes_tpu_torch import config, kernels
-    from ptudes_tpu_torch.models import lio, sim
-    from ptudes_tpu_torch.ops import hashmap, icp
-    from ptudes_tpu_torch.utils import convert
-
-    dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    sensor, scans, scan_ts, _, imu = sim.bench_scene()
-    cfg = (config.bench_config() if args.config == "bench"
-           else config.cli_config(*scans.shape[1:]))
+    scene = sim.bench_scene()
+    summaries = [profile_config(name, scene, args.scans, card)
+                 for name in args.config]
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(summaries, f, indent=1)
+
+
+def profile_config(which: str, scene, n_scans: int, card: str) -> dict:
+    """Profile ``n_scans`` steady scans at configuration ``which``; print
+    and return the summary."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ptudes_tpu_torch import kernels
+    from ptudes_tpu_torch.models import lio
+    from ptudes_tpu_torch.ops import hashmap, icp
+    from ptudes_tpu_torch.utils import convert
+
+    dev = torch.device("cuda", 0)
+    sensor, scans, scan_ts, _, imu = scene
+    cfg = make_config(which, *scans.shape[1:])
     lut = convert.lut_from_numpy(sensor.lut, dev)
     batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
                                 imu.ts, device=dev)
@@ -77,7 +108,7 @@ def main() -> None:
     steady = lio.make_scan_step(lut, cfg,
                                 insert_overflow=cfg.steady_insert_mode)
     n0 = cfg.bootstrap_scans
-    window = range(n0 + 5, n0 + 5 + args.scans)
+    window = range(n0 + 5, n0 + 5 + n_scans)
     assert window[-1] < len(scans), "not enough scans for the window"
 
     state = lio.init_state(cfg, dev)
@@ -93,8 +124,8 @@ def main() -> None:
     for i in window:
         s_unprof, _ = steady(s_unprof, lio.scan_at(batches, i))
     torch.cuda.synchronize()
-    wall_plain = (time.monotonic() - t0) / args.scans
-    refresh = {k: v / args.scans for k, v in icp.REFRESH_COUNTS.items()}
+    wall_plain = (time.monotonic() - t0) / n_scans
+    refresh = {k: v / n_scans for k, v in icp.REFRESH_COUNTS.items()}
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -102,7 +133,7 @@ def main() -> None:
         for i in window:
             state, _ = steady(state, lio.scan_at(batches, i))
         torch.cuda.synchronize()
-        wall_prof = (time.monotonic() - t0) / args.scans
+        wall_prof = (time.monotonic() - t0) / n_scans
 
     # one overflow chunk with no points (what the exact steady insert runs
     # ceil(max_frame / max_new_per_scan) - 1 times per scan when the new
@@ -132,7 +163,7 @@ def main() -> None:
 
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = busy_us(kern) / args.scans
+    busy = busy_us(kern) / n_scans
     by_kernel: dict[str, list[float]] = {}
     for e in kern:
         d = by_kernel.setdefault(e.name[:90], [0, 0.0])
@@ -143,13 +174,13 @@ def main() -> None:
            == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")]
     top_ops = sorted(ops, key=lambda e: -e.self_device_time_total)[:20]
     summary = {
-        "card": card, "config": args.config, "scans": args.scans,
+        "card": card, "config": which, "scans": n_scans,
         "wall_ms_per_scan": wall_plain * 1e3,
         "wall_ms_per_scan_profiled": wall_prof * 1e3,
         "device_busy_ms_per_scan": busy / 1e3,
         "device_idle_share": 1.0 - busy / 1e3 / (wall_plain * 1e3),
         "device_idle_share_profiled": 1.0 - busy / 1e3 / (wall_prof * 1e3),
-        "kernel_launches_per_scan": len(kern) / args.scans,
+        "kernel_launches_per_scan": len(kern) / n_scans,
         "empty_insert_chunk_ms": empty_chunk_ms,
         "extra_insert_chunks_per_scan": (
             -(-nf // cfg.cap.max_new_per_scan) - 1
@@ -159,22 +190,19 @@ def main() -> None:
         # K5 is two kernels: gn_iter_kernel and gn_iter_reduce_kernel
         "hand_kernels_device_us_per_scan": {
             name: sum(v[1] for k, v in by_kernel.items()
-                      if f"{name}_" in k) / args.scans
+                      if f"{name}_" in k) / n_scans
             for name in kernels.KERNELS},
         "top_kernels": [
-            dict(name=k, calls_per_scan=v[0] / args.scans,
-                 device_us_per_scan=v[1] / args.scans)
+            dict(name=k, calls_per_scan=v[0] / n_scans,
+                 device_us_per_scan=v[1] / n_scans)
             for k, v in top_kernels],
         "top_ops": [
-            dict(op=e.key, calls_per_scan=e.count / args.scans,
+            dict(op=e.key, calls_per_scan=e.count / n_scans,
                  self_device_us_per_scan=e.self_device_time_total
-                 / args.scans,
-                 cpu_us_per_scan=e.cpu_time_total / args.scans)
+                 / n_scans,
+                 cpu_us_per_scan=e.cpu_time_total / n_scans)
             for e in top_ops],
     }
-    if args.json:
-        with open(args.json, "w") as f:
-            json.dump(summary, f, indent=1)
     print(json.dumps({k: v for k, v in summary.items()
                       if not k.startswith("top")}))
     for k in summary["top_kernels"]:
@@ -184,6 +212,7 @@ def main() -> None:
         print(f"  {o['self_device_us_per_scan']:9.1f} us dev "
               f"{o['cpu_us_per_scan']:9.1f} us cpu "
               f"{o['calls_per_scan']:6.1f} x  {o['op']}")
+    return summary
 
 
 if __name__ == "__main__":
