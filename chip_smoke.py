@@ -8,7 +8,11 @@ Phases, each reported on its own line:
   2. build the CUDA kernels from ``ptudes_tpu_torch/csrc`` (one nvcc per
      source, in parallel);
   3. each kernel against its plain PyTorch twin on the card, with the
-     stated tolerances, and both times; the candidate-refresh ICP loop
+     stated tolerances, and both times; K4 in both its variants (staged
+     in shared memory at the bench shapes, streamed at the CLI shapes),
+     its other launch shapes bit for bit against the default, K4 and K5
+     repeating bit for bit and on a scene of exact nearest-row ties
+     (lowest row wins); the candidate-refresh ICP loop
      with the kernel against the loop with the twin; the fused gather
      (K6) at the bench and CLI shapes, and K6 -> K4 against the gather ->
      K3 -> K4 chain; the plane moments (K7), which no path launches;
@@ -108,6 +112,34 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_us(fn, name: str, reps: int = 20) -> float:
+    """Mean device time (us) of the kernel ``<name>_kernel`` over ``reps``
+    calls of ``fn``, from ``torch.profiler``'s device timestamps (the
+    wrapper's glue ops excluded). The profiler can drop kernel records (it
+    kept 34 of 50 once, with every launch checked), so a short count is
+    profiled again up to twice, then the mean of what it kept is used and
+    the count printed; no record, or more than one a call, fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ds = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and f"{name}_kernel" in e.name]
+        if len(ds) == reps:
+            break
+    check(0 < len(ds) <= reps, f"{name}: {len(ds)} kernels in {reps} calls")
+    if len(ds) < reps:
+        say(f"  {name}: the profiler kept {len(ds)} of {reps} kernel records")
+    return float(np.mean(ds))
 
 
 def check(ok: bool, what: str) -> None:
@@ -313,34 +345,150 @@ def check_icp(dev, results):
               max_iterations=k.max_iterations,
               prior_rot_weight=k.prior_rot_weight,
               prior_trans_weight=k.prior_trans_weight)
+    c, n = pp.cx.shape
+    plan = cuda_icp.loop_plan(n, c)
+    check(plan.staged and plan.cluster >= 8,
+          f"icp_loop plan at the bench shapes {plan}")
+    d, nk, npl, ik, ip, kern_loop, plain_loop = check_loop(
+        "icp_loop staged", src, pp, guess, kern, max_d2, 1e-5, kw)
+    check(npl > 1000, f"icp_loop twin found {npl} correspondences")
+    # a ragged slice: at N = 2046 the last CTA is short and the rows are
+    # not 16-byte aligned, so the staged variant copies them plainly
+    m_ = 2046
+    cut = cuda_gn.PreppedCandidates(*(x[:, :m_].contiguous() for x in pp))
+    check_loop("icp_loop ragged", src[:m_], cut, guess, kern, max_d2,
+               1e-5, kw)
+    # reads the source, feat and candidates once; per iteration ~8
+    # operations per candidate and ~120 per point
+    results["icp_loop"] = dict(
+        max_abs_err=d, ms=cuda_ms(kern_loop, 50),
+        plain_ms=cuda_ms(plain_loop, 5), iterations=ik,
+        device_us=kernel_us(kern_loop, "icp_loop"), plan=plan._asdict(),
+        **bound(nbytes(src, pp, guess), ik * n * (8 * c + 120)))
+    say(f"  icp_loop plan {plan}: kernel "
+        f"{results['icp_loop']['device_us']:.2f} us on the device")
+
+
+def check_loop(name, src, prepped, guess, kern, max_d2, conv, kw):
+    """K4 (shaped by ``loop_plan``) against its twin at
+    tests/test_pallas_icp.py:test_fused_loop_matches_xla_loop's bars
+    (log-pose 5e-4, n_corr within max(3, 1 %), iterations within 2), and a
+    second call bit for bit. Returns (log-pose error, kernel and twin
+    n_corr and iterations, kernel call, twin call)."""
 
     def kern_loop():
-        return cuda_icp.icp_loop(src, pp, guess, kern, max_d2, 1e-5, **kw)
+        return cuda_icp.icp_loop(src, prepped, guess, kern, max_d2, conv,
+                                 **kw)
 
     def plain_loop():
-        return cuda_icp.icp_loop_torch(src, pp, guess, kern, max_d2, 1e-5,
-                                       **kw)
+        return cuda_icp.icp_loop_torch(src, prepped, guess, kern, max_d2,
+                                       conv, **kw)
 
     ok_, pl = kern_loop(), plain_loop()
+    again = kern_loop()
+    check(all(torch.equal(a, b) for a, b in zip(ok_, again)),
+          f"{name} does not repeat bit for bit")
     d = float(torch.linalg.vector_norm(
         se3.log_pose(se3.inv(pl[0]) @ ok_[0])))
     nk, npl = int(ok_[1]), int(pl[1])
     ik, ip = int(ok_[2]), int(pl[2])
-    # bars of tests/test_pallas_icp.py:test_fused_loop_matches_xla_loop
-    check(d < 5e-4, f"icp_loop log-pose vs twin {d}")
+    check(d < 5e-4, f"{name} log-pose vs twin {d}")
     check(abs(nk - npl) <= max(3, int(0.01 * npl)),
-          f"icp_loop n_corr {nk} vs {npl}")
-    check(abs(ik - ip) <= 2, f"icp_loop iterations {ik} vs {ip}")
-    check(npl > 1000, f"icp_loop twin found {npl} correspondences")
-    # reads the source, feat and candidates once; per iteration ~8
-    # operations per candidate and ~120 per point
-    c, n = pp.cx.shape
-    results["icp_loop"] = dict(
-        max_abs_err=d, ms=cuda_ms(kern_loop, 50),
-        plain_ms=cuda_ms(plain_loop, 5),
-        **bound(nbytes(src, pp, guess), ik * n * (8 * c + 120)))
-    say(f"  icp_loop: |log(twin^-1 kernel)| {d:.2e} (5e-4), n_corr {nk} vs "
-        f"{npl}, iterations {ik} vs {ip}")
+          f"{name} n_corr {nk} vs {npl}")
+    check(abs(ik - ip) <= 2, f"{name} iterations {ik} vs {ip}")
+    say(f"  {name} (N={src.shape[0]}, C={prepped.cx.shape[0]}): "
+        f"|log(twin^-1 kernel)| {d:.2e} (5e-4), n_corr {nk} vs {npl}, "
+        f"iterations {ik} vs {ip}; repeats bit for bit")
+    return d, nk, npl, ik, ip, kern_loop, plain_loop
+
+
+def check_icp_streamed(dev, results):
+    """K4's streamed variant at the CLI shapes (N = 8192, C = 80, too large
+    to stage): cli_gn_scene's prepped candidates through the loop at
+    cli_config's ICP settings, against the twin at check_loop's bars."""
+    k = config.cli_config(128, 1024).kiss
+    t, src, mask, cand = cli_gn_scene(dev)
+    prepped = cuda_gn.prep_candidates(cand, mask)
+    c, n = prepped.cx.shape
+    plan = cuda_icp.loop_plan(n, c)
+    check(not plan.staged, f"icp_loop plan at the CLI shapes {plan}")
+    kw = dict(plane_min_quality=k.plane_min_quality,
+              max_iterations=k.max_iterations,
+              prior_rot_weight=k.prior_rot_weight,
+              prior_trans_weight=k.prior_trans_weight)
+    args = (src, prepped, t, torch.tensor(0.1667, device=dev),
+            torch.tensor(2.25, device=dev), k.convergence_criterion, kw)
+    d, nk, npl, ik, ip, kern_loop, plain_loop = check_loop(
+        "icp_loop streamed", *args)
+    check(npl > 1000, f"icp_loop streamed twin found {npl} correspondences")
+    r = results["icp_loop"]
+    r.update(max_abs_err=max(r["max_abs_err"], d),
+             ms_streamed_cli=cuda_ms(kern_loop, 20),
+             device_us_streamed_cli=kernel_us(kern_loop, "icp_loop"),
+             plain_ms_streamed_cli=cuda_ms(plain_loop, 3),
+             iterations_streamed_cli=ik, plan_streamed_cli=plan._asdict())
+
+
+def tie_scene(dev, n=2044, c=32, seed=11):
+    """Prepped candidates whose nearest rows tie exactly (n = 2044 leaves
+    K5's last CTA and K4's last slice short): source points on
+    a 1/8 m grid, candidate rows in pairs p + o and p - o with offsets on a
+    1/16 m grid (every d2 exact, each pair's equal), a fifth of the rows
+    invalid, half the points on the point-to-point branch (quality 0),
+    where the winning row sets the residual."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(-64, 65, (n, 3)) / 8.0
+    off = rng.integers(-8, 9, (c // 2, n, 3)) / 16.0
+    pts = np.empty((c, n, 3))
+    pts[0::2], pts[1::2] = src + off, src - off
+    inf = np.where(rng.uniform(size=(c, n)) < 0.2, 1e30, 0.0)
+    normal = rng.normal(size=(n, 3))
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    feat = np.concatenate([
+        normal.T, (src + rng.normal(0, 0.01, (n, 3))).T,
+        np.where(rng.uniform(size=n) < 0.5, 0.0, 0.9)[None],
+        (rng.uniform(size=n) < 0.95)[None]])
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev).contiguous()
+
+    prepped = cuda_gn.PreppedCandidates(
+        f32(feat), f32(pts[..., 0]), f32(pts[..., 1]), f32(pts[..., 2]),
+        f32(inf))
+    return f32(src), prepped
+
+
+def check_ties(dev):
+    """K4 (one iteration, while the ties are exact) and K5 on
+    :func:`tie_scene` against their twins: n_corr exact, K5's jtj and jtr
+    within 1e-5 of their largest magnitude, K4's log-pose within 1e-4 (a
+    last-row tie rule moves K5's jtr by 4x its magnitude and K4's pose by
+    3e-3 here)."""
+    src, prepped = tie_scene(dev)
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    kern, max_d2 = (torch.tensor(v, device=dev) for v in (0.1667, 1.0))
+    gk = cuda_gn.gn_prepped(eye, src, prepped, kern, max_d2,
+                            plane_min_quality=0.2)
+    gp = cuda_gn.gn_prepped_torch(eye, src, prepped, kern, max_d2,
+                                  plane_min_quality=0.2)
+    rel_j = float((gk[0] - gp[0]).abs().max() / gp[0].abs().max())
+    rel_r = float((gk[1] - gp[1]).abs().max() / gp[1].abs().max())
+    check(int(gk[2]) == int(gp[2]) and int(gp[2]) > 1000,
+          f"gn_iter ties n_corr {int(gk[2])} vs {int(gp[2])}")
+    check(rel_j <= 1e-5 and rel_r <= 1e-5,
+          f"gn_iter ties jtj rel {rel_j}, jtr rel {rel_r}")
+    kw = dict(plane_min_quality=0.2, max_iterations=1, prior_rot_weight=0.01,
+              prior_trans_weight=0.01)
+    lk = cuda_icp.icp_loop(src, prepped, eye, kern, max_d2, 1e-5, **kw)
+    lp = cuda_icp.icp_loop_torch(src, prepped, eye, kern, max_d2, 1e-5, **kw)
+    d = float(torch.linalg.vector_norm(se3.log_pose(se3.inv(lp[0]) @ lk[0])))
+    check(int(lk[1]) == int(lp[1]) == int(gp[2]),
+          f"icp_loop ties n_corr {int(lk[1])} vs {int(lp[1])}")
+    check(d < 1e-4, f"icp_loop ties log-pose vs twin {d}")
+    say(f"  ties (N={src.shape[0]}, C={prepped.cx.shape[0]}): gn_iter "
+        f"n_corr {int(gk[2])} exact, jtj rel {rel_j:.2e}, jtr rel "
+        f"{rel_r:.2e} (1e-5); icp_loop n_corr {int(lk[1])} exact, "
+        f"|log(twin^-1 kernel)| {d:.2e} (1e-4)")
 
 
 def gn_map(dev, pts, frame_voxel, voxel_size, capacity, ppv, new_capacity):
@@ -443,19 +591,22 @@ def check_gn_iter(dev, results):
               f"gn_iter ({name}) does not repeat bit for bit")
         worst = max(worst, float((jk - jp).abs().max()),
                     float((rk - rp).abs().max()), float((wk - wp).abs()))
-        times[name] = (cuda_ms(kern_build, 200), cuda_ms(plain_build, 20))
+        times[name] = (cuda_ms(kern_build, 200), cuda_ms(plain_build, 20),
+                       kernel_us(kern_build, "gn_iter", 50))
         # one build: the source, feat and candidates once, ~8 operations
         # per candidate and ~120 per point
         bounds[name] = bound(nbytes(src, prepped, t), n * (8 * c + 120))
         say(f"  gn_iter {name} (N={n}, C={c}): n_corr {int(nk)} exact, jtj "
             f"rel {rel_j:.2e}, jtr rel {rel_r:.2e}, total_w rel {rel_w:.2e} "
             f"(1e-5); repeats bit for bit; {times[name][0]:.4f} ms vs twin "
-            f"{times[name][1]:.4f} ms")
+            f"{times[name][1]:.4f} ms; kernel {times[name][2]:.2f} us on "
+            f"the device")
     results["gn_iter"] = dict(
         max_abs_err=worst, ms=times["cli"][0], plain_ms=times["cli"][1],
-        **bounds["cli"],
+        device_us=times["cli"][2], **bounds["cli"],
         ms_test_shape=times["test_pallas_gn"][0],
-        plain_ms_test_shape=times["test_pallas_gn"][1])
+        plain_ms_test_shape=times["test_pallas_gn"][1],
+        device_us_test_shape=times["test_pallas_gn"][2])
 
 
 def check_refresh_loop(dev):
@@ -959,7 +1110,9 @@ def main() -> int:
     rng = np.random.default_rng(0)
     check_ekf(dev, rng, results)
     check_icp(dev, results)
+    check_icp_streamed(dev, results)
     check_gn_iter(dev, results)
+    check_ties(dev)
     check_refresh_loop(dev)
     check_gather(dev, results)
     check_fused_registration(dev)

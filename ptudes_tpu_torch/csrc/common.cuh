@@ -208,32 +208,77 @@ __device__ __forceinline__ void cholesky_solve(const float (*l)[N],
 //   37-42 sum w_pl row s (s = n . (p - c)); 43 correspondences; 44 sum w_pl.
 constexpr int kGnAcc = 45;
 
-// Add source point p's terms (already transformed to (px, py, pz)) to
-// acc: masked first-argmin nearest neighbour over the c lane-major
-// candidate rows (the lowest row wins ties; invalid rows carry +1e30),
-// robust weights k^2 / (k + r^2)^2, the plane row where the patch fit has
-// quality >= plane_q, point-to-point moments elsewhere.
-__device__ __forceinline__ void gn_point_moments(
-    float px, float py, float pz, int p, int n, int c,
-    const float* __restrict__ feat, const float* __restrict__ cx,
-    const float* __restrict__ cy, const float* __restrict__ cz,
-    const float* __restrict__ inf, float kern, float max_d2, float plane_q,
-    float* acc) {
-  float d2min = INFINITY, qx = 0.0f, qy = 0.0f, qz = 0.0f;
-  for (int k = 0; k < c; ++k) {
-    const int o = k * n + p;
+// Stages that tools/exp_gn_stages.py takes out of K4 and K5 to time the
+// rest (nvcc -DPTUDES_SKIP=<mask>); the port's own build takes none out.
+#ifndef PTUDES_SKIP
+#define PTUDES_SKIP 0
+#endif
+enum Stage : unsigned {
+  kSkipNearest = 1,   // K4, K5: the nearest-neighbour scan
+  kSkipMoments = 2,   // K4, K5: the moment rows
+  kSkipTail = 4,      // K5: the last CTA's sum and assembly
+  kSkipCluster = 8,   // K4: the cluster barrier and the peers' partials
+  kSkipSolve = 16,    // K4: the solve and the pose update
+  kSwapGroups = 32,   // K4: the other row split (icp_loop.cu:loop_groups)
+};
+__host__ __device__ constexpr bool skip(Stage s) {
+  return (PTUDES_SKIP & s) != 0;
+}
+
+// The nearest candidate found so far: squared distance (+1e30 for an
+// invalid row) and its coordinates; none yet is (inf, 0, 0, 0).
+struct Nearest {
+  float d2 = INFINITY, qx = 0.0f, qy = 0.0f, qz = 0.0f;
+
+  // Take o only if strictly nearer: scanning rows, or the minima of
+  // contiguous row ranges, in ascending order then keeps the lowest row
+  // on ties (the masked first-argmin).
+  __device__ __forceinline__ void take(const Nearest& o) {
+    if (o.d2 < d2) *this = o;
+  }
+};
+
+// The first row of group g when c rows are cut into groups contiguous,
+// ascending ranges: group g owns rows [row_split(c, groups, g),
+// row_split(c, groups, g + 1)) (ops/cuda_gn.py:row_groups).
+__device__ __forceinline__ int row_split(int c, int groups, int g) {
+  return g * c / groups;
+}
+
+// Rows [k0, k1) of one point's masked first-argmin nearest neighbour: the
+// point (px, py, pz) already transformed, its candidate row k at
+// cx[k * stride] (the pointers start at the point's column of the
+// lane-major [C, stride] rows).
+__device__ __forceinline__ void gn_nearest(
+    float px, float py, float pz, const float* cx, const float* cy,
+    const float* cz, const float* inf, int stride, int k0, int k1,
+    Nearest& nb) {
+#pragma unroll 4
+  for (int k = k0; k < k1; ++k) {
+    const int o = k * stride;
     const float ux = cx[o], uy = cy[o], uz = cz[o];
     const float dx = ux - px, dy = uy - py, dz = uz - pz;
     const float d2 = dx * dx + dy * dy + dz * dz + inf[o];
-    if (d2 < d2min) {  // strict: the lowest row wins ties
-      d2min = d2;
-      qx = ux; qy = uy; qz = uz;
+    if (d2 < nb.d2) {  // strict: the lowest row wins ties
+      nb.d2 = d2;
+      nb.qx = ux; nb.qy = uy; nb.qz = uz;
     }
   }
-  const float nx = feat[p], ny = feat[n + p], nz = feat[2 * n + p];
-  const float ccx = feat[3 * n + p], ccy = feat[4 * n + p],
-              ccz = feat[5 * n + p];
-  const float quality = feat[6 * n + p], mask = feat[7 * n + p];
+}
+
+// Add one source point's terms to acc, given its transformed position
+// (px, py, pz) and nearest candidate nb: robust weights k^2 / (k + r^2)^2,
+// the plane row where the patch fit has quality >= plane_q, point-to-point
+// moments elsewhere. feat starts at the point's column of the [8, stride]
+// feat rows.
+__device__ __forceinline__ void gn_add_moments(
+    float px, float py, float pz, const Nearest& nb, const float* feat,
+    int stride, float kern, float max_d2, float plane_q, float* acc) {
+  const float d2min = nb.d2, qx = nb.qx, qy = nb.qy, qz = nb.qz;
+  const float nx = feat[0], ny = feat[stride], nz = feat[2 * stride];
+  const float ccx = feat[3 * stride], ccy = feat[4 * stride],
+              ccz = feat[5 * stride];
+  const float quality = feat[6 * stride], mask = feat[7 * stride];
   const bool corr = (mask > 0.0f) && (d2min < 1e30f) && (d2min <= max_d2);
   const float s = nx * (px - ccx) + ny * (py - ccy) + nz * (pz - ccz);
   const bool use_pl = corr && (quality >= plane_q);
@@ -265,21 +310,56 @@ __device__ __forceinline__ void gn_point_moments(
   acc[44] += w_pl;
 }
 
-// Sum each thread's kGnAcc values over the block into sums (shared):
-// warp shuffles, then one pass over the warps' partials in warp order, so
-// the result does not depend on scheduling. Ends with a barrier.
+// One halving step of gn_warp_sum: lanes with bit `off` clear keep
+// v[0, h) and send v[h, 2h) to their partner lane ^ off, the others the
+// reverse; each adds what it receives to what it keeps.
+template <int kHalf>
+__device__ __forceinline__ void warp_halve(float* v, int off) {
+  const bool up = (threadIdx.x & off) != 0;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float keep = up ? v[i + kHalf] : v[i];
+    const float send = up ? v[i] : v[i + kHalf];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+  }
+}
+
+// Sum acc over the warp's 32 lanes by reduce-scatter (62 shuffles for the
+// 45 values padded to 64, where a shuffle per value and level would take
+// 225): lane l ends with the totals of values 2l and 2l + 1 in tot (zero
+// past kGnAcc). The order of the additions is fixed.
+__device__ __forceinline__ void gn_warp_sum(const float* acc, float* tot) {
+  const bool up = (threadIdx.x & 16) != 0;
+  float v[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float lo = acc[i];
+    const float hi = i + 32 < kGnAcc ? acc[i + 32] : 0.0f;
+    v[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, 16);
+  }
+  warp_halve<16>(v, 8);
+  warp_halve<8>(v, 4);
+  warp_halve<4>(v, 2);
+  warp_halve<2>(v, 1);
+  tot[0] = v[0];
+  tot[1] = v[1];
+}
+
+// Sum the kGnAcc values of the block's first kWarps warps into sums
+// (shared): warp reduce-scatters, then one pass over the warps' partials
+// in warp order, so the result does not depend on scheduling. Warps from
+// kWarps on contribute nothing but must reach the barriers. Ends with a
+// barrier.
 template <int kWarps>
 __device__ __forceinline__ void gn_block_sum(const float* acc,
                                              float (*red)[kGnAcc],
                                              float* sums) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kGnAcc; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][k] = v;
+  if (warp < kWarps) {
+    float tot[2];
+    gn_warp_sum(acc, tot);
+    if (2 * lane < kGnAcc) red[warp][2 * lane] = tot[0];
+    if (2 * lane + 1 < kGnAcc) red[warp][2 * lane + 1] = tot[1];
   }
   __syncthreads();
   if (threadIdx.x < kGnAcc) {

@@ -41,8 +41,8 @@ _SIGNATURES = {
     "ptudes_ekf_predict": [_P] * 5 + [_I] + [_F] * 4 + [_P],
     "ptudes_ekf_update": [_P] * 4 + [_I, _P],
     "ptudes_gn_prep": [_P] * 6 + [_I, _I, _F, _P],
-    "ptudes_icp_loop": [_P] * 8 + [_I, _I] + [_F] * 4 + [_I, _P],
-    "ptudes_gn_iter": [_P] * 9 + [_I, _I, _F, _P],
+    "ptudes_icp_loop": [_P] * 8 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P],
+    "ptudes_gn_iter": [_P] * 10 + [_I, _I, _F, _P],
     "ptudes_gather_select": [_P] * 3 + [_I] * 5 + [_F, _P],
     "ptudes_gather_prep": [_P] * 9 + [_I] * 3 + [_F, _F, _I, _P],
     "ptudes_plane_moments": [_P] * 6 + [_I, _I, _F, _P],

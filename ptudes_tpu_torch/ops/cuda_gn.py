@@ -26,7 +26,43 @@ from .icp import CandidateSet, gn_from_candidates
 from .plane import smallest_eigvec_sym3
 
 _F32 = torch.float32
-GN_BLOCK = 128  # points per CTA of K5 (csrc/gn_iter.cu:kThreads)
+GN_TILE = 32     # points per CTA of K5 (csrc/gn_iter.cu:kTile)
+GN_GROUPS = 8    # row ranges per point, one a warp (kGroups)
+GN_THREADS = GN_TILE * GN_GROUPS
+
+
+def row_groups(c: int, groups: int) -> list[tuple[int, int]]:
+    """The contiguous, ascending row ranges [k0, k1) that cut ``c``
+    candidate rows into ``groups`` (csrc/common.cuh:row_split); ranges are
+    empty where c < groups."""
+    return [(g * c // groups, (g + 1) * c // groups) for g in range(groups)]
+
+
+class GnPlan(NamedTuple):
+    blocks: int       # CTAs of GN_THREADS, each GN_TILE consecutive points
+    row_ranges: list  # per warp, the rows it scans for all the CTA's points
+
+
+def gn_plan(n: int, c: int) -> GnPlan:
+    """K5's launch shape for ``n`` source points and ``c`` candidate rows
+    (``ptudes_gn_iter`` computes the same)."""
+    if n <= 0 or c <= 0:
+        raise ValueError(f"gn_plan: n {n}, c {c}")
+    return GnPlan(-(-n // GN_TILE), row_groups(c, GN_GROUPS))
+
+
+_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    """K5's last-CTA counter on ``device``: one int32, zero between
+    launches (the last CTA resets it), allocated once. Launches that share
+    it must run in one stream's order."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _TICKETS:
+        _TICKETS[idx] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[idx]
 
 
 class PreppedCandidates(NamedTuple):
@@ -147,8 +183,9 @@ def gn_prepped_torch(t_cur: torch.Tensor, source: torch.Tensor,
 def gn_prepped(t_cur: torch.Tensor, source: torch.Tensor,
                prepped: PreppedCandidates, kernel: torch.Tensor,
                max_d2: torch.Tensor, *, plane_min_quality: float):
-    """K5: CUDA tensors launch ``gn_iter``; CPU tensors take the twin.
-    The kernel transforms ``source`` [N, 3] by ``t_cur`` itself."""
+    """K5: CUDA tensors launch ``gn_iter`` (one launch a build, shaped by
+    :func:`gn_plan`); CPU tensors take the twin. The kernel transforms
+    ``source`` [N, 3] by ``t_cur`` itself."""
     if kernels.device_kind(source, "gn_iter") == "cpu":
         return gn_prepped_torch(t_cur, source, prepped, kernel, max_d2,
                                 plane_min_quality=plane_min_quality)
@@ -160,7 +197,7 @@ def gn_prepped(t_cur: torch.Tensor, source: torch.Tensor,
             f"{tuple(prepped.feat.shape)}, candidates {c} x {n}")
     scal = torch.cat([kernel.reshape(1), max_d2.reshape(1),
                       t_cur[:3].reshape(12)]).to(_F32)
-    partial = torch.empty(-(-n // GN_BLOCK) * 45, dtype=_F32,
+    partial = torch.empty(gn_plan(n, c).blocks * 45, dtype=_F32,
                           device=source.device)
     out = torch.empty(44, dtype=_F32, device=source.device)
     kernels.launch(
@@ -168,8 +205,9 @@ def gn_prepped(t_cur: torch.Tensor, source: torch.Tensor,
         kernels.ptr(prepped.feat, "feat"), kernels.ptr(prepped.cx, "cx"),
         kernels.ptr(prepped.cy, "cy"), kernels.ptr(prepped.cz, "cz"),
         kernels.ptr(prepped.inf, "inf"), kernels.ptr(scal, "scal"),
-        kernels.ptr(partial, "partial"), kernels.ptr(out, "out"), n, c,
-        plane_min_quality)
+        kernels.ptr(partial, "partial"),
+        kernels.ptr(_ticket(source.device), "ticket", torch.int32),
+        kernels.ptr(out, "out"), n, c, plane_min_quality)
     return (out[:36].reshape(6, 6), out[36:42], out[42].to(torch.int32),
             out[43])
 

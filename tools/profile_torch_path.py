@@ -14,8 +14,10 @@ with one summary per configuration): wall time per scan
 (host clock around scans ending in a synchronize), device busy time per
 scan (the union of kernel intervals in the trace) and the idle share, the
 kernel launches per scan, the refresh loop's host reads and re-gathers
-per scan, each hand kernel's device time per scan, and the top operators
-and kernels by device time. Runs the bootstrap scans and a warm-up before
+per scan, each hand kernel's device time and launches per scan, the mean
+GN iterations per scan (``LioOut.aux``) and the GN kernels' (K4, K5)
+device time per iteration, and the top operators and kernels by device
+time. Runs the bootstrap scans and a warm-up before
 the profiled window.
 """
 from __future__ import annotations
@@ -127,13 +129,17 @@ def profile_config(which: str, scene, n_scans: int, card: str) -> dict:
     wall_plain = (time.monotonic() - t0) / n_scans
     refresh = {k: v / n_scans for k, v in icp.REFRESH_COUNTS.items()}
 
+    rows = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for i in window:
-            state, _ = steady(state, lio.scan_at(batches, i))
+            state, row = steady(state, lio.scan_at(batches, i))
+            rows.append(row)
         torch.cuda.synchronize()
         wall_prof = (time.monotonic() - t0) / n_scans
+    gn_iters = float(
+        lio.unpack_out(torch.stack(rows)).aux.iterations.float().mean())
 
     # one overflow chunk with no points (what the exact steady insert runs
     # ceil(max_frame / max_new_per_scan) - 1 times per scan when the new
@@ -170,6 +176,9 @@ def profile_config(which: str, scene, n_scans: int, card: str) -> dict:
         d[0] += 1
         d[1] += e.time_range.end - e.time_range.start
     top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:25]
+    hand_us = {name: sum(v[1] for k, v in by_kernel.items()
+                         if f"{name}_kernel" in k) / n_scans
+               for name in kernels.KERNELS}
     ops = [e for e in prof.key_averages() if e.device_type
            == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")]
     top_ops = sorted(ops, key=lambda e: -e.self_device_time_total)[:20]
@@ -187,11 +196,17 @@ def profile_config(which: str, scene, n_scans: int, card: str) -> dict:
             if cfg.steady_insert_mode is not False else 0),
         "host_reads_per_scan": refresh["host_reads"],
         "regathers_per_scan": refresh["regathers"],
-        # K5 is two kernels: gn_iter_kernel and gn_iter_reduce_kernel
-        "hand_kernels_device_us_per_scan": {
-            name: sum(v[1] for k, v in by_kernel.items()
-                      if f"{name}_" in k) / n_scans
+        # each hand kernel is one __global__ function, <name>_kernel
+        "hand_kernels_device_us_per_scan": hand_us,
+        "hand_kernels_launches_per_scan": {
+            name: sum(v[0] for k, v in by_kernel.items()
+                      if f"{name}_kernel" in k) / n_scans
             for name in kernels.KERNELS},
+        "gn_iterations_per_scan": gn_iters,
+        # K4 runs all of a scan's iterations in one launch, K5 one a build
+        "gn_device_us_per_iteration": {
+            name: hand_us[name] / gn_iters
+            for name in ("icp_loop", "gn_iter") if hand_us[name] > 0},
         "top_kernels": [
             dict(name=k, calls_per_scan=v[0] / n_scans,
                  device_us_per_scan=v[1] / n_scans)
