@@ -8,14 +8,17 @@ Phases, each reported on its own line:
   2. build the CUDA kernels from ``ptudes_tpu_torch/csrc`` (one nvcc per
      source, in parallel);
   3. each kernel against its plain PyTorch twin on the card, with the
-     stated tolerances, and both times; K4 in both its variants (staged
+     stated tolerances, and both times; K1 at K = 0, 12, 16 and 64, with
+     holes, a late sample, a fresh filter and an all-invalid block, its
+     device time at K = 0, 12 and 16; K4 in both its variants (staged
      in shared memory at the bench shapes, streamed at the CLI shapes),
      its other launch shapes bit for bit against the default, K4 and K5
      repeating bit for bit and on a scene of exact nearest-row ties
      (lowest row wins); the candidate-refresh ICP loop
      with the kernel against the loop with the twin; the fused gather
-     (K6) at the bench and CLI shapes, and K6 -> K4 against the gather ->
-     K3 -> K4 chain; the plane moments (K7), which no path launches;
+     (K6, one launch) at the bench and CLI shapes with its selection
+     written out, and K6 -> K4 against the gather -> K3 -> K4 chain; the
+     plane moments (K7), which no path launches;
   4. the bench path: ``lio.run_sequence`` at ``bench_config()`` on the
      bench scene (rendered by the port's numpy sim, cached in the temp
      dir), once to warm up and once timed with host syncs made errors;
@@ -31,7 +34,7 @@ Phases, each reported on its own line:
      within 0.02 m of ``tests/data/cli_jax_poses.txt``; then the twins;
   6. the fused bench path: ``bench_config()`` with ``fused_gather=True``
      on the same scene, warmed up and timed with host syncs made errors;
-     K6's two launches, K4, K1 and K2 once per scan, K3 and K5 never; ATE
+     K6, K4, K1 and K2 once per scan, K3 and K5 never; ATE
      RMSE <= 0.02 m and every pose within 0.02 m of
      ``tests/data/bench_fused_jax_poses.txt``; then the twins; scans/s
      printed beside phase 4's from the same call.
@@ -79,9 +82,8 @@ REPLACES = {
     "gn_prep": ("gn_prep.cu", "ptudes_tpu/ops/pallas_gn.py:260"),
     "icp_loop": ("icp_loop.cu", "ptudes_tpu/ops/pallas_icp.py:432"),
     "gn_iter": ("gn_iter.cu", "ptudes_tpu/ops/pallas_gn.py:351"),
-    "gather_select": ("gather_fused.cu",
-                      "ptudes_tpu/ops/pallas_gather.py:342"),
-    "gather_prep": ("gather_fused.cu", "ptudes_tpu/ops/pallas_gather.py:359"),
+    "gather_fused": ("gather_fused.cu",
+                     "ptudes_tpu/ops/pallas_gather.py:291"),
     "plane_moments": ("plane_moments.cu", "ptudes_tpu/ops/pallas_gn.py:200"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -183,18 +185,32 @@ def generic_ekf_state(cfg, dev, rng):
     return s
 
 
-def check_predict(cfg, s, dev, rng, k, n_valid):
-    """K1 against its twin over a block of ``k`` IMU samples, ``n_valid``
-    of them valid; returns (max |kernel - twin|, kernel ms, twin ms)."""
+# F's nonzeros by row: POS 2, VEL 7, PHI 4, BG and BA 1 (csrc/ekf_predict.cu)
+F_ROW_TERMS = [2] * 3 + [7] * 3 + [4] * 3 + [1] * 9
+
+
+def predict_block_ops(n_steps: int) -> int:
+    """Operations of K1's block-sparse covariance steps (a multiply-add is
+    two): T = F P over rows POS, VEL and PHI, then all of T F^T."""
+    t_rows = 2 * 18 * sum(F_ROW_TERMS[:9])
+    return n_steps * (t_rows + 2 * 18 * sum(F_ROW_TERMS))
+
+
+def check_predict(cfg, s, dev, rng, k, valid, ts=None):
+    """K1 against its twin over a block of ``k`` IMU samples (``valid`` a
+    bool list, ``ts`` the timestamps, by default 10 ms apart after 0.2 s)
+    and a second launch bit for bit; returns (max |kernel - twin|, kernel
+    call, twin call, bound)."""
     twin = dataclasses.replace(cfg, predict_batch="unroll")
+    if ts is None:
+        ts = 0.2 + np.arange(1, k + 1) * 0.01
     imus = esekf.Imu(
         lacc=torch.tensor(rng.normal(0, 1, (k, 3)) + [0, 0, 9.78],
                           dtype=torch.float32, device=dev),
         avel=torch.tensor(rng.normal(0, 0.3, (k, 3)), dtype=torch.float32,
                           device=dev),
-        ts=torch.tensor(0.2 + np.arange(1, k + 1) * 0.01,
-                        dtype=torch.float32, device=dev))
-    valid = torch.arange(k, device=dev) < n_valid
+        ts=torch.tensor(ts, dtype=torch.float32, device=dev))
+    valid = torch.tensor(valid, dtype=torch.bool, device=dev).reshape(k)
 
     def kern():
         return cuda_ekf.predict_block(s, imus, valid, cfg=cfg,
@@ -204,7 +220,9 @@ def check_predict(cfg, s, dev, rng, k, n_valid):
         return esekf.process_imu_batch(s, imus, valid, cfg=twin,
                                        want_twist=True)
 
-    (sk, tk), (sp, tp) = kern(), plain()
+    (sk, tk), (sp, tp), (sa, ta) = kern(), plain(), kern()
+    check(all(torch.equal(a, b) for a, b in zip((*sk, tk), (*sa, ta))),
+          f"ekf_predict K={k} does not repeat bit for bit")
     # bars of tests/test_esekf.py (kernel vs unrolled chain; twist)
     errs = {"pos": (sk.pos - sp.pos).abs().max(),
             "vel": (sk.vel - sp.vel).abs().max(),
@@ -223,22 +241,58 @@ def check_predict(cfg, s, dev, rng, k, n_valid):
           f"ekf_predict K={k} cov vs twin: "
           f"{float((sk.cov - sp.cov).abs().max())}")
     err = max(max(errs.values()), float((sk.cov - sp.cov).abs().max()))
-    say(f"  ekf_predict K={k}: max |kernel - twin| {err:.3e}  "
-        f"(state 1e-6, twist 2e-5, cov rtol/atol 1e-5)")
-    # per valid sample, the covariance step F P F^T: two 18^3 products
-    b = bound(nbytes(s, imus, valid, sk, tk), n_valid * 4 * 18 ** 3)
-    return err, cuda_ms(kern, 200), cuda_ms(plain, 20), b
+    # the covariance steps run for every sample, a masked one with F = I
+    b = bound(nbytes(s, imus, valid, sk, tk), predict_block_ops(k))
+    return err, kern, plain, b
 
 
 def check_ekf(dev, rng, results):
     cfg = config.bench_config().ekf
     s = generic_ekf_state(cfg, dev, rng)
-    # K = 12: the bench path's max_imu_per_scan; K = 16: the CLI's
-    e12, ms12, plain12, _ = check_predict(cfg, s, dev, rng, 12, 10)
-    e16, ms16, plain16, b16 = check_predict(cfg, s, dev, rng, 16, 14)
-    results["ekf_predict"] = dict(max_abs_err=max(e12, e16), ms=ms16,
-                                  plain_ms=plain16, ms_k12=ms12,
-                                  plain_ms_k12=plain12, **b16)
+    fresh = esekf.init_state(cfg, dev)
+    # K = 12: the bench path's max_imu_per_scan; K = 16: the CLI's; K = 0
+    # gives the fixed cost; then holes in the block with a timestamp out of
+    # order (dt clamped to 0), a fresh filter whose first valid sample only
+    # latches the clock, an all-invalid block and the kernel's largest K
+    # (16 samples valid: 64 in the matrix chain drift 1.6e-6 from the
+    # twin's quaternion chain)
+    holes = [True] * 16
+    holes[3] = holes[7] = holes[8] = False
+    late = 0.2 + np.arange(1, 17) * 0.01
+    late[10] = late[9] - 0.005
+    cases = {"K=12": (s, 12, [i < 10 for i in range(12)], None),
+             "K=16": (s, 16, [i < 14 for i in range(16)], None),
+             "K=0": (s, 0, [], None),
+             "K=16 holes, late sample": (s, 16, holes, late),
+             "K=12 fresh filter": (fresh, 12, [False, True] + [True] * 8
+                                   + [False] * 2, None),
+             "K=12 all invalid": (s, 12, [False] * 12, None),
+             "K=64, 16 valid": (s, 64, [k % 4 == 1 for k in range(64)],
+                                None)}
+    worst, calls = 0.0, {}
+    for name, (s0, k, valid, ts) in cases.items():
+        err, kern, plain, b = check_predict(cfg, s0, dev, rng, k, valid, ts)
+        worst = max(worst, err)
+        calls[name] = (kern, plain, b)
+        say(f"  ekf_predict {name}: max |kernel - twin| {err:.3e} (state "
+            f"1e-6, twist 2e-5, cov rtol/atol 1e-5; clock and latch exact); "
+            f"repeats bit for bit")
+    r = {}
+    for name in ("K=0", "K=12", "K=16"):
+        kern, plain, b = calls[name]
+        tag = name[2:]
+        r[f"device_us_k{tag}"] = kernel_us(kern, "ekf_predict")
+        if name != "K=0":
+            r[f"ms_k{tag}"] = cuda_ms(kern, 200)
+            r[f"plain_ms_k{tag}"] = cuda_ms(plain, 20)
+    say(f"  ekf_predict on the device: {r['device_us_k0']:.2f} / "
+        f"{r['device_us_k12']:.2f} / {r['device_us_k16']:.2f} us at K = 0 / "
+        f"12 / 16 ({(r['device_us_k16'] - r['device_us_k12']) / 4:.3f} us a "
+        f"step from K = 12 to 16)")
+    # the row reports the CLI shape, K = 16 (14 valid)
+    results["ekf_predict"] = dict(
+        max_abs_err=worst, ms=r["ms_k16"], plain_ms=r["plain_ms_k16"],
+        device_us=r["device_us_k16"], **calls["K=16"][2], **r)
 
     pose = torch.eye(4, dtype=torch.float32, device=dev)
     pose[:3, :3] = so3.exp_rotvec(torch.tensor([0.02, -0.01, 0.03],
@@ -707,100 +761,101 @@ def gather_shapes(dev):
 
 
 def check_gather(dev, results):
-    """K6 against its twin on the card: the selection (aux) bit for bit,
-    the candidates and inf bit for bit where they matter, the fit at K3's
-    bars, a repeated launch bit for bit; both loss forms."""
+    """K6's one launch against its twins on the card: the selection (aux)
+    counts exact, slot and corner exact where count > 0, inf and the valid
+    candidates bit for bit, the fit at K3's bars, the path's launch (no
+    aux) and a repeated one bit for bit, the point-loss feat exact; the
+    call and twin times and the kernel's device time."""
     for name, m, src, mask, t, kw in gather_shapes(dev):
         sel_kw = {k: kw[k] for k in ("voxel_size", "max_probes",
                                      "neighborhood", "n_voxels")}
+        v, n = kw["n_voxels"], src.shape[0]
+        r2 = cuda_gather.fused_radius2(kw["plane_radius"])
         pts_w = se3.transform(t, src).contiguous()
-        ak = cuda_gather.select_voxels(m, pts_w, **sel_kw)
+
+        def launch(loss="plane", aux=None):
+            return cuda_gather.gather_fused(m, pts_w, mask, radius2=r2,
+                                            loss=loss, aux=aux, **sel_kw)
+
+        ak = torch.full((5 * v, n), -1, dtype=torch.int32, device=dev)
+        gk = launch(aux=ak)
         ap = cuda_gather.select_voxels_torch(m, pts_w, **sel_kw)
-        v = kw["n_voxels"]
+        gp = cuda_gather.prep_selected_torch(
+            m, pts_w, mask, ap, voxel_size=kw["voxel_size"], radius2=r2,
+            loss="plane")
         cnt = ap[v:2 * v]
-        check(torch.equal(ak[v:2 * v], cnt), f"gather_select {name}: counts")
+        check(torch.equal(ak[v:2 * v], cnt), f"gather_fused {name}: counts")
         used = (cnt > 0).repeat(4, 1)
         rows = torch.cat([ak[:v], ak[2 * v:]]), torch.cat([ap[:v], ap[2 * v:]])
         check(torch.equal(rows[0][used], rows[1][used]),
-              f"gather_select {name}: slot or corner where count > 0")
+              f"gather_fused {name}: slot or corner where count > 0")
         # what the checks above compared: every count, slot and corner of
         # the picks with count > 0
         sel_err = float(torch.cat([(ak[v:2 * v] - cnt).flatten(),
                                    (rows[0] - rows[1])[used]]).abs().max())
-        r2 = cuda_gather.fused_radius2(kw["plane_radius"])
-        prep_kw = dict(voxel_size=kw["voxel_size"], radius2=r2, loss="plane")
-        gk = cuda_gather.prep_selected(m, pts_w, mask, ak, **prep_kw)
-        gp = cuda_gather.prep_selected_torch(m, pts_w, mask, ap, **prep_kw)
-        check(torch.equal(gk.inf, gp.inf), f"gather_prep {name}: inf")
+        check(torch.equal(gk.inf, gp.inf), f"gather_fused {name}: inf")
         valid = gp.inf == 0
-        check(int(valid.sum()) > 1000, f"gather_prep {name}: "
+        check(int(valid.sum()) > 1000, f"gather_fused {name}: "
               f"{int(valid.sum())} valid candidates")
         for a, b, ax in ((gk.cx, gp.cx, "x"), (gk.cy, gp.cy, "y"),
                          (gk.cz, gp.cz, "z")):
             check(torch.equal(a[valid], b[valid]),
-                  f"gather_prep {name}: candidate {ax} where valid")
-        e = fit_errors(gk, gp, f"gather_prep {name}")
-        again = cuda_gather.gather_prep_fused(m, src, mask, t, **kw)
-        full = cuda_gather.gather_prep_fused(m, src, mask, t, **kw)
-        check(all(torch.equal(a, b) for a, b in zip(again, full))
-              and all(torch.equal(a, b) for a, b in zip(full, gk)),
-              f"gather_prep_fused {name} does not repeat bit for bit")
-        pk = cuda_gather.prep_selected(m, pts_w, mask, ak, **dict(
-            prep_kw, loss="point"))
-        pp = cuda_gather.prep_selected_torch(m, pts_w, mask, ap, **dict(
-            prep_kw, loss="point"))
+                  f"gather_fused {name}: candidate {ax} where valid")
+        e = fit_errors(gk, gp, f"gather_fused {name}")
+        ak2 = torch.full_like(ak, -2)
+        again = launch(aux=ak2)
+        path = cuda_gather.gather_prep_fused(m, src, mask, t, **kw)
+        check(torch.equal(ak, ak2)
+              and all(torch.equal(a, b) for a, b in zip(again, gk))
+              and all(torch.equal(a, b) for a, b in zip(path, gk)),
+              f"gather_fused {name} does not repeat bit for bit")
+        pk = launch(loss="point")
+        pp = cuda_gather.prep_selected_torch(
+            m, pts_w, mask, ap, voxel_size=kw["voxel_size"], radius2=r2,
+            loss="point")
         check(torch.equal(pk.feat, pp.feat) and torch.equal(pk.inf, pp.inf),
-              f"gather_prep {name}: loss='point' feat rows")
-        t_full = (cuda_ms(lambda: cuda_gather.gather_prep_fused(
-            m, src, mask, t, **kw), 200), cuda_ms(
-            lambda: cuda_gather.gather_prep_fused_torch(
-                m, src, mask, t, **kw), 20))
-        t_sel = (cuda_ms(lambda: cuda_gather.select_voxels(
-            m, pts_w, **sel_kw), 200), cuda_ms(
-            lambda: cuda_gather.select_voxels_torch(m, pts_w, **sel_kw), 20))
-        t_prep = (cuda_ms(lambda: cuda_gather.prep_selected(
-            m, pts_w, mask, ak, **prep_kw), 200), cuda_ms(
-            lambda: cuda_gather.prep_selected_torch(
-                m, pts_w, mask, ap, **prep_kw), 20))
-        n = src.shape[0]
+              f"gather_fused {name}: loss='point' feat rows")
+
+        def kern_call():
+            return cuda_gather.gather_prep_fused(m, src, mask, t, **kw)
+
+        times = (cuda_ms(kern_call, 200), cuda_ms(
+            lambda: cuda_gather.gather_prep_fused_torch(m, src, mask, t,
+                                                        **kw), 20),
+            kernel_us(kern_call, "gather_fused"))
         c = gk.cx.shape[0]
         rows_read = probed_meta_rows(m, pts_w, kw["voxel_size"],
                                      kw["max_probes"], kw["neighborhood"])
         sectors = needed_point_sectors(m, ap)
-        # select: the query points, each probed 32-byte meta row once, aux
-        # out; prep: the query points, mask and aux, each sector of stored
-        # points of the picked voxels once, the candidates and feat out;
-        # ~26 operations per candidate
-        b_sel = bound(nbytes(pts_w, ak) + 32 * rows_read,
-                      8 * n * kw["neighborhood"])
-        b_prep = bound(nbytes(pts_w, mask, ak, gk) + 32 * sectors,
-                       n * (26 * c + 150))
-        err = max(e["centroid"], e["quality"], 1.0 - e["dot_min"])
+        # the query points and mask, each probed 32-byte meta row and each
+        # sector of stored points of the picked voxels once, the candidates
+        # and feat out; ~8 operations per neighbour, ~26 per candidate and
+        # ~150 per point for the finish
+        b = bound(nbytes(pts_w, mask, gk) + 32 * (rows_read + sectors),
+                  n * (8 * kw["neighborhood"] + 26 * c + 150))
+        err = max(e["centroid"], e["quality"], 1.0 - e["dot_min"], sel_err)
         say(f"  gather {name} (N={n}, J={kw['neighborhood']}, "
             f"R={kw['max_probes']}, C={c}): aux counts exact, slot/corner "
             f"exact where count > 0, inf and valid candidates exact, "
             f"normal dot q01 {e['q01']:.6f} min {e['dot_min']:.6f}, "
             f"centroid {e['centroid']:.2e}, quality {e['quality']:.2e}; "
-            f"point-loss feat exact; repeats bit for bit; whole aux equal "
-            f"{torch.equal(ak, ap)}; {rows_read} distinct meta rows probed, "
-            f"{sectors} point sectors needed")
-        say(f"    K6 call {t_full[0]:.4f} ms vs twin {t_full[1]:.4f} ms; "
-            f"select {t_sel[0]:.4f} vs {t_sel[1]:.4f} ms (bound "
-            f"{b_sel['bound_ms'] * 1e3:.3f} us); prep {t_prep[0]:.4f} vs "
-            f"{t_prep[1]:.4f} ms (bound {b_prep['bound_ms'] * 1e3:.3f} us)")
+            f"point-loss feat exact; repeats bit for bit, with and without "
+            f"aux; whole aux equal {torch.equal(ak, ap)}; {rows_read} "
+            f"distinct meta rows probed, {sectors} point sectors needed")
+        say(f"    K6 call {times[0]:.4f} ms vs twin {times[1]:.4f} ms; "
+            f"kernel {times[2]:.2f} us on the device (bound "
+            f"{b['bound_ms'] * 1e3:.3f} us)")
         if name == "bench R=1":          # the bench path's shapes
-            results["gather_select"] = dict(
-                max_abs_err=sel_err, ms=t_sel[0], plain_ms=t_sel[1], **b_sel)
-            results["gather_prep"] = dict(
-                max_abs_err=err, ms=t_prep[0], plain_ms=t_prep[1],
-                fused_call_ms=t_full[0], fused_plain_ms=t_full[1], **b_prep)
-        elif name == "cli":
-            for k, tt, b in (("gather_select", t_sel, b_sel),
-                             ("gather_prep", t_prep, b_prep)):
-                results[k].update(ms_cli=tt[0], plain_ms_cli=tt[1],
-                                  bound_ms_cli=b["bound_ms"])
-            results["gather_prep"]["max_abs_err"] = max(
-                results["gather_prep"]["max_abs_err"], err)
+            results["gather_fused"] = dict(
+                max_abs_err=err, ms=times[0], plain_ms=times[1],
+                device_us=times[2], **b)
+        else:
+            tag = name.replace(" ", "_").replace("=", "")
+            r = results["gather_fused"]
+            r.update({f"ms_{tag}": times[0], f"plain_ms_{tag}": times[1],
+                      f"device_us_{tag}": times[2],
+                      f"bound_ms_{tag}": b["bound_ms"]})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
 
 
 def check_fused_registration(dev):
@@ -818,8 +873,8 @@ def check_fused_registration(dev):
     rf = icp.register_frame_cached(*args, fused_gather=True, **kw)
     fused = dict(kernels.LAUNCHES)
     ru = icp.register_frame_cached(*args, fused_gather=False, **kw)
-    check(fused["gather_select"] == fused["gather_prep"] == 1
-          and fused["gn_prep"] == 0 and fused["icp_loop"] == 1,
+    check(fused["gather_fused"] == 1 and fused["gn_prep"] == 0
+          and fused["icp_loop"] == 1,
           f"fused registration launches {fused}")
     d = float((rf.pose - ru.pose).abs().max())
     i_f, i_u = int(rf.iterations), int(ru.iterations)
@@ -1037,8 +1092,8 @@ def run_cli_path(scene, n_scans: int, dev) -> dict[str, int]:
     check(launches["gn_iter"] == iters,
           f"gn_iter launched {launches['gn_iter']} times in {iters} GN "
           "iterations")
-    for name in ("ekf_update", "gn_prep", "icp_loop", "gather_select",
-                 "gather_prep", "plane_moments"):
+    for name in ("ekf_update", "gn_prep", "icp_loop", "gather_fused",
+                 "plane_moments"):
         check(launches[name] == 0,
               f"{name} launched {launches[name]} times on the CLI path")
     check(counts["host_reads"] <= iters + n_scans,

@@ -208,8 +208,9 @@ __device__ __forceinline__ void cholesky_solve(const float (*l)[N],
 //   37-42 sum w_pl row s (s = n . (p - c)); 43 correspondences; 44 sum w_pl.
 constexpr int kGnAcc = 45;
 
-// Stages that tools/exp_gn_stages.py takes out of K4 and K5 to time the
-// rest (nvcc -DPTUDES_SKIP=<mask>); the port's own build takes none out.
+// Stages that tools/exp_gn_stages.py takes out of K4 and K5, and
+// tools/exp_ekf_stages.py out of K1, to time the rest (nvcc
+// -DPTUDES_SKIP=<mask>); the port's own build takes none out.
 #ifndef PTUDES_SKIP
 #define PTUDES_SKIP 0
 #endif
@@ -220,6 +221,9 @@ enum Stage : unsigned {
   kSkipCluster = 8,   // K4: the cluster barrier and the peers' partials
   kSkipSolve = 16,    // K4: the solve and the pose update
   kSwapGroups = 32,   // K4: the other row split (icp_loop.cu:loop_groups)
+  kSkipCovMath = 64,  // K1: the covariance products (sums, stores and
+                      // barriers stay)
+  kSkipCovSteps = 128,  // K1: the covariance steps
 };
 __host__ __device__ constexpr bool skip(Stage s) {
   return (PTUDES_SKIP & s) != 0;

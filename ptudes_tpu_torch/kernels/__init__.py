@@ -43,12 +43,11 @@ _SIGNATURES = {
     "ptudes_gn_prep": [_P] * 6 + [_I, _I, _F, _P],
     "ptudes_icp_loop": [_P] * 8 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P],
     "ptudes_gn_iter": [_P] * 10 + [_I, _I, _F, _P],
-    "ptudes_gather_select": [_P] * 3 + [_I] * 5 + [_F, _P],
-    "ptudes_gather_prep": [_P] * 9 + [_I] * 3 + [_F, _F, _I, _P],
+    "ptudes_gather_fused": [_P] * 10 + [_I] * 6 + [_F] * 3 + [_I, _P],
     "ptudes_plane_moments": [_P] * 6 + [_I, _I, _F, _P],
 }
 KERNELS = ("ekf_predict", "ekf_update", "gn_prep", "icp_loop", "gn_iter",
-           "gather_select", "gather_prep", "plane_moments")
+           "gather_fused", "plane_moments")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lib = None

@@ -1,22 +1,24 @@
 """K6: the fused ICP candidate gather (``csrc/gather_fused.cu``), the
 counterpart of ``ptudes_tpu.ops.pallas_gather.gather_prep_fused``.
 
-Two launches after the transform of the source to the gather pose:
+One launch after the transform of the source to the gather pose
+(:func:`gather_fused`), one warp per source point:
 
-- select (:func:`select_voxels`): per source point, the hash-probe match
-  of its J neighbour voxels and the top-V selection by representative
-  distance -> ``aux`` int32 [5V, N] (slot, count, corner x, y, z per
+- select: the hash-probe match of its J neighbour voxels and the top-V
+  selection by representative distance, kept on chip (and, when asked,
+  written to ``aux`` int32 [5V, N]: slot, count, corner x, y, z per
   selected voxel);
-- prep (:func:`prep_selected`): the V x P packed points of the selected
-  voxels, unpacked into the lane-major candidates and, for the plane loss,
-  the patch plane fit -> ``cuda_gn.PreppedCandidates``.
+- prep: the V x P packed points of the selected voxels, unpacked into the
+  lane-major candidates and, for the plane loss, the patch plane fit ->
+  ``cuda_gn.PreppedCandidates``.
 
-The plain twins compute what the kernels compute, which is the TPU select
-kernel's semantics, not ``icp.gather_candidates``': an unmatched neighbour
-has distance 1e30; once fewer than V voxels matched, the remaining
-selections are neighbour 0 with count 0; candidates decode from the
-selected voxel key, not from its representative point; the patch radius
-is squared in f64 before the f32 cast.
+The plain twins of the two stages, :func:`select_voxels_torch` and
+:func:`prep_selected_torch`, compute what the kernel computes, which is
+the TPU select kernel's semantics, not ``icp.gather_candidates``': an
+unmatched neighbour has distance 1e30; once fewer than V voxels matched,
+the remaining selections are neighbour 0 with count 0; candidates decode
+from the selected voxel key, not from its representative point; the patch
+radius is squared in f64 before the f32 cast.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from .icp import neighbor_offsets
 from .voxel import recip, voxel_coords
 
 _F32 = torch.float32
-_BIG = float(np.float32(1e30))  # the select kernel's "unmatched" distance
+_BIG = float(np.float32(1e30))  # the select stage's "unmatched" distance
 MAX_VOXELS = 8  # csrc/gather_fused.cu:kMaxV
 
 
@@ -55,7 +57,7 @@ def fused_radius2(radius: float) -> float:
 def select_voxels_torch(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor, *,
                         voxel_size: float, max_probes: int,
                         neighborhood: int, n_voxels: int) -> torch.Tensor:
-    """The select kernel's plain twin: ``aux`` int32 [5V, N]."""
+    """The select stage's plain twin: ``aux`` int32 [5V, N]."""
     n, dev = pts_w.shape[0], pts_w.device
     keys = voxel_coords(pts_w, voxel_size)[:, None, :] \
         + neighbor_offsets(neighborhood, dev)[None]          # [N, J, 3]
@@ -77,35 +79,11 @@ def select_voxels_torch(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor, *,
                      ).to(torch.int32)
 
 
-def select_voxels(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor, *,
-                  voxel_size: float, max_probes: int, neighborhood: int,
-                  n_voxels: int) -> torch.Tensor:
-    """The select kernel: CUDA tensors launch ``gather_select``; CPU
-    tensors take the twin."""
-    if kernels.device_kind(pts_w, "gather_select") == "cpu":
-        return select_voxels_torch(
-            vmap_, pts_w, voxel_size=voxel_size, max_probes=max_probes,
-            neighborhood=neighborhood, n_voxels=n_voxels)
-    n = pts_w.shape[0]
-    cap = vmap_.meta.shape[0]
-    if pts_w.shape != (n, 3) or vmap_.meta.shape != (cap, hashmap.META_W):
-        raise ValueError(f"gather_select: pts {tuple(pts_w.shape)}, meta "
-                         f"{tuple(vmap_.meta.shape)}")
-    aux = torch.empty((5 * n_voxels, n), dtype=torch.int32,
-                      device=pts_w.device)
-    kernels.launch(
-        "gather_select", kernels.ptr(pts_w, "pts"),
-        kernels.ptr(vmap_.meta, "meta", torch.int32, align=16),
-        kernels.ptr(aux, "aux", torch.int32), n, cap, neighborhood,
-        max_probes, n_voxels, recip(voxel_size))
-    return aux
-
-
 def prep_selected_torch(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor,
                         source_mask: torch.Tensor, aux: torch.Tensor, *,
                         voxel_size: float, radius2: float, loss: str
                         ) -> cuda_gn.PreppedCandidates:
-    """The prep kernel's plain twin."""
+    """The prep stage's plain twin."""
     n = pts_w.shape[0]
     v = aux.shape[0] // 5
     ppv = vmap_.points.shape[1]
@@ -129,47 +107,69 @@ def prep_selected_torch(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor,
     return cuda_gn.PreppedCandidates(feat, cx, cy, cz, inf)
 
 
-def prep_selected(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor,
-                  source_mask: torch.Tensor, aux: torch.Tensor, *,
-                  voxel_size: float, radius2: float, loss: str
-                  ) -> cuda_gn.PreppedCandidates:
-    """The prep kernel: CUDA tensors launch ``gather_prep``; CPU tensors
-    take the twin."""
-    if kernels.device_kind(pts_w, "gather_prep") == "cpu":
-        return prep_selected_torch(vmap_, pts_w, source_mask, aux,
-                                   voxel_size=voxel_size, radius2=radius2,
-                                   loss=loss)
+def _twin(vmap_, pts_w, source_mask, *, voxel_size, max_probes,
+          neighborhood, n_voxels, radius2, loss, aux=None):
+    """The select and prep twins in turn; ``aux`` receives the
+    selection."""
+    sel = select_voxels_torch(vmap_, pts_w, voxel_size=voxel_size,
+                              max_probes=max_probes,
+                              neighborhood=neighborhood, n_voxels=n_voxels)
+    if aux is not None:
+        aux.copy_(sel)
+    return prep_selected_torch(vmap_, pts_w, source_mask, sel,
+                               voxel_size=voxel_size, radius2=radius2,
+                               loss=loss)
+
+
+def gather_fused(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor,
+                 source_mask: torch.Tensor, *, voxel_size: float,
+                 max_probes: int, neighborhood: int, n_voxels: int,
+                 radius2: float, loss: str,
+                 aux: torch.Tensor | None = None
+                 ) -> cuda_gn.PreppedCandidates:
+    """K6 on the query points ``pts_w`` [N, 3] (the source at the gather
+    pose): one launch of ``gather_fused`` on CUDA tensors; CPU tensors take
+    the two twins. ``aux`` (int32 [5V, N]), when given, also receives the
+    selection; the path passes none."""
+    if kernels.device_kind(pts_w, "gather_fused") == "cpu":
+        return _twin(vmap_, pts_w, source_mask, voxel_size=voxel_size,
+                     max_probes=max_probes, neighborhood=neighborhood,
+                     n_voxels=n_voxels, radius2=radius2, loss=loss, aux=aux)
     n = pts_w.shape[0]
-    v = aux.shape[0] // 5
-    ppv = vmap_.points.shape[1]
-    if aux.shape != (5 * v, n) or source_mask.shape != (n,):
-        raise ValueError(f"gather_prep: aux {tuple(aux.shape)}, mask "
-                         f"{tuple(source_mask.shape)}, {n} points")
+    cap, ppv = vmap_.points.shape
+    if (pts_w.shape != (n, 3) or vmap_.meta.shape != (cap, hashmap.META_W)
+            or source_mask.shape != (n,)):
+        raise ValueError(f"gather_fused: pts {tuple(pts_w.shape)}, mask "
+                         f"{tuple(source_mask.shape)}, meta "
+                         f"{tuple(vmap_.meta.shape)}")
+    if aux is not None and aux.shape != (5 * n_voxels, n):
+        raise ValueError(f"gather_fused: aux {tuple(aux.shape)}")
     dev = pts_w.device
     feat = torch.empty((8, n), dtype=_F32, device=dev)
-    cx, cy, cz, inf = (torch.empty((v * ppv, n), dtype=_F32, device=dev)
-                       for _ in range(4))
+    cx, cy, cz, inf = (torch.empty((n_voxels * ppv, n), dtype=_F32,
+                                   device=dev) for _ in range(4))
     kernels.launch(
-        "gather_prep", kernels.ptr(pts_w, "pts"),
+        "gather_fused", kernels.ptr(pts_w, "pts"),
         kernels.ptr(source_mask, "mask", torch.bool),
-        kernels.ptr(aux, "aux", torch.int32),
+        kernels.ptr(vmap_.meta, "meta", torch.int32, align=16),
         kernels.ptr(vmap_.points, "points", torch.int32),
+        None if aux is None else kernels.ptr(aux, "aux", torch.int32),
         kernels.ptr(feat, "feat"), kernels.ptr(cx, "cx"),
         kernels.ptr(cy, "cy"), kernels.ptr(cz, "cz"),
-        kernels.ptr(inf, "inf"), n, v, ppv, voxel_size, radius2,
+        kernels.ptr(inf, "inf"), n, cap, neighborhood, max_probes,
+        n_voxels, ppv, recip(voxel_size), voxel_size, radius2,
         int(loss == "plane"))
     return cuda_gn.PreppedCandidates(feat, cx, cy, cz, inf)
 
 
-def _gather(select, prep, vmap_, source, source_mask, t_gather, *,
-            voxel_size, max_probes, neighborhood, n_voxels, plane_radius,
-            loss):
+def _gather(fused, vmap_, source, source_mask, t_gather, *, voxel_size,
+            max_probes, neighborhood, n_voxels, plane_radius, loss):
     _check(neighborhood, n_voxels, loss)
     pts_w = se3.transform(t_gather.to(_F32), source.to(_F32)).contiguous()
-    aux = select(vmap_, pts_w, voxel_size=voxel_size, max_probes=max_probes,
-                 neighborhood=neighborhood, n_voxels=n_voxels)
-    return prep(vmap_, pts_w, source_mask, aux, voxel_size=voxel_size,
-                radius2=fused_radius2(plane_radius), loss=loss)
+    return fused(vmap_, pts_w, source_mask, voxel_size=voxel_size,
+                 max_probes=max_probes, neighborhood=neighborhood,
+                 n_voxels=n_voxels, radius2=fused_radius2(plane_radius),
+                 loss=loss)
 
 
 def gather_prep_fused_torch(vmap_: hashmap.VoxelHashMap,
@@ -179,12 +179,12 @@ def gather_prep_fused_torch(vmap_: hashmap.VoxelHashMap,
                             n_voxels: int = 4, plane_radius: float,
                             loss: str = "plane"
                             ) -> cuda_gn.PreppedCandidates:
-    """K6's plain twin on any device: the two kernels' twins after the
+    """K6's plain twin on any device: the select and prep twins after the
     transform of ``source`` [N, 3] to the gather pose."""
-    return _gather(select_voxels_torch, prep_selected_torch, vmap_, source,
-                   source_mask, t_gather, voxel_size=voxel_size,
-                   max_probes=max_probes, neighborhood=neighborhood,
-                   n_voxels=n_voxels, plane_radius=plane_radius, loss=loss)
+    return _gather(_twin, vmap_, source, source_mask, t_gather,
+                   voxel_size=voxel_size, max_probes=max_probes,
+                   neighborhood=neighborhood, n_voxels=n_voxels,
+                   plane_radius=plane_radius, loss=loss)
 
 
 def gather_prep_fused(vmap_: hashmap.VoxelHashMap, source: torch.Tensor,
@@ -194,10 +194,10 @@ def gather_prep_fused(vmap_: hashmap.VoxelHashMap, source: torch.Tensor,
                       plane_radius: float, loss: str = "plane"
                       ) -> cuda_gn.PreppedCandidates:
     """K6: the candidates of ``source`` [N, 3] gathered at ``t_gather``,
-    lane-major and with the patch plane fit, in two launches on CUDA
-    tensors (``gather_select``, ``gather_prep``); CPU tensors take
-    :func:`gather_prep_fused_torch`."""
-    return _gather(select_voxels, prep_selected, vmap_, source, source_mask,
-                   t_gather, voxel_size=voxel_size, max_probes=max_probes,
+    lane-major and with the patch plane fit, in one launch on CUDA tensors
+    (:func:`gather_fused`); CPU tensors take :func:`gather_prep_fused_torch`.
+    """
+    return _gather(gather_fused, vmap_, source, source_mask, t_gather,
+                   voxel_size=voxel_size, max_probes=max_probes,
                    neighborhood=neighborhood, n_voxels=n_voxels,
                    plane_radius=plane_radius, loss=loss)

@@ -8,7 +8,7 @@ Gauss-Newton loop against them. Two forms:
 
 - frozen candidates (``refresh_drift == 0``): one gather, the plane fit in
   K3 and the whole loop in K4 (``ops.cuda_gn``, ``ops.cuda_icp``); with
-  ``fused_gather`` the gather and the plane fit are K6's two launches
+  ``fused_gather`` the gather and the plane fit are K6's one launch
   (``ops.cuda_gather``) instead;
 - refresh (``refresh_drift > 0``): a host loop of GN builds (K5,
   ``ops.cuda_gn.gn_prepped``) that re-gathers the candidates whenever the

@@ -5,7 +5,12 @@ K6's twin (``cuda_gather.gather_prep_fused_torch``) is held to JAX's
 ``gather_prep_fused`` in interpret mode on tests/test_pallas_gather.py's
 scene at that file's bars: ``inf`` bit for bit, candidate coordinates on
 valid slots 1e-6, centroid 1e-5, mask exact, quality 2e-2, normal |dot|
-> 0.995 where quality > 0.3. The port's ``register_frame_cached`` with
+> 0.995 where quality > 0.3. The kernel's select rule (a matched
+neighbour's rank is the number of matched neighbours with a smaller
+(distance, index); ranks below V are the selection, the rest neighbour 0
+with count 0), transcribed into torch here, is held bit for bit to the
+select twin on hand-built maps with exact distance ties, with fewer than
+V matches and with none. The port's ``register_frame_cached`` with
 ``fused_gather`` (CPU tensors: K6's and K4's twins) is held to JAX's fused
 gather and fused loop at tests/test_pallas_icp.py's bars. K7's twin is
 held to ``plane_moments_pallas`` in interpret mode on
@@ -26,6 +31,7 @@ from ptudes_tpu.ops.pallas_gather import gather_prep_fused
 from ptudes_tpu.ops.pallas_gn import plane_moments_pallas
 from ptudes_tpu_torch import kernels
 from ptudes_tpu_torch.ops import cuda_gather, cuda_gn, hashmap, icp
+from ptudes_tpu_torch.ops.voxel import voxel_coords
 from test_pallas_gather import VS, _make_map, _make_queries
 from test_pallas_icp import _run, _setup
 
@@ -56,8 +62,7 @@ def _fused_both(scene, neighborhood, max_probes, loss):
     ref = gather_prep_fused(m, src, mask, t, interpret=True, **kw)
     kernels.reset_launches()
     got = cuda_gather.gather_prep_fused(pm, tsrc, tmask, tt, **kw)
-    assert kernels.LAUNCHES["gather_select"] == 0    # CPU tensors: the twin
-    assert kernels.LAUNCHES["gather_prep"] == 0
+    assert kernels.LAUNCHES["gather_fused"] == 0    # CPU tensors: the twin
     return got, ref
 
 
@@ -112,6 +117,126 @@ def test_fused_gather_rejects_what_the_kernel_cannot_run(gather_scene):
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_gather.gather_prep_fused(pm, tsrc.to("meta"), tmask.to("meta"),
                                       tt.to("meta"), **kw)
+
+
+def test_gather_fused_on_cpu_is_the_twins_with_the_selection(gather_scene):
+    """The one-launch wrapper on CPU tensors: the select and prep twins,
+    the selection copied into ``aux``, no launch counted."""
+    _, (pm, tsrc, tmask, tt) = gather_scene
+    pts_w = (tsrc @ tt[:3, :3].T + tt[:3, 3]).contiguous()
+    kw = dict(voxel_size=VS, max_probes=2, neighborhood=7, n_voxels=4)
+    aux = torch.full((20, pts_w.shape[0]), -1, dtype=torch.int32)
+    kernels.reset_launches()
+    got = cuda_gather.gather_fused(pm, pts_w, tmask, radius2=0.2,
+                                   loss="plane", aux=aux, **kw)
+    assert kernels.LAUNCHES["gather_fused"] == 0
+    sel = cuda_gather.select_voxels_torch(pm, pts_w, **kw)
+    assert torch.equal(aux, sel)
+    ref = cuda_gather.prep_selected_torch(pm, pts_w, tmask, sel,
+                                          voxel_size=VS, radius2=0.2,
+                                          loss="plane")
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------------------ K6's select by rank
+
+_SEL_VS = 0.5      # a power of two: voxel corners and reps are exact
+
+
+def _hand_map(keys, reps, counts, cap=1 << 9, ppv=8):
+    """A map holding ``keys`` [M, 3] with representatives ``reps`` and
+    counts, each in the first free slot from its home slot (so some sit
+    a probe past it), built row by row."""
+    meta = torch.zeros((cap, hashmap.META_W), dtype=torch.int32)
+    fp, h0 = hashmap._fingerprint_and_slot(keys, cap)
+    for i in range(keys.shape[0]):
+        s = int(h0[i])
+        while int(meta[s, 0]) != 0:
+            s = (s + 1) & (cap - 1)
+        meta[s, 0], meta[s, 1] = fp[i], int(counts[i])
+        meta[s, 2:5] = reps[i].view(torch.int32)
+    points = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 1 << 30, (cap, ppv), dtype=np.int32))
+    return hashmap.VoxelHashMap(meta, points)
+
+
+def _select_scene(kind):
+    """(map, query points): reps and queries on a 1/8 m grid, so squared
+    distances are exact and tie often. ``ties``: half the voxels of a 4 m
+    cube filled; ``sparse``: one voxel in ten (fewer than V matches);
+    ``none``: the queries 100 m away from every voxel."""
+    rng = np.random.default_rng({"ties": 1, "sparse": 2, "none": 3}[kind])
+    grid = np.stack(np.meshgrid(*[np.arange(-4, 4)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3)
+    keep = rng.uniform(size=len(grid)) < (0.1 if kind == "sparse" else 0.5)
+    keys = grid[keep]
+    reps = (keys + rng.integers(0, 2, keys.shape) / 2.0 + 0.25) * _SEL_VS
+    m = _hand_map(torch.from_numpy(keys.astype(np.int32)),
+                  torch.from_numpy(reps.astype(np.float32)),
+                  rng.integers(1, 9, len(keys)))
+    q = rng.integers(-14, 14, (512, 3)) / 8.0
+    if kind == "none":
+        q = q + 100.0
+    return m, torch.from_numpy(q.astype(np.float32))
+
+
+def select_by_rank(vmap_, pts_w, *, voxel_size, max_probes, neighborhood,
+                   n_voxels):
+    """csrc/gather_fused.cu's select in torch: lane j probes neighbour j;
+    a matched neighbour's rank is the number of matched neighbours with a
+    smaller (d, j); rank v is selection v, and once the matches run out
+    the selection is neighbour 0 (its slot, count 0)."""
+    n = pts_w.shape[0]
+    keys = voxel_coords(pts_w, voxel_size)[:, None, :] \
+        + icp.neighbor_offsets(neighborhood, "cpu")[None]     # [N, J, 3]
+    slot, cnt, rep, found = hashmap.probe(vmap_, keys, max_probes,
+                                          miss_slot=0)
+    dx, dy, dz = (rep[..., i] - pts_w[:, None, i] for i in range(3))
+    d = dx * dx + dy * dy + dz * dz
+    big = cuda_gather._BIG
+    ok = found & (d < big)
+    key = torch.where(ok, d, big)
+    j = torch.arange(neighborhood)
+    smaller = (key[:, None, :] < key[:, :, None]) | (
+        (key[:, None, :] == key[:, :, None]) & (j[None, :] < j[:, None]))
+    rank = (smaller & ok[:, None, :]).sum(-1)                 # [N, J]
+    sel_slot, sel_cnt, sel_key = [], [], []
+    for v in range(n_voxels):
+        pick = ok & (rank == v)
+        has = pick.any(1)
+        jv = torch.where(has, pick.int().argmax(1), 0)[:, None]
+        sel_slot.append(torch.where(has, slot.gather(1, jv)[:, 0],
+                                    slot[:, 0]))
+        sel_cnt.append(torch.where(has, cnt.gather(1, jv)[:, 0], 0))
+        sel_key.append(keys.gather(1, jv[..., None].expand(n, 1, 3))[:, 0])
+    key_v = torch.stack(sel_key, 1)                           # [N, V, 3]
+    return torch.cat([torch.stack(sel_slot), torch.stack(sel_cnt),
+                      key_v.permute(2, 1, 0).reshape(3 * n_voxels, n)]
+                     ).to(torch.int32), ok, key
+
+
+@pytest.mark.parametrize("neighborhood,max_probes", [(7, 1), (7, 2),
+                                                     (27, 2)])
+@pytest.mark.parametrize("kind", ["ties", "sparse", "none"])
+def test_select_by_rank_matches_the_select_twin(kind, neighborhood,
+                                                 max_probes):
+    m, q = _select_scene(kind)
+    kw = dict(voxel_size=_SEL_VS, max_probes=max_probes,
+              neighborhood=neighborhood, n_voxels=4)
+    got, ok, key = select_by_rank(m, q, **kw)
+    assert torch.equal(got, cuda_gather.select_voxels_torch(m, q, **kw))
+    n_ok = ok.sum(1)
+    if kind == "none":
+        assert int(n_ok.max()) == 0
+        assert bool((got[4:8] == 0).all())
+        return
+    assert bool(((n_ok > 0) & (n_ok < 4)).any())       # junk picks taken
+    if kind == "ties":
+        # exact ties among the matched neighbours of a point
+        k = torch.where(ok, key, float("nan")).sort(1).values
+        assert int((k.diff(dim=1) == 0).sum()) > 50
+        assert int((n_ok >= 4).sum()) > 100
 
 
 # ---------------------------------------------------------- registration

@@ -1,10 +1,11 @@
 """Where the time of the PyTorch port's steady scan step goes, on one CUDA
 card: ``torch.profiler`` over steady scans of the bench scene at
 ``bench_config()`` (``--config bench``), at the same with
-``fused_gather=True`` (``--config bench_fused``: K6 in place of the gather
-and K3) or at the flagship command's ``cli_config(128, 1024)``
-(``--config cli``). Several configurations profile one after another in
-one process, so their numbers compare on one card and host.
+``fused_gather=True`` (``--config bench_fused``: K6, the one kernel
+``gather_fused``, in place of the gather and K3) or at the flagship
+command's ``cli_config(128, 1024)`` (``--config cli``). Several
+configurations profile one after another in one process, so their numbers
+compare on one card and host.
 
     python3 tools/profile_torch_path.py [--config bench|bench_fused|cli
         [...]] [--scans 20] [--json PATH]
