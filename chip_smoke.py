@@ -10,7 +10,11 @@ Phases, each reported on its own line:
   3. each kernel against its plain PyTorch twin on the card, with the
      stated tolerances, and both times; K1 at K = 0, 12, 16 and 64, with
      holes, a late sample, a fresh filter and an all-invalid block, its
-     device time at K = 0, 12 and 16; K4 in both its variants (staged
+     device time at K = 0, 12 and 16; K2 in both Joseph forms, with a
+     rotated and with an identity measurement, repeating bit for bit, its
+     device time; K3 at the bench shapes and at a ragged N = 2046, its
+     lane-major rows bit for bit against ``lane_major(cand)``, repeating
+     bit for bit, its device time; K4 in both its variants (staged
      in shared memory at the bench shapes, streamed at the CLI shapes),
      its other launch shapes bit for bit against the default, K4 and K5
      repeating bit for bit and on a scene of exact nearest-row ties
@@ -295,40 +299,67 @@ def check_ekf(dev, rng, results):
         device_us=r["device_us_k16"], **calls["K=16"][2], **r)
 
     pose = torch.eye(4, dtype=torch.float32, device=dev)
-    pose[:3, :3] = so3.exp_rotvec(torch.tensor([0.02, -0.01, 0.03],
-                                               device=dev))
     pose[:3, 3] = torch.tensor([0.1, -0.2, 0.05], device=dev)
+    rotated = pose.clone()
+    rotated[:3, :3] = so3.exp_rotvec(torch.tensor([0.02, -0.01, 0.03],
+                                                  device=dev))
+    # the identity measurement: the state's attitude exactly (the identity
+    # quaternion), so the residual's log takes its small-angle branch
+    s_id = s._replace(quat=torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev))
     worst = 0.0
-    for joseph in (True, False):
-        c = dataclasses.replace(cfg, joseph_form=joseph)
-        mc = esekf.default_meas_cov(c, dev)
-        uk = cuda_ekf.update_pose(s, pose, mc, joseph=joseph)
-        up = esekf.process_pose(s, pose, cfg=dataclasses.replace(
-            c, update_form="xla"), meas_cov=mc)
-        for f in ("pos", "vel", "bias_gyr", "bias_acc", "grav"):
-            e = float((getattr(uk, f) - getattr(up, f)).abs().max())
-            check(e <= 1e-5, f"ekf_update {f} vs twin (joseph={joseph}): {e}")
-            worst = max(worst, e)
-        eq = float(torch.minimum((uk.quat - up.quat).abs().max(),
-                                 (uk.quat + up.quat).abs().max()))
-        check(eq <= 1e-5, f"ekf_update quat vs twin: {eq}")
-        check(torch.allclose(uk.cov, up.cov, rtol=1e-4, atol=1e-5),
-              f"ekf_update cov vs twin (joseph={joseph}): "
-              f"{float((uk.cov - up.cov).abs().max())}")
-        worst = max(worst, eq, float((uk.cov - up.cov).abs().max()))
+    for name, (s0, pm, joseph) in {
+            "Joseph": (s, rotated, True), "simple": (s, rotated, False),
+            "Joseph, identity measurement": (s_id, pose, True),
+            "simple, identity measurement": (s_id, pose, False)}.items():
+        worst = max(worst, check_update(cfg, s0, pm, joseph, name, dev))
     mc = esekf.default_meas_cov(cfg, dev)
-    # Joseph form (I - KH) P (I - KH)^T: two 18^3 products, and the gain's
-    # 18 x 18 x 6 products
-    b = bound(nbytes(s, pose, mc, cuda_ekf.update_pose(s, pose, mc)),
-              4 * 18 ** 3 + 8 * 18 * 18 * 6)
+
+    def kern():
+        return cuda_ekf.update_pose(s, rotated, mc)
+
+    # the byte bound of a one-CTA latency kernel (the dense Joseph products'
+    # operations are below it); K1's fixed cost at K = 0 is the practical
+    # floor of one launch of one CTA on this card
+    b = bound(nbytes(s, rotated, mc, kern()), 4 * 18 ** 3 + 8 * 18 * 18 * 6)
     results["ekf_update"] = dict(
-        max_abs_err=worst, **b,
-        ms=cuda_ms(lambda: cuda_ekf.update_pose(s, pose, mc), 200),
+        max_abs_err=worst, **b, ms=cuda_ms(kern, 200),
         plain_ms=cuda_ms(lambda: esekf.process_pose(
-            s, pose, cfg=dataclasses.replace(cfg, update_form="xla"),
-            meas_cov=mc), 20))
-    say(f"  ekf_update: max |kernel - twin| {worst:.3e}  "
-        f"(state 1e-5, cov rtol 1e-4 atol 1e-5; both Joseph forms)")
+            s, rotated, cfg=dataclasses.replace(cfg, update_form="xla"),
+            meas_cov=mc), 20),
+        device_us=kernel_us(kern, "ekf_update"),
+        device_us_simple=kernel_us(
+            lambda: cuda_ekf.update_pose(s, rotated, mc, joseph=False),
+            "ekf_update"))
+    say(f"  ekf_update on the device: {results['ekf_update']['device_us']:.2f}"
+        f" us Joseph, {results['ekf_update']['device_us_simple']:.2f} us "
+        f"simple")
+
+
+def check_update(cfg, s, pose, joseph, name, dev) -> float:
+    """K2 against its twin (tests/test_esekf.py's bars: state 1e-5, cov
+    rtol 1e-4 atol 1e-5) and a second launch bit for bit; returns the
+    largest difference."""
+    c = dataclasses.replace(cfg, joseph_form=joseph)
+    mc = esekf.default_meas_cov(c, dev)
+    uk = cuda_ekf.update_pose(s, pose, mc, joseph=joseph)
+    again = cuda_ekf.update_pose(s, pose, mc, joseph=joseph)
+    up = esekf.process_pose(s, pose, cfg=dataclasses.replace(
+        c, update_form="xla"), meas_cov=mc)
+    check(all(torch.equal(a, b) for a, b in zip(uk, again)),
+          f"ekf_update ({name}) does not repeat bit for bit")
+    errs = {f: float((getattr(uk, f) - getattr(up, f)).abs().max())
+            for f in ("pos", "vel", "bias_gyr", "bias_acc", "grav")}
+    errs["quat"] = float(torch.minimum((uk.quat - up.quat).abs().max(),
+                                       (uk.quat + up.quat).abs().max()))
+    check(max(errs.values()) <= 1e-5,
+          f"ekf_update ({name}) state vs twin: {errs}")
+    cov_err = float((uk.cov - up.cov).abs().max())
+    check(torch.allclose(uk.cov, up.cov, rtol=1e-4, atol=1e-5),
+          f"ekf_update ({name}) cov vs twin: {cov_err}")
+    say(f"  ekf_update {name}: max |kernel - twin| state "
+        f"{max(errs.values()):.3e} (1e-5), cov {cov_err:.3e} (rtol 1e-4, "
+        f"atol 1e-5); repeats bit for bit")
+    return max(*errs.values(), cov_err)
 
 
 def icp_scene(dev, seed=5, n=2048):
@@ -366,32 +397,31 @@ def check_icp(dev, results):
                                  neighborhood=7, n_voxels=4,
                                  fit_planes=False)
     r = k.plane_fit_radius
-    pk = cuda_gn.prep_with_plane(cand, mask, q_w, r)
-    pp = cuda_gn.prep_with_plane_torch(cand, mask, q_w, r)
+    pk, pp, err = check_prep(cand, mask, q_w, r, "gn_prep")
     check(pk.cx.shape == (32, 2048), f"candidate shape {pk.cx.shape}")
-    ok = pp.feat[6] > 0.3
-    check(int(ok.sum()) > 500, "too few well-conditioned plane fits")
-    dots = (pk.feat[0:3, ok] * pp.feat[0:3, ok]).sum(0).abs()
-    cen = float((pk.feat[3:6, ok] - pp.feat[3:6, ok]).abs().max())
-    qual = float((pk.feat[6, ok] - pp.feat[6, ok]).abs().max())
-    q01 = float(torch.quantile(dots, 0.01))
-    # bars of tests/test_pallas_gn.py:test_plane_moments_parity
-    check(q01 > 0.999, f"gn_prep normal dot 1%-quantile {q01}")
-    check(cen <= 2e-3, f"gn_prep centroid {cen}")
-    check(qual <= 2e-2, f"gn_prep quality {qual}")
-    check(bool((pk.feat[7] == pp.feat[7]).all()), "gn_prep mask row")
-    err = max(cen, qual, 1.0 - float(dots.min()))
+    # a ragged N: the last CTA holds 6 points
+    m_ = 2046
+    cand_r = icp.CandidateSet(*(x[:m_] for x in cand))
+    _, _, err_r = check_prep(cand_r, mask[:m_], q_w[:m_].contiguous(), r,
+                             "gn_prep ragged")
+
+    def kern_prep():
+        return cuda_gn.prep_with_plane(cand, mask, q_w, r)
+
+    # reads the CandidateSet (pts, valid), the query points and the mask
+    # once, writes feat and the lane-major rows; ~20 operations per
+    # candidate, ~150 per point for the finish
     c, n = pk.cx.shape
-    # reads query + mask [4, N] and the candidates [4 x C, N], writes feat
-    # [8, N]; ~20 operations per candidate, ~150 per point for the finish
     results["gn_prep"] = dict(
-        max_abs_err=err, **bound(4 * (4 * n + 4 * c * n + 8 * n),
-                                 n * (20 * c + 150)),
-        ms=cuda_ms(lambda: cuda_gn.prep_with_plane(cand, mask, q_w, r), 200),
+        max_abs_err=max(err, err_r),
+        **bound(nbytes(cand.pts, cand.valid, q_w, mask, pk),
+                n * (20 * c + 150)),
+        ms=cuda_ms(kern_prep, 200),
         plain_ms=cuda_ms(
-            lambda: cuda_gn.prep_with_plane_torch(cand, mask, q_w, r), 20))
-    say(f"  gn_prep: normal dot q01 {q01:.6f} (> 0.999), centroid "
-        f"{cen:.2e} (2e-3), quality {qual:.2e} (2e-2)")
+            lambda: cuda_gn.prep_with_plane_torch(cand, mask, q_w, r), 20),
+        device_us=kernel_us(kern_prep, "gn_prep"))
+    say(f"  gn_prep on the device: {results['gn_prep']['device_us']:.2f} us "
+        f"(bound {results['gn_prep']['bound_ms'] * 1e3:.3f} us)")
 
     kern = torch.tensor(0.1667, device=dev)
     max_d2 = torch.tensor(0.25, device=dev)
@@ -421,6 +451,34 @@ def check_icp(dev, results):
         **bound(nbytes(src, pp, guess), ik * n * (8 * c + 120)))
     say(f"  icp_loop plan {plan}: kernel "
         f"{results['icp_loop']['device_us']:.2f} us on the device")
+
+
+def check_prep(cand, mask, q_w, r, name):
+    """K3 against its twin: the lane-major rows bit for bit (copies of the
+    CandidateSet), feat at tests/test_pallas_gn.py's bars (normal |dot|
+    1%-quantile > 0.999, centroid 2e-3, quality 2e-2, mask row exact), a
+    second launch bit for bit. Returns (kernel, twin, largest error)."""
+    pk = cuda_gn.prep_with_plane(cand, mask, q_w, r)
+    pp = cuda_gn.prep_with_plane_torch(cand, mask, q_w, r)
+    again = cuda_gn.prep_with_plane(cand, mask, q_w, r)
+    check(all(torch.equal(a, b) for a, b in zip(pk[1:], pp[1:])),
+          f"{name}: lane-major rows differ from lane_major(cand)")
+    check(all(torch.equal(a, b) for a, b in zip(pk, again)),
+          f"{name} does not repeat bit for bit")
+    ok = pp.feat[6] > 0.3
+    check(int(ok.sum()) > 500, f"{name}: too few well-conditioned fits")
+    dots = (pk.feat[0:3, ok] * pp.feat[0:3, ok]).sum(0).abs()
+    cen = float((pk.feat[3:6, ok] - pp.feat[3:6, ok]).abs().max())
+    qual = float((pk.feat[6, ok] - pp.feat[6, ok]).abs().max())
+    q01 = float(torch.quantile(dots, 0.01))
+    check(q01 > 0.999, f"{name} normal dot 1%-quantile {q01}")
+    check(cen <= 2e-3, f"{name} centroid {cen}")
+    check(qual <= 2e-2, f"{name} quality {qual}")
+    check(torch.equal(pk.feat[7], pp.feat[7]), f"{name} mask row")
+    say(f"  {name} (N={q_w.shape[0]}, C={pk.cx.shape[0]}): lane-major rows "
+        f"exact, normal dot q01 {q01:.6f} (> 0.999), centroid {cen:.2e} "
+        f"(2e-3), quality {qual:.2e} (2e-2); repeats bit for bit")
+    return pk, pp, max(cen, qual, 1.0 - float(dots.min()))
 
 
 def check_loop(name, src, prepped, guess, kern, max_d2, conv, kw):

@@ -453,7 +453,7 @@ __device__ __forceinline__ void patch_add(PatchMoments& m, float dx, float dy,
 }
 
 // The moments of point p (query (px, py, pz)) over its c lane-major
-// candidate rows cx/cy/cz/inf [c, n].
+// candidate rows cx/cy/cz/inf [c, n] (K7).
 __device__ __forceinline__ PatchMoments patch_moments(
     float px, float py, float pz, int p, int n, int c,
     const float* __restrict__ cx, const float* __restrict__ cy,
@@ -463,6 +463,27 @@ __device__ __forceinline__ PatchMoments patch_moments(
     const int o = k * n + p;
     patch_add(m, cx[o] - px, cy[o] - py, cz[o] - pz, inf[o], r2);
   }
+  return m;
+}
+
+// The sum of v over the warp, in every lane: an xor butterfly (offsets
+// 16, 8, 4, 2, 1), so the order of the additions is fixed.
+__device__ __forceinline__ float warp_sum_xor(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The lanes' moments summed over the warp, in every lane (K3).
+__device__ __forceinline__ PatchMoments patch_warp_sum(PatchMoments m) {
+  m.s0 = warp_sum_xor(m.s0);
+  m.sx = warp_sum_xor(m.sx); m.sy = warp_sum_xor(m.sy);
+  m.sz = warp_sum_xor(m.sz);
+  m.sxx = warp_sum_xor(m.sxx); m.syy = warp_sum_xor(m.syy);
+  m.szz = warp_sum_xor(m.szz);
+  m.sxy = warp_sum_xor(m.sxy); m.sxz = warp_sum_xor(m.sxz);
+  m.syz = warp_sum_xor(m.syz);
   return m;
 }
 
@@ -510,16 +531,23 @@ __device__ __forceinline__ void smallest_eig(float axx, float ayy, float azz,
 
 // Finish the fit of point p into the feat rows [8, n]: normal, centroid
 // (query + mean offset), quality (0 under 4 candidates), source mask.
+// kRcp (K3): the means are the sums times the correctly rounded
+// reciprocal of the count, within an ulp of the quotients, in place of
+// nine IEEE divisions on the finish's dependent chain (each a branch
+// around its slow path, and slow on a chain of one lane).
+template <bool kRcp = false>
 __device__ __forceinline__ void plane_feat(const PatchMoments& m, float px,
                                            float py, float pz, float mask,
                                            float* __restrict__ feat, int p,
                                            int n) {
   const float denom = fmaxf(m.s0, 1.0f);
-  const float mx = m.sx / denom, my = m.sy / denom, mz = m.sz / denom;
+  const float inv = kRcp ? __frcp_rn(denom) : 0.0f;
+  const auto mean = [&](float s) { return kRcp ? s * inv : s / denom; };
+  const float mx = mean(m.sx), my = mean(m.sy), mz = mean(m.sz);
   float nrm[3], quality;
-  smallest_eig(m.sxx / denom - mx * mx, m.syy / denom - my * my,
-               m.szz / denom - mz * mz, m.sxy / denom - mx * my,
-               m.sxz / denom - mx * mz, m.syz / denom - my * mz, nrm,
+  smallest_eig(mean(m.sxx) - mx * mx, mean(m.syy) - my * my,
+               mean(m.szz) - mz * mz, mean(m.sxy) - mx * my,
+               mean(m.sxz) - mx * mz, mean(m.syz) - my * mz, nrm,
                &quality);
   feat[p] = nrm[0];
   feat[n + p] = nrm[1];

@@ -1,7 +1,7 @@
 """The ICP candidate kernels on the lane-major [C, N] layout:
 
-- K3, the per-point patch plane fit over the gathered candidates
-  (``csrc/gn_prep.cu``), the counterpart of
+- K3, the per-point patch plane fit over the gathered candidates, which
+  also lays them out lane-major (``csrc/gn_prep.cu``), the counterpart of
   ``ptudes_tpu.ops.pallas_gn.prep_with_plane_pallas``;
 - K5, one robust GN build against prepped candidates (``csrc/gn_iter.cu``),
   the counterpart of ``ptudes_tpu.ops.pallas_gn.gn_prepped_pallas``;
@@ -9,10 +9,11 @@
   of ``ptudes_tpu.ops.pallas_gn.plane_moments_pallas``, which no pipeline
   path calls.
 
-The candidates are transposed ONCE per gather to the lane-major layout K3,
-K4 and K5 read; the feat rows (normal, centroid, quality, source mask) come
-from K3 on the frozen path and from the gather's own plane fit
-(:func:`prep_candidates`) on the refresh path.
+The candidates are laid out ONCE per gather in the lane-major [C, N] rows
+K4 and K5 read: on the frozen path by K3 itself, which also writes the feat
+rows (normal, centroid, quality, source mask); on the refresh path and in
+K3's twin by :func:`lane_major`, the refresh path's feat rows coming from
+the gather's own plane fit (:func:`prep_candidates`).
 """
 from __future__ import annotations
 
@@ -125,20 +126,28 @@ def prep_with_plane_torch(cand, source_mask: torch.Tensor,
 
 def prep_with_plane(cand, source_mask: torch.Tensor, q_w: torch.Tensor,
                     radius: float) -> PreppedCandidates:
-    """K3: CUDA tensors launch ``gn_prep``; CPU tensors take the twin."""
+    """K3: CUDA tensors launch ``gn_prep``, which takes the CandidateSet as
+    gathered (``pts`` [N, C, 3] f32, ``valid`` [N, C] bool, read as bytes)
+    with ``q_w`` [N, 3] f32 and ``source_mask`` [N] bool, all contiguous,
+    and writes feat and the lane-major candidates in one launch; anything
+    else raises. CPU tensors take the twin."""
     if kernels.device_kind(q_w, "gn_prep") == "cpu":
         return prep_with_plane_torch(cand, source_mask, q_w, radius)
-    cx, cy, cz, inf = lane_major(cand)
-    c, n = cx.shape
-    ptq = torch.cat([q_w.to(_F32).T, source_mask.to(_F32)[None]],
-                    0).contiguous()                            # [4, N]
-    feat = torch.empty((8, n), dtype=_F32, device=q_w.device)
+    n, c = cand.valid.shape
+    if cand.pts.shape != (n, c, 3) or q_w.shape != (n, 3) \
+            or source_mask.shape != (n,):
+        raise ValueError(
+            f"gn_prep: pts {tuple(cand.pts.shape)}, valid {(n, c)}, q_w "
+            f"{tuple(q_w.shape)}, source_mask {tuple(source_mask.shape)}")
+    out = torch.empty((8 + 4 * c, n), dtype=_F32, device=q_w.device)
+    prepped = PreppedCandidates(out[:8], *out[8:].split(c))
     kernels.launch(
-        "gn_prep", kernels.ptr(ptq, "ptq"), kernels.ptr(cx, "cx"),
-        kernels.ptr(cy, "cy"), kernels.ptr(cz, "cz"),
-        kernels.ptr(inf, "inf"), kernels.ptr(feat, "feat"), n, c,
-        _radius2(radius))
-    return PreppedCandidates(feat, cx, cy, cz, inf)
+        "gn_prep", kernels.ptr(cand.pts, "pts"),
+        kernels.ptr(cand.valid, "valid", torch.bool), kernels.ptr(q_w, "q_w"),
+        kernels.ptr(source_mask, "source_mask", torch.bool),
+        *(kernels.ptr(x, name) for x, name in zip(prepped, prepped._fields)),
+        n, c, _radius2(radius))
+    return prepped
 
 
 def prep_candidates(cand, source_mask: torch.Tensor, *,

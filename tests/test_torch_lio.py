@@ -9,7 +9,9 @@ then the decimated steady insert, with the capacities cut to the scan size
 and tests/test_lio.py's 30 m range clip. The JAX reference runs the XLA
 forms of the four kernels (their parity is pinned by test_torch_ekf.py and
 test_torch_icp.py). Every pose must agree within 0.02 m, the bar of
-``__graft_entry__.py``'s multichip parity check.
+``__graft_entry__.py``'s multichip parity check; so must the variants with
+an IMU gap (a scan without samples, its update masked),
+``bootstrap_scans=-1`` and ``steady_insert_mode=True``.
 """
 import dataclasses
 
@@ -94,7 +96,8 @@ def run():
                               cfg=cfg)
     return dict(jposes=np.asarray(jout.kiss_pose, np.float64), out=out,
                 jboot=jboot, batches=batches, lut=lut, gt_mid=gt_mid,
-                launches=dict(kernels.LAUNCHES), jb=jb, jlut=jlut)
+                launches=dict(kernels.LAUNCHES), jb=jb, jlut=jlut,
+                scene=(scans, scan_ts, imu_ts, imu))
 
 
 def _pose_err(a, b):
@@ -138,6 +141,49 @@ def test_fused_gather_sequence_matches_jax(run):
     # and the fused gather tracks the unfused run of the same port
     assert _pose_err(kp, run["out"].kiss_pose.double().numpy()).max() \
         <= POSE_BAR_M
+
+
+GAP_SCAN = 5
+
+
+@pytest.mark.parametrize("case", ["imu_gap", "bootstrap_all",
+                                  "steady_insert_exact"])
+def test_sequence_variants_match_jax(run, case):
+    """The same sequence, port twins against JAX, in three variants no
+    other port test runs: scan 5 without IMU samples (its EKF update is
+    masked out after the pose update), ``bootstrap_scans=-1`` (every scan
+    inserts its whole frame) and ``steady_insert_mode=True`` (the exact
+    chunked steady insert); every pose within 0.02 m."""
+    kw = {"imu_gap": {}, "bootstrap_all": dict(bootstrap_scans=-1),
+          "steady_insert_exact": dict(steady_insert_mode=True)}[case]
+    jcfg, cfg = jax_config(**kw), port_config(**kw)
+    jb, batches = run["jb"], run["batches"]
+    if case == "imu_gap":
+        scans, scan_ts, imu_ts, imu = run["scene"]
+        keep = ~((imu_ts > scan_ts[GAP_SCAN - 1])
+                 & (imu_ts <= scan_ts[GAP_SCAN]))
+        args = (scans, scan_ts, imu.lacc[keep], imu.avel[keep], imu_ts[keep])
+        jb = jlio.build_batches(jcfg, *args)
+        batches = lio.build_batches(cfg, *args, device="cpu")
+        assert not bool(batches.imu_valid[GAP_SCAN].any())
+    _, jout = jlio.run_sequence(jlio.init_state(jcfg), jb, run["jlut"],
+                                cfg=jcfg)
+    kernels.reset_launches()
+    _, out = lio.run_sequence(lio.init_state(cfg, "cpu"), batches,
+                              run["lut"], cfg=cfg)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    valid = out.scan_valid.numpy()
+    np.testing.assert_array_equal(valid, np.asarray(jout.scan_valid))
+    assert valid.sum() == N_SCANS - (case == "imu_gap")
+    for key in ("kiss_pose", "ekf_pose"):
+        kp = getattr(out, key).double().numpy()
+        assert np.isfinite(kp).all()
+        err = _pose_err(kp, np.asarray(getattr(jout, key), np.float64))
+        assert err.max() <= POSE_BAR_M, (key, err)
+    if case == "imu_gap":
+        # the masked update carries the EKF state through the gap scan
+        ekf = out.ekf_pose.double().numpy()
+        np.testing.assert_array_equal(ekf[GAP_SCAN], ekf[GAP_SCAN - 1])
 
 
 def test_state_carry_over_from_jax(run):

@@ -18,7 +18,9 @@ kernel launches per scan, the refresh loop's host reads and re-gathers
 per scan, each hand kernel's device time and launches per scan, the mean
 GN iterations per scan (``LioOut.aux``) and the GN kernels' (K4, K5)
 device time per iteration, and the top operators and kernels by device
-time. Runs the bootstrap scans and a warm-up before
+time; for ``bench`` also K3's and K2's wrappers alone at the bench
+path's shapes, their kernels and glue launches apart, with their twins'
+call times (``wrappers``). Runs the bootstrap scans and a warm-up before
 the profiled window.
 """
 from __future__ import annotations
@@ -89,6 +91,79 @@ def main() -> None:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(summaries, f, indent=1)
+
+
+def wrapper_calls(dev, reps: int = 20) -> dict:
+    """K3's and K2's wrappers alone at the bench path's shapes
+    (``chip_smoke.icp_scene``: N = 2048, C = 32 and the bench gather; the
+    EKF state of ``chip_smoke.generic_ekf_state`` and a rotated pose), per
+    kernel: the call ms of the wrapper and of its plain twin (CUDA events,
+    ``chip_smoke.cuda_ms``), the host clock around ``reps`` wrapper calls
+    ending in a synchronize, the kernel's records a call and their mean
+    device us, and the records of every other kernel the wrapper launches
+    (its glue) a call with their device us a call. The profiler can drop
+    records, so fewer than one kernel record a call means records were
+    lost."""
+    import dataclasses
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from ptudes_tpu_torch import config
+    from ptudes_tpu_torch.geom import se3, so3
+    from ptudes_tpu_torch.models import esekf
+    from ptudes_tpu_torch.ops import cuda_ekf, cuda_gn, icp
+
+    m, src, mask, guess = cs.icp_scene(dev)
+    q_w = se3.transform(guess, src)
+    cand = icp.gather_candidates(m, q_w, voxel_size=0.3, max_probes=2,
+                                 neighborhood=7, n_voxels=4,
+                                 fit_planes=False)
+    ekf = config.bench_config().ekf
+    s = cs.generic_ekf_state(ekf, dev, np.random.default_rng(0))
+    pose = torch.eye(4, device=dev)
+    pose[:3, :3] = so3.exp_rotvec(torch.tensor([0.02, -0.01, 0.03],
+                                               device=dev))
+    pose[:3, 3] = torch.tensor([0.1, -0.2, 0.05], device=dev)
+    mc = esekf.default_meas_cov(ekf, dev)
+    twin_ekf = dataclasses.replace(ekf, update_form="xla")
+    cases = {
+        "gn_prep": (lambda: cuda_gn.prep_with_plane(cand, mask, q_w, 0.6),
+                    lambda: cuda_gn.prep_with_plane_torch(cand, mask, q_w,
+                                                          0.6)),
+        "ekf_update": (lambda: cuda_ekf.update_pose(s, pose, mc),
+                       lambda: esekf.process_pose(s, pose, cfg=twin_ekf,
+                                                  meas_cov=mc))}
+    out = {}
+    for name, (call, twin) in cases.items():
+        def calls():
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+
+        calls()
+        t0 = time.monotonic()
+        calls()
+        wall = (time.monotonic() - t0) / reps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            calls()
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        own = [e for e in kern if f"{name}_kernel" in e.name]
+        glue = [e for e in kern if f"{name}_kernel" not in e.name]
+
+        def us(es):
+            return sum(e.time_range.end - e.time_range.start for e in es)
+
+        out[name] = {"call_ms": cs.cuda_ms(call, 200),
+                     "plain_ms": cs.cuda_ms(twin, 20),
+                     "wall_us_per_call": wall * 1e6,
+                     "kernel_launches": len(own) / reps,
+                     "kernel_device_us": us(own) / max(len(own), 1),
+                     "glue_launches": len(glue) / reps,
+                     "glue_device_us": us(glue) / reps}
+    return out
 
 
 def profile_config(which: str, scene, n_scans: int, card: str) -> dict:
@@ -204,6 +279,8 @@ def profile_config(which: str, scene, n_scans: int, card: str) -> dict:
                       if f"{name}_kernel" in k) / n_scans
             for name in kernels.KERNELS},
         "gn_iterations_per_scan": gn_iters,
+        # the bench path's K3 and K2 calls alone: kernel, glue and twin
+        "wrappers": wrapper_calls(dev) if which == "bench" else None,
         # K4 runs all of a scan's iterations in one launch, K5 one a build
         "gn_device_us_per_iteration": {
             name: hand_us[name] / gn_iters
