@@ -10,7 +10,10 @@ Phases, each reported on its own line:
   3. each kernel against its plain PyTorch twin on the card, with the
      stated tolerances, and both times; K1 at K = 0, 12, 16 and 64, with
      holes, a late sample, a fresh filter and an all-invalid block, its
-     device time at K = 0, 12 and 16; K2 in both Joseph forms, with a
+     device time at K = 0, 12 and 16, and in each case K1 writing the
+     filter history against the twin chain's history (its carried state
+     bit-equal to the launch without, its last row the carried state, its
+     device time beside K1's without); K2 in both Joseph forms, with a
      rotated and with an identity measurement, repeating bit for bit, its
      device time; K3 at the bench shapes and at a ragged N = 2046, its
      lane-major rows bit for bit against ``lane_major(cand)``, repeating
@@ -41,7 +44,21 @@ Phases, each reported on its own line:
      K6, K4, K1 and K2 once per scan, K3 and K5 never; ATE
      RMSE <= 0.02 m and every pose within 0.02 m of
      ``tests/data/bench_fused_jax_poses.txt``; then the twins; scans/s
-     printed beside phase 4's from the same call.
+     printed beside phase 4's from the same call;
+  7. the CLI's EKF-facing paths: (a) ``cli_config(128, 1024,
+     guess="kiss")``, the command with no guess flag (K1 once a scan, K5
+     once a GN iteration, no other kernel), and (b) the same with
+     ``predict_batch="assoc"`` (``stat --kiss-run``'s EKF; K1 never), each
+     warmed up and timed like phase 5 on the first 15 scans of the scene,
+     the ones ``tests/data/cli_kiss_jax_poses.txt`` holds (the JAX run
+     with this guess leaves the track from scan 15 on), ATE RMSE within
+     0.005 m of the JAX run's and every pose within 0.02 m of it, (a) also
+     with the twins; (c) ``bench_config()`` with ``log=True``: K1 writes
+     the history (once a scan, no twin step), the poses are phase 4's bit
+     for bit, the log [50, 12] with one knot a scan at its last valid slot
+     holding the scan's EKF position, its flattened entries rising in time;
+     (d) ``esekf.run_filter`` at ``ekf-bench sim``'s defaults with the op
+     chain update and with K2 (once a step), against the CPU run.
 Every kernel's line in the JSON summary carries its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the H100 SXM data
@@ -77,6 +94,7 @@ REF_POSES = os.path.join(HERE, "tests", "data", "bench_jax_poses.txt")
 CLI_REF_POSES = os.path.join(HERE, "tests", "data", "cli_jax_poses.txt")
 FUSED_REF_POSES = os.path.join(HERE, "tests", "data",
                                "bench_fused_jax_poses.txt")
+KISS_REF_POSES = os.path.join(HERE, "tests", "data", "cli_kiss_jax_poses.txt")
 ATE_GATE_M = 0.02    # bench.py's absolute ATE gate
 CLI_ATE_SLACK_M = 0.005  # the CLI path's ATE may exceed the JAX run's by
 POSE_GATE_M = 0.02   # per-pose parity with the JAX reference poses
@@ -89,6 +107,10 @@ REPLACES = {
     "gather_fused": ("gather_fused.cu",
                      "ptudes_tpu/ops/pallas_gather.py:291"),
     "plane_moments": ("plane_moments.cu", "ptudes_tpu/ops/pallas_gn.py:200"),
+    # K1 writing the filter history (the JAX log path's unrolled chain,
+    # ptudes_tpu/models/esekf.py:457-484, beside the same TPU kernel)
+    "ekf_predict_history": ("ekf_predict.cu",
+                            "ptudes_tpu/ops/pallas_ekf.py:438"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -96,6 +118,11 @@ F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launches since the last reset, and its variants'."""
+    return {**kernels.LAUNCHES, **kernels.VARIANT_LAUNCHES}
 
 
 def card_line() -> str:
@@ -203,8 +230,9 @@ def predict_block_ops(n_steps: int) -> int:
 def check_predict(cfg, s, dev, rng, k, valid, ts=None):
     """K1 against its twin over a block of ``k`` IMU samples (``valid`` a
     bool list, ``ts`` the timestamps, by default 10 ms apart after 0.2 s)
-    and a second launch bit for bit; returns (max |kernel - twin|, kernel
-    call, twin call, bound)."""
+    and a second launch bit for bit, then its history (:func:`check_history`)
+    on the same inputs; returns (max |kernel - twin|, kernel call, twin
+    call, bound) and the same four of the history."""
     twin = dataclasses.replace(cfg, predict_batch="unroll")
     if ts is None:
         ts = 0.2 + np.arange(1, k + 1) * 0.01
@@ -247,7 +275,58 @@ def check_predict(cfg, s, dev, rng, k, valid, ts=None):
     err = max(max(errs.values()), float((sk.cov - sp.cov).abs().max()))
     # the covariance steps run for every sample, a masked one with F = I
     b = bound(nbytes(s, imus, valid, sk, tk), predict_block_ops(k))
-    return err, kern, plain, b
+    return (err, kern, plain, b), check_history(cfg, s, imus, valid, k,
+                                                (sk, tk))
+
+
+def check_history(cfg, s, imus, valid, k, unlogged):
+    """K1 writing the filter history against the twin chain's history
+    (pos, vel and quat 1e-6, cov_diag rtol/atol 1e-5: the kernel-vs-unroll
+    bars; ts, biases and gravity exact, no updates), its carried state and
+    twist bit-equal to the launch without history, its last row bit-equal
+    to the carried state, a second launch bit for bit. Returns (max
+    difference, kernel call, twin call, bound)."""
+    twin = dataclasses.replace(cfg, predict_batch="unroll")
+
+    def kern():
+        return cuda_ekf.predict_block(s, imus, valid, cfg=cfg,
+                                      want_twist=True, log=True)
+
+    def plain():
+        return esekf.process_imu_batch(s, imus, valid, cfg=twin,
+                                       want_twist=True, log=True)
+
+    (sk, tk, hk), (_, _, hp), again = kern(), plain(), kern()
+    name = f"ekf_predict history K={k}"
+    check(all(torch.equal(a, b) for a, b in zip((*sk, tk), (*unlogged[0],
+                                                            unlogged[1]))),
+          f"{name}: carried state differs from the launch without history")
+    check(all(torch.equal(a, b) for a, b in zip((*sk, tk, *hk),
+                                                (*again[0], again[1],
+                                                 *again[2]))),
+          f"{name} does not repeat bit for bit")
+    check(hk.pos.shape == (k, 3) and hk.cov_diag.shape == (k, 18),
+          f"{name}: shapes {hk.pos.shape} {hk.cov_diag.shape}")
+    exact = all(torch.equal(getattr(hk, f), getattr(hp, f))
+                for f in ("ts", "bias_gyr", "bias_acc", "grav", "updated"))
+    check(exact, f"{name}: ts, biases, gravity or updated differ")
+    quat = torch.minimum((hk.att_q - hp.att_q).abs().amax(1),
+                         (hk.att_q + hp.att_q).abs().amax(1))
+    errs = {f: float((getattr(hk, f) - getattr(hp, f)).abs().max())
+            if k else 0.0 for f in ("pos", "vel", "cov_diag")}
+    errs["quat"] = float(quat.max()) if k else 0.0
+    check(max(errs["pos"], errs["vel"], errs["quat"]) <= 1e-6,
+          f"{name} vs twin: {errs}")
+    check(torch.allclose(hk.cov_diag, hp.cov_diag, rtol=1e-5, atol=1e-5),
+          f"{name} cov_diag vs twin: {errs}")
+    if k:
+        check(torch.equal(hk.pos[-1], sk.pos) and torch.equal(hk.vel[-1],
+                                                              sk.vel)
+              and torch.equal(hk.att_q[-1], sk.quat)
+              and torch.equal(hk.cov_diag[-1], torch.diagonal(sk.cov)),
+              f"{name}: last row differs from the carried state")
+    b = bound(nbytes(s, imus, valid, sk, tk, hk), predict_block_ops(k))
+    return max(errs.values()), kern, plain, b
 
 
 def check_ekf(dev, rng, results):
@@ -273,30 +352,39 @@ def check_ekf(dev, rng, results):
              "K=12 all invalid": (s, 12, [False] * 12, None),
              "K=64, 16 valid": (s, 64, [k % 4 == 1 for k in range(64)],
                                 None)}
-    worst, calls = 0.0, {}
+    worst, calls, hist = 0.0, {}, {}
     for name, (s0, k, valid, ts) in cases.items():
-        err, kern, plain, b = check_predict(cfg, s0, dev, rng, k, valid, ts)
+        (err, kern, plain, b), hc = check_predict(cfg, s0, dev, rng, k, valid,
+                                                  ts)
         worst = max(worst, err)
-        calls[name] = (kern, plain, b)
+        calls[name], hist[name] = (kern, plain, b), hc
         say(f"  ekf_predict {name}: max |kernel - twin| {err:.3e} (state "
             f"1e-6, twist 2e-5, cov rtol/atol 1e-5; clock and latch exact); "
-            f"repeats bit for bit")
-    r = {}
-    for name in ("K=0", "K=12", "K=16"):
-        kern, plain, b = calls[name]
-        tag = name[2:]
-        r[f"device_us_k{tag}"] = kernel_us(kern, "ekf_predict")
-        if name != "K=0":
-            r[f"ms_k{tag}"] = cuda_ms(kern, 200)
-            r[f"plain_ms_k{tag}"] = cuda_ms(plain, 20)
-    say(f"  ekf_predict on the device: {r['device_us_k0']:.2f} / "
-        f"{r['device_us_k12']:.2f} / {r['device_us_k16']:.2f} us at K = 0 / "
-        f"12 / 16 ({(r['device_us_k16'] - r['device_us_k12']) / 4:.3f} us a "
-        f"step from K = 12 to 16)")
-    # the row reports the CLI shape, K = 16 (14 valid)
-    results["ekf_predict"] = dict(
-        max_abs_err=worst, ms=r["ms_k16"], plain_ms=r["plain_ms_k16"],
-        device_us=r["device_us_k16"], **calls["K=16"][2], **r)
+            f"repeats bit for bit; with history: max |history - twin's| "
+            f"{hc[0]:.3e} (pos, vel, quat 1e-6, cov_diag rtol/atol 1e-5; ts, "
+            f"biases, gravity exact), state as without, last row the "
+            f"carried state, repeats bit for bit")
+    for key, by_case in (("ekf_predict", calls), ("ekf_predict_history",
+                                                  {n: h[1:] for n, h in
+                                                   hist.items()})):
+        r = {}
+        for name in ("K=0", "K=12", "K=16"):
+            kern, plain, b = by_case[name]
+            tag = name[2:]
+            r[f"device_us_k{tag}"] = kernel_us(kern, "ekf_predict")
+            if name != "K=0":
+                r[f"ms_k{tag}"] = cuda_ms(kern, 200)
+                r[f"plain_ms_k{tag}"] = cuda_ms(plain, 20)
+        say(f"  {key} on the device: {r['device_us_k0']:.2f} / "
+            f"{r['device_us_k12']:.2f} / {r['device_us_k16']:.2f} us at K = "
+            f"0 / 12 / 16 ({(r['device_us_k16'] - r['device_us_k12']) / 4:.3f}"
+            f" us a step from K = 12 to 16)")
+        # the row reports the CLI shape, K = 16 (14 valid)
+        results[key] = dict(
+            max_abs_err=worst if key == "ekf_predict" else max(
+                h[0] for h in hist.values()),
+            ms=r["ms_k16"], plain_ms=r["plain_ms_k16"],
+            device_us=r["device_us_k16"], **by_case["K=16"][2], **r)
 
     pose = torch.eye(4, dtype=torch.float32, device=dev)
     pose[:3, 3] = torch.tensor([0.1, -0.2, 0.05], device=dev)
@@ -994,7 +1082,7 @@ def check_plane_moments(dev, results):
 
 # --------------------------------------------------------------- phase 4
 
-def timed_run(c, batches, lut, dev):
+def timed_run(c, batches, lut, dev, log=False):
     """One ``lio.run_sequence`` from a fresh state with host syncs made
     errors (the refresh loop lifts that for its counted reads only);
     returns (out, seconds)."""
@@ -1003,7 +1091,7 @@ def timed_run(c, batches, lut, dev):
     t = time.monotonic()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        _, out = lio.run_sequence(state, batches, lut, cfg=c)
+        _, out = lio.run_sequence(state, batches, lut, cfg=c, log=log)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -1012,7 +1100,9 @@ def timed_run(c, batches, lut, dev):
 
 def run_main_path(n_scans: int, dev):
     """Phase 4; returns each kernel's launches in the timed run, the scene,
-    and the timed run's poses and scans/s."""
+    the timed run's output and scans/s, and the largest difference between
+    the warm-up's and the timed run's poses (0: they repeat bit for
+    bit)."""
     t0 = time.monotonic()
     scene = sim.bench_scene(n_scans)
     sensor, scans, scan_ts, gt_mid, imu = scene
@@ -1026,10 +1116,12 @@ def run_main_path(n_scans: int, dev):
     def timed(c):
         return timed_run(c, batches, lut, dev)
 
-    timed(cfg)                                  # warm-up
+    warm, _ = timed(cfg)                        # warm-up
     kernels.reset_launches()
     out, dt = timed(cfg)
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
+    repeat = max(float((getattr(warm, f) - getattr(out, f)).abs().max())
+                 for f in ("kiss_pose", "ekf_pose"))
     for name, count in launches.items():
         # K1-K4 once a scan; K5 (refresh), K6 (fused gather), K7 never
         want = n_scans if name in ("ekf_predict", "ekf_update", "gn_prep",
@@ -1048,7 +1140,10 @@ def run_main_path(n_scans: int, dev):
     say(f"  kernel path: {n_scans / dt:.2f} scans/s ({dt:.3f} s), ATE RMSE "
         f"{ate:.4f} m (<= {ATE_GATE_M}), max |pose - JAX| "
         f"{ref_err.max():.4f} m (<= {POSE_GATE_M}), no host sync, "
-        f"launches {launches}")
+        f"launches {launches}; the warm-up's poses "
+        + ("repeat bit for bit" if repeat == 0 else
+           f"DIFFER by up to {repeat:.3e} (a fault: whole runs should "
+           "repeat bit for bit)"))
 
     tcfg = config.twin_config(cfg)
     lio.run_sequence(lio.init_state(tcfg, dev),
@@ -1062,7 +1157,7 @@ def run_main_path(n_scans: int, dev):
     say(f"  twin path: {n_scans / dt_t:.2f} scans/s ({dt_t:.3f} s), ATE "
         f"RMSE {ate_t:.4f} m, max |pose - kernel path| "
         f"{np.linalg.norm(kt[:, :3, 3] - kp[:, :3, 3], axis=1).max():.4f} m")
-    return launches, scene, kp, n_scans / dt
+    return launches, scene, out, n_scans / dt, repeat
 
 
 # --------------------------------------------------------------- phase 6
@@ -1081,10 +1176,10 @@ def run_fused_path(scene, n_scans: int, dev, bench_poses, bench_rate
     timed_run(cfg, batches, lut, dev)           # warm-up
     kernels.reset_launches()
     out, dt = timed_run(cfg, batches, lut, dev)
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     for name, count in launches.items():
-        want = 0 if name in ("gn_prep", "gn_iter", "plane_moments") \
-            else n_scans
+        want = 0 if name in ("gn_prep", "gn_iter", "plane_moments",
+                             "ekf_predict_history") else n_scans
         check(count == want,
               f"{name} launched {count} times in {n_scans} fused scans")
     kp = out.kiss_pose.double().cpu().numpy()
@@ -1130,52 +1225,58 @@ def reference_ate(path: str) -> float:
     raise ValueError(f"{path}: no JAX ATE RMSE in the header")
 
 
-def run_cli_path(scene, n_scans: int, dev) -> dict[str, int]:
-    """Phase 5: the flagship command's configuration on the bench scene;
-    returns each kernel's launches in the timed run."""
+def run_cli_path(scene, n_scans: int, dev, cfg, ref_path: str, tag: str,
+                 twins: bool = True) -> dict[str, int]:
+    """A run of the flagship command's configuration ``cfg`` (phases 5, 7a
+    and 7b) on the first scans of the bench scene that ``ref_path`` holds
+    (at most ``n_scans``), warmed up and timed with host syncs made errors
+    but the refresh loop's counted reads: K1 once a scan (none with the
+    associative predict), K5 once a GN iteration, no other kernel; ATE
+    RMSE within 0.005 m of the JAX run's and every pose within 0.02 m of
+    the JAX poses; then, with ``twins``, the same run with the twins.
+    Returns each kernel's launches in the timed run."""
     sensor, scans, scan_ts, gt_mid, imu = scene
-    cfg = config.cli_config(scans.shape[1], scans.shape[2])
+    ref = np.loadtxt(ref_path).reshape(-1, 3, 4)[:n_scans]
+    n = len(ref)
+    gt_mid = gt_mid[:n]
     lut = convert.lut_from_numpy(sensor.lut, dev)
-    batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
-                                imu.ts, device=dev)
+    batches = lio.scan_at(lio.build_batches(
+        cfg, scans, scan_ts, imu.lacc, imu.avel, imu.ts, device=dev),
+        slice(0, n))
     timed_run(cfg, batches, lut, dev)           # warm-up
     kernels.reset_launches()
     icp.reset_refresh_counts()
     out, dt = timed_run(cfg, batches, lut, dev)
-    launches, counts = dict(kernels.LAUNCHES), dict(icp.REFRESH_COUNTS)
+    launches, counts = launch_counts(), dict(icp.REFRESH_COUNTS)
     iters = int(out.aux.iterations.sum())
-    check(launches["ekf_predict"] == n_scans,
-          f"ekf_predict launched {launches['ekf_predict']} times in "
-          f"{n_scans} scans")
-    check(launches["gn_iter"] == iters,
-          f"gn_iter launched {launches['gn_iter']} times in {iters} GN "
-          "iterations")
-    for name in ("ekf_update", "gn_prep", "icp_loop", "gather_fused",
-                 "plane_moments"):
-        check(launches[name] == 0,
-              f"{name} launched {launches[name]} times on the CLI path")
-    check(counts["host_reads"] <= iters + n_scans,
-          f"{counts['host_reads']} host reads > {iters} iterations + "
-          f"{n_scans} scans")
+    want = {"ekf_predict": n if cfg.ekf.predict_batch == "cuda" else 0,
+            "gn_iter": iters}
+    check(all(c == want.get(k, 0) for k, c in launches.items()),
+          f"{tag}: launches {launches} in {n} scans, {iters} GN iterations")
+    check(counts["host_reads"] <= iters + n,
+          f"{tag}: {counts['host_reads']} host reads > {iters} iterations "
+          f"+ {n} scans")
     kp = out.kiss_pose.double().cpu().numpy()
-    check(bool(np.isfinite(kp).all()), "non-finite poses")
-    check(kp.shape == (n_scans, 4, 4), f"pose shape {kp.shape}")
-    check(bool(out.scan_valid.all()), "a scan was skipped")
+    check(bool(np.isfinite(kp).all()) and kp.shape == (n, 4, 4),
+          f"{tag}: poses {kp.shape}, finite {np.isfinite(kp).all()}")
+    check(bool(out.scan_valid.all()), f"{tag}: a scan was skipped")
     _, ate = metrics.calc_ate_rmse(kp, gt_mid)
-    jax_ate = reference_ate(CLI_REF_POSES)
+    jax_ate = reference_ate(ref_path)
     check(ate <= jax_ate + CLI_ATE_SLACK_M,
-          f"ATE RMSE {ate:.4f} m > JAX {jax_ate:.4f} + {CLI_ATE_SLACK_M} m")
-    ref = np.loadtxt(CLI_REF_POSES).reshape(-1, 3, 4)[:n_scans]
+          f"{tag}: ATE RMSE {ate:.4f} m > JAX {jax_ate:.4f} + "
+          f"{CLI_ATE_SLACK_M} m")
     ref_err = np.linalg.norm(kp[:, :3, 3] - ref[:, :, 3], axis=1)
     check(float(ref_err.max()) <= POSE_GATE_M,
-          f"pose vs JAX reference {ref_err.max():.4f} m > {POSE_GATE_M} m")
-    say(f"  kernel path: {n_scans / dt:.2f} scans/s ({dt:.3f} s), ATE RMSE "
-        f"{ate:.4f} m (JAX {jax_ate:.4f} + {CLI_ATE_SLACK_M}), max |pose - "
-        f"JAX| {ref_err.max():.4f} m (<= {POSE_GATE_M}), {iters} GN "
-        f"iterations, {counts['regathers']} re-gathers, "
-        f"{counts['host_reads']} host reads (<= {iters + n_scans}), no "
-        f"other host sync, launches {launches}")
-
+          f"{tag}: pose vs JAX reference {ref_err.max():.4f} m > "
+          f"{POSE_GATE_M} m")
+    say(f"  {tag} ({cfg.guess} guess, {cfg.ekf.predict_batch} predict, {n} "
+        f"scans): {n / dt:.2f} scans/s ({dt:.3f} s), ATE RMSE {ate:.4f} m "
+        f"(JAX {jax_ate:.4f} + {CLI_ATE_SLACK_M}), max |pose - JAX| "
+        f"{ref_err.max():.4f} m (<= {POSE_GATE_M}), {iters} GN iterations, "
+        f"{counts['regathers']} re-gathers, {counts['host_reads']} host "
+        f"reads (<= {iters + n}), no other host sync, launches {launches}")
+    if not twins:
+        return launches
     tcfg = config.twin_config(cfg)
     lio.run_sequence(lio.init_state(tcfg, dev),
                      lio.scan_at(batches, slice(0, 4)), lut,
@@ -1185,9 +1286,147 @@ def run_cli_path(scene, n_scans: int, dev) -> dict[str, int]:
     check(sum(kernels.LAUNCHES.values()) == 0, "twin path launched kernels")
     kt = out_t.kiss_pose.double().cpu().numpy()
     _, ate_t = metrics.calc_ate_rmse(kt, gt_mid)
-    say(f"  twin path: {n_scans / dt_t:.2f} scans/s ({dt_t:.3f} s), ATE "
+    say(f"  {tag} twin path: {n / dt_t:.2f} scans/s ({dt_t:.3f} s), ATE "
         f"RMSE {ate_t:.4f} m, max |pose - kernel path| "
         f"{np.linalg.norm(kt[:, :3, 3] - kp[:, :3, 3], axis=1).max():.4f} m")
+    return launches
+
+
+# --------------------------------------------------------------- phase 7
+
+def run_log_path(scene, n_scans: int, dev, bench_out, bench_rate,
+                 repeat: float) -> dict[str, int]:
+    """Phase 7c: ``bench_config()`` with ``log=True``: K1 writes the
+    history (once a scan, no twin step), the carried poses are phase 4's
+    (bit for bit, or within the difference phase 4's two runs showed),
+    one knot a scan with samples at its last valid slot holding the scan's
+    EKF pose, and the flattened log rises in time. Returns the launches."""
+    sensor, scans, scan_ts, gt_mid, imu = scene
+    cfg = config.bench_config()
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
+                                imu.ts, device=dev)
+    timed_run(cfg, batches, lut, dev, log=True)    # warm-up
+    twin_steps = [0]
+    step = esekf.process_imu
+
+    def counted(*a, **kw):
+        twin_steps[0] += 1
+        return step(*a, **kw)
+
+    kernels.reset_launches()
+    esekf.process_imu = counted
+    try:
+        out, dt = timed_run(cfg, batches, lut, dev, log=True)
+    finally:
+        esekf.process_imu = step
+    launches = launch_counts()
+    for name, count in launches.items():
+        want = 0 if name in ("gn_iter", "gather_fused", "plane_moments") \
+            else n_scans
+        check(count == want,
+              f"{name} launched {count} times in {n_scans} logged scans")
+    check(twin_steps[0] == 0, f"{twin_steps[0]} twin predict steps ran")
+    diff = max(float((getattr(out, f) - getattr(bench_out, f)).abs().max())
+               for f in ("kiss_pose", "ekf_pose"))
+    check(diff <= repeat, f"logged poses differ from phase 4's by {diff} "
+          f"(phase 4's two runs: {repeat})")
+    flog = out.flog
+    k = cfg.max_imu_per_scan
+    check(flog.pos.shape == (n_scans, k, 3)
+          and flog.cov_diag.shape == (n_scans, k, 18),
+          f"flog shapes {flog.pos.shape} {flog.cov_diag.shape}")
+    valid = batches.imu_valid
+    upd = flog.updated
+    has = valid.any(1)
+    last = valid.sum(1) - 1
+    rows = torch.arange(n_scans, device=dev)
+    check(torch.equal(upd.sum(1), has.long())
+          and bool(upd[rows[has], last[has]].all()),
+          "knots: not one a scan with samples at its last valid slot")
+    check(torch.equal(flog.pos[rows[has], last[has]],
+                      out.ekf_pose[has, :3, 3]),
+          "knot positions differ from the scans' EKF poses")
+    flat = lio.flatten_filter_log(flog, valid)
+    n_valid = int(valid.sum())
+    check(len(flat.ts) == n_valid and bool((np.diff(flat.ts) > 0).all()),
+          f"flattened log: {len(flat.ts)} entries of {n_valid}, ts rising "
+          f"{bool((np.diff(flat.ts) > 0).all())}")
+    say(f"  7c bench_config, log=True: {n_scans / dt:.2f} scans/s ({dt:.3f} "
+        f"s; phase 4 in this call {bench_rate:.2f}), poses "
+        + ("bit-equal to phase 4's" if diff == 0 else
+           f"within {diff:.3e} of phase 4's") + f", flog [{n_scans}, {k}], "
+        f"{int(upd.sum())} knots, {n_valid} flattened entries rising in "
+        f"time, no twin step, no host sync, launches {launches}")
+    return launches
+
+
+def run_filter_path(dev) -> dict[str, int]:
+    """Phase 7d: ``esekf.run_filter`` at ``ekf-bench sim``'s defaults (2 s
+    at 100 Hz, noise 0.4 / 0.4, seed 42, a pose update every 10 steps at
+    the noise-free run's poses) on the card with the op-chain update and
+    with K2, each against the CPU run at tests/test_esekf.py:364-376's
+    bars (pos, vel, quat, bias_gyr, grav 1e-5, cov rtol 1e-4 atol 1e-5;
+    bias_acc 3e-5 as in tests/test_torch_ekf_forms.py). Every run takes the
+    CPU's noise-free poses. Returns the K2 run's launches."""
+    n, every = 200, 10
+    idx = torch.arange(n)
+    corr = (idx % every == 0) & (idx > 0)
+
+    def run(device, update_form, gt=None):
+        ideal, noisy = sim.sim_imu_arrays(42, n, acc_noise_std=0.4,
+                                          gyr_noise_std=0.4, device=device)
+        cfg = config.EkfConfig(update_form=update_form)
+        if gt is None:
+            _, log_gt = esekf.run_filter(
+                esekf.init_state(cfg, device),
+                ideal, torch.zeros(n, dtype=torch.bool, device=device),
+                torch.eye(4, device=device).repeat(n, 1, 1), cfg=cfg)
+            return se3.make_pose(so3.quat_to_mat(log_gt.att_q), log_gt.pos)
+        return esekf.run_filter(esekf.init_state(cfg, device), noisy,
+                                corr.to(device), gt.to(device), cfg=cfg)
+
+    gt = run("cpu", "xla")
+    s_ref, log_ref = run("cpu", "xla", gt)
+    gt_dev = float((run(dev, "xla").cpu() - gt).abs().max())
+    launches = None
+    for form in ("xla", "cuda"):
+        run(dev, form, gt)                      # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.monotonic()
+        s_, log_ = run(dev, form, gt)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t
+        got = launch_counts()
+        want = {"ekf_update": n if form == "cuda" else 0}
+        check(all(c == want.get(k, 0) for k, c in got.items()),
+              f"7d update_form={form}: launches {got}")
+        errs = {f: float((getattr(log_, f).cpu() - getattr(log_ref, f))
+                         .abs().max())
+                for f in ("pos", "vel", "bias_gyr", "bias_acc", "grav")}
+        errs["quat"] = float(torch.minimum(
+            (log_.att_q.cpu() - log_ref.att_q).abs().amax(1),
+            (log_.att_q.cpu() + log_ref.att_q).abs().amax(1)).max())
+        check(max(v for f, v in errs.items() if f != "bias_acc") <= 1e-5
+              and errs["bias_acc"] <= 3e-5,
+              f"7d update_form={form} vs the CPU run: {errs}")
+        check(torch.allclose(log_.cov_diag.cpu(), log_ref.cov_diag,
+                             rtol=1e-4, atol=1e-5)
+              and torch.allclose(s_.cov.cpu(), s_ref.cov, rtol=1e-4,
+                                 atol=1e-5),
+              f"7d update_form={form}: covariance vs the CPU run")
+        check(torch.equal(log_.updated.cpu(), corr)
+              and torch.equal(log_.ts.cpu(), log_ref.ts),
+              f"7d update_form={form}: updated or ts differ")
+        say(f"  7d run_filter, update_form={form!r}: {n} steps in {dt:.3f} "
+            f"s, max |card - CPU| over the history {errs} (1e-5; bias_acc "
+            f"3e-5), cov rtol 1e-4 atol 1e-5, {int(corr.sum())} updates, "
+            f"launches {got}")
+        if form == "cuda":
+            launches = got
+    say(f"  7d noise-free run on the card (not gated): max |card - CPU| "
+        f"pose entry {gt_dev:.3e}")
     return launches
 
 
@@ -1232,17 +1471,31 @@ def main() -> int:
     phase3 = {"plane_moments": check_plane_moments(dev, results)}
 
     say("phase 4: bench path")
-    bench_launches, scene, bench_poses, bench_rate = run_main_path(
+    bench_launches, scene, bench_out, bench_rate, repeat = run_main_path(
         args.scans, dev)
+    h, w = scene[1].shape[1:]
     say("phase 5: CLI path")
-    cli_launches = run_cli_path(scene, args.scans, dev)
+    cli_launches = run_cli_path(scene, args.scans, dev,
+                                config.cli_config(h, w), CLI_REF_POSES, "5")
     say("phase 6: fused bench path")
     by_path = {"bench": bench_launches, "cli": cli_launches,
-               "bench_fused": run_fused_path(scene, args.scans, dev,
-                                             bench_poses, bench_rate)}
+               "bench_fused": run_fused_path(
+                   scene, args.scans, dev,
+                   bench_out.kiss_pose.double().cpu().numpy(), bench_rate)}
+    say("phase 7: the CLI's EKF-facing paths")
+    kiss = config.cli_config(h, w, guess="kiss")
+    by_path["cli_kiss"] = run_cli_path(scene, args.scans, dev, kiss,
+                                       KISS_REF_POSES, "7a")
+    by_path["cli_kiss_assoc"] = run_cli_path(
+        scene, args.scans, dev, dataclasses.replace(
+            kiss, ekf=dataclasses.replace(kiss.ekf, predict_batch="assoc")),
+        KISS_REF_POSES, "7b", twins=False)
+    by_path["bench_log"] = run_log_path(scene, args.scans, dev, bench_out,
+                                        bench_rate, repeat)
+    by_path["sim_filter"] = run_filter_path(dev)
 
     rows = []
-    for name in kernels.KERNELS:
+    for name in (*kernels.KERNELS, *kernels.VARIANT_LAUNCHES):
         paths = {p: n[name] for p, n in by_path.items() if n[name]}
         if name in phase3:
             # K7: no pipeline path calls it (the JAX package moved the fit

@@ -80,7 +80,8 @@ class EkfConfig:
     meas_att_std: float = 0.01
     joseph_form: bool = True
     # "unroll": step-by-step chain (K1's twin); "cuda": the whole block as
-    # one kernel (K1); "assoc" is not ported
+    # one kernel (K1); "assoc": the covariance chain as a log-depth scan of
+    # batched products (plain torch ops, the JAX package's off-TPU form)
     predict_batch: str = "assoc"
     # "xla": the op chain (K2's twin); "cuda": one kernel (K2)
     update_form: str = "xla"
@@ -127,29 +128,33 @@ def bench_config() -> PipelineConfig:
     )
 
 
-def cli_config(h: int, w: int) -> PipelineConfig:
-    """The flagship command's configuration, ``ptudes ekf-bench ouster
-    --use-imu-prediction`` with no other flags (``ptudes_tpu/cli/main.py``
-    ``:441-452``) for an ``h`` x ``w`` sensor: the library defaults (50
-    iterations, 27-neighbourhood, 20 points per voxel, candidate refresh
-    at half a voxel of drift, the exact chunked steady insert) with a
-    1-70 m range, the EKF guess, and the card's kernel forms where the
-    command picks the TPU's: the predict block (K1) and the ICP kernels;
-    the pose update keeps the command's op chain."""
+def cli_config(h: int, w: int, guess: str = "ekf") -> PipelineConfig:
+    """The flagship command's configuration, ``ptudes ekf-bench ouster``
+    (``ptudes_tpu/cli/main.py:428-452``) for an ``h`` x ``w`` sensor, with
+    the guess its flags choose: ``"ekf"`` for ``--use-imu-prediction``,
+    ``"gt"`` for ``--use-gt-guess``, ``"kiss"`` (constant velocity) for
+    neither. The library defaults (50 iterations, 27-neighbourhood, 20
+    points per voxel, candidate refresh at half a voxel of drift, the exact
+    chunked steady insert) with a 1-70 m range, and the card's kernel
+    forms where the command picks the TPU's: the predict block (K1) and the
+    ICP kernels; the pose update keeps the command's op chain."""
     return PipelineConfig(
         kiss=KissConfig(max_range=70.0, min_range=1.0, deskew=True,
                         loss="plane", icp_form="cuda"),
         cap=Capacity(max_points=h * w),
         ekf=EkfConfig(predict_batch="cuda"),
-        guess="ekf")
+        guess=guess)
 
 
 def twin_config(cfg: PipelineConfig) -> PipelineConfig:
-    """``cfg`` with every kernel replaced by its plain PyTorch twin."""
+    """``cfg`` with every kernel replaced by its plain PyTorch twin (the
+    ``"assoc"`` predict has no kernel and stays)."""
+    predict = "unroll" if cfg.ekf.predict_batch == "cuda" \
+        else cfg.ekf.predict_batch
     return dataclasses.replace(
         cfg,
         kiss=dataclasses.replace(cfg.kiss, icp_form="torch"),
-        ekf=dataclasses.replace(cfg.ekf, predict_batch="unroll",
+        ekf=dataclasses.replace(cfg.ekf, predict_batch=predict,
                                 update_form="xla"))
 
 
@@ -158,26 +163,25 @@ def check_supported(cfg: PipelineConfig) -> None:
     yet, and ``ValueError`` for unknown form names."""
     k, e = cfg.kiss, cfg.ekf
     todo = [
-        (cfg.guess != "ekf", f"guess={cfg.guess!r} (only 'ekf')"),
-        (cfg.deskew_mode != "ekf" or not k.deskew,
-         f"deskew_mode={cfg.deskew_mode!r}, deskew={k.deskew} "
-         "(only EKF-twist deskew)"),
         (cfg.col_decimation != 1, f"col_decimation={cfg.col_decimation}"),
         (cfg.map_frozen, "map_frozen=True"),
         (k.nn_mode != "cached", f"nn_mode={k.nn_mode!r}"),
         (k.nn_neighborhood not in (7, 27),
          f"nn_neighborhood={k.nn_neighborhood}"),
         (k.loss != "plane", f"loss={k.loss!r}"),
-        (e.predict_batch == "assoc", "predict_batch='assoc'"),
     ]
     for bad, what in todo:
         if bad:
             raise NotImplementedError(
                 f"the PyTorch port does not carry {what} yet; see ROADMAP.md")
+    if cfg.guess not in ("ekf", "kiss", "gt"):
+        raise ValueError(f"unknown guess {cfg.guess!r}")
+    if cfg.deskew_mode not in ("ekf", "kiss"):
+        raise ValueError(f"unknown deskew_mode {cfg.deskew_mode!r}")
     if cfg.steady_insert_mode not in (False, True, "cond"):
         raise ValueError(
             f"unknown steady_insert_mode {cfg.steady_insert_mode!r}")
-    if e.predict_batch not in ("unroll", "cuda"):
+    if e.predict_batch not in ("unroll", "cuda", "assoc"):
         raise ValueError(f"unknown predict_batch {e.predict_batch!r}")
     if e.update_form not in ("xla", "cuda"):
         raise ValueError(f"unknown update_form {e.update_form!r}")

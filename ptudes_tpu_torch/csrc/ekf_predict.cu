@@ -42,6 +42,16 @@
 //   at compile time (make_cov_table), so a step is the same straight-line
 //   code in every lane, with no test per term.
 // The nav's scalar expressions are the serial version's, in the same order.
+//
+// The filter history (the JAX package's log path runs the unrolled XLA
+// chain for it): with a non-null hist, each step's row is stored from the
+// values that carry the state: warp 0's pos/vel chain (the lane that holds
+// the step), its attitude record (rows' quaternions from r after the step,
+// by the lane of the step) and the diagonal pairs' sums as the covariance
+// threads write them to P. The kernel is built twice: the instance without
+// the history has a constant null hist, so its stores and tests fold away
+// (its code is the size it had before the history; a test at run time cost
+// ~1 us a launch at K = 12-16).
 #include "common.cuh"
 
 namespace {
@@ -58,6 +68,11 @@ constexpr int kTerms = 7;                    // most nonzeros in a row of F
 constexpr int kPad = 8;                      // a row's coefficients: 2 x 16 B
 constexpr int kScal = 22;
 constexpr unsigned kFull = 0xffffffffu;
+// a history row: ts, pos[3], vel[3], quat[4], bias_gyr[3], bias_acc[3],
+// grav[3], the covariance diagonal after the step[18]
+constexpr int kHist = 38;
+constexpr int kHistPos = 1, kHistVel = 4, kHistQuat = 7, kHistScal = 11,
+              kHistCov = 20;
 
 // scal input: pos[3] vel[3] quat[4] bg[3] ba[3] grav[3] ts init (22)
 // imu input:  [K, 8] rows lacc[3] avel[3] ts valid
@@ -195,9 +210,11 @@ __device__ __forceinline__ void attitude_chain(const Chain& ch,
   if (lane < 9) at.r[k_steps][e] = re;
 }
 
-// Steps [k0, k1) of the pos/vel chain.
+// Steps [k0, k1) of the pos/vel chain; with hist, the lane of step k
+// stores pos and vel after it.
 __device__ __forceinline__ void pos_vel_chain(const Step& st, int k0, int k1,
-                                              float* pos, float* vel) {
+                                              float* pos, float* vel,
+                                              float* hist, int lane) {
   for (int k = k0; k < k1; ++k) {
     const float dt = __shfl_sync(kFull, st.dt, k - k0);
     float acc_tot[3];
@@ -209,7 +226,29 @@ __device__ __forceinline__ void pos_vel_chain(const Step& st, int k0, int k1,
       pos[i] = pos[i] + vel[i] * dt + 0.5f * acc_tot[i] * dt * dt;
       vel[i] = vel[i] + acc_tot[i] * dt;
     }
+    if (hist != nullptr && lane == k - k0) {
+      float* row = hist + k * kHist;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        row[kHistPos + i] = pos[i];
+        row[kHistVel + i] = vel[i];
+      }
+    }
   }
+}
+
+// Step k's history row apart from pos, vel and the covariance: its
+// timestamp, the attitude after it, and the biases and gravity.
+__device__ __forceinline__ void history_row(const Smem& sm,
+                                            const Attitudes& at,
+                                            const Step& st, int k,
+                                            int k_steps, float* hist) {
+  if (k >= k_steps) return;
+  float* row = hist + k * kHist;
+  row[0] = st.t;
+  ptudes::mat_to_quat(at.r[k + 1], row + kHistQuat);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) row[kHistScal + i] = sm.scal[10 + i];
 }
 
 // Lane work of step k, at the attitude r before it: acc_tot_k and F's rows
@@ -279,21 +318,26 @@ __device__ __forceinline__ void nav_front(Smem& sm, Chain& ch,
     step_rows(hi, sm, at.r[lane + 32], ch.rd[lane + 32], lane + 32);
 }
 
-// Warp 0, beside the covariance: the pos/vel chain, then lane 0 writes
-// the state, the clock and the twist.
+// Warp 0, beside the covariance: the pos/vel chain and the history rows,
+// then lane 0 writes the state, the clock and the twist.
 __device__ __forceinline__ void nav_tail(const Smem& sm,
                                          const Attitudes& at,
                                          const Step& lo, const Step& hi,
                                          int k_steps, int lane, float ts,
-                                         float init, float* out) {
+                                         float init, float* out,
+                                         float* hist) {
   float pos[3], vel[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     pos[i] = sm.scal[i];
     vel[i] = sm.scal[3 + i];
   }
-  pos_vel_chain(lo, 0, min(k_steps, 32), pos, vel);
-  pos_vel_chain(hi, 32, k_steps, pos, vel);
+  pos_vel_chain(lo, 0, min(k_steps, 32), pos, vel, hist, lane);
+  pos_vel_chain(hi, 32, k_steps, pos, vel, hist, lane);
+  if (hist != nullptr) {
+    history_row(sm, at, lo, lane, k_steps, hist);
+    history_row(sm, at, hi, lane + 32, k_steps, hist);
+  }
   if (lane != 0) return;
   for (int i = 0; i < 3; ++i) {
     out[i] = pos[i];
@@ -406,9 +450,11 @@ struct CovThread {
 };
 
 // Warps 1-9: the K covariance steps; c is the thread's rank among them.
+// With hist, a diagonal pair's lead lane stores its entry after each step.
 __device__ __forceinline__ void cov_steps(Smem& sm, const CovThread& ct,
                                           int k_steps, int c,
-                                          float* cov_out, float acc_bias_std,
+                                          float* cov_out, float* hist,
+                                          float acc_bias_std,
                                           float gyr_bias_std, float acc_vrw,
                                           float gyr_arw) {
   const int n_steps = ptudes::skip(ptudes::kSkipCovSteps) ? 0 : k_steps;
@@ -433,9 +479,11 @@ __device__ __forceinline__ void cov_steps(Smem& sm, const CovThread& ct,
       if (off < ct.lanes) x += v;
     }
     if (ct.lead) {
-      if (ct.o == ct.n)
+      if (ct.o == ct.n) {
         x += noise(ct.o, sm.dt[k], acc_bias_std, gyr_bias_std, acc_vrw,
                    gyr_arw);
+        if (hist != nullptr) hist[k * kHist + kHistCov + ct.o] = x;
+      }
       pn[ct.o * S + ct.n] = x;
       pn[ct.n * S + ct.o] = x;
     }
@@ -446,13 +494,16 @@ __device__ __forceinline__ void cov_steps(Smem& sm, const CovThread& ct,
   for (int i = c; i < SS; i += kCovThreads) cov_out[i] = P[i];
 }
 
+template <bool kLog>
 __global__ void __launch_bounds__(kThreads)
 ekf_predict_kernel(const float* __restrict__ scal,
                    const float* __restrict__ imu,
                    const float* __restrict__ cov_in,
                    float* __restrict__ out, float* __restrict__ cov_out,
-                   int k_steps, float acc_bias_std, float gyr_bias_std,
-                   float acc_vrw, float gyr_arw) {
+                   float* __restrict__ hist_rows, int k_steps,
+                   float acc_bias_std, float gyr_bias_std, float acc_vrw,
+                   float gyr_arw) {
+  float* const hist = kLog ? hist_rows : nullptr;
   __shared__ Smem sm;
   __shared__ Chain ch;
   __shared__ Attitudes at;
@@ -480,24 +531,27 @@ ekf_predict_kernel(const float* __restrict__ scal,
   __syncthreads();
 
   if (nav_warp) {
-    nav_tail(sm, at, lo, hi, k_steps, lane, ts, init, out);
+    nav_tail(sm, at, lo, hi, k_steps, lane, ts, init, out, hist);
   } else {
-    cov_steps(sm, ct, k_steps, tid - 32, cov_out, acc_bias_std,
+    cov_steps(sm, ct, k_steps, tid - 32, cov_out, hist, acc_bias_std,
               gyr_bias_std, acc_vrw, gyr_arw);
   }
 }
 
 }  // namespace
 
+// hist: [k_steps, 38] rows of the filter history, or null for none.
 extern "C" int ptudes_ekf_predict(const float* scal, const float* imu,
                                   const float* cov_in, float* out,
-                                  float* cov_out, int k_steps,
+                                  float* cov_out, float* hist, int k_steps,
                                   float acc_bias_std, float gyr_bias_std,
                                   float acc_vrw, float gyr_arw,
                                   cudaStream_t stream) {
   if (k_steps < 0 || k_steps > kMaxSteps) return cudaErrorInvalidValue;
-  ekf_predict_kernel<<<1, kThreads, 0, stream>>>(
-      scal, imu, cov_in, out, cov_out, k_steps, acc_bias_std, gyr_bias_std,
-      acc_vrw, gyr_arw);
+  auto* kernel = hist != nullptr ? ekf_predict_kernel<true>
+                                 : ekf_predict_kernel<false>;
+  kernel<<<1, kThreads, 0, stream>>>(scal, imu, cov_in, out, cov_out, hist,
+                                     k_steps, acc_bias_std, gyr_bias_std,
+                                     acc_vrw, gyr_arw);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,9 @@ plain PyTorch twins run only where a wrapper is given CPU tensors.
 
 ``LAUNCHES`` counts, per kernel, the launches :func:`launch` made since the
 last :func:`reset_launches`; a run shows it went through the kernels by
-reading them.
+reading them. A launch of a kernel's variant also counts in
+``VARIANT_LAUNCHES`` (``ekf_predict_history``: K1 writing the filter
+history).
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ NVCC_TIMEOUT_S = 600
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types, the stream last
 _SIGNATURES = {
-    "ptudes_ekf_predict": [_P] * 5 + [_I] + [_F] * 4 + [_P],
+    "ptudes_ekf_predict": [_P] * 6 + [_I] + [_F] * 4 + [_P],
     "ptudes_ekf_update": [_P] * 4 + [_I, _P],
     "ptudes_gn_prep": [_P] * 9 + [_I, _I, _F, _P],
     "ptudes_icp_loop": [_P] * 8 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P],
@@ -49,14 +51,16 @@ _SIGNATURES = {
 KERNELS = ("ekf_predict", "ekf_update", "gn_prep", "icp_loop", "gn_iter",
            "gather_fused", "plane_moments")
 LAUNCHES = {name: 0 for name in KERNELS}
+VARIANT_LAUNCHES = {"ekf_predict_history": 0}
 
 _lib = None
 build_log = ""
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def find_nvcc() -> str:
@@ -170,8 +174,9 @@ def ptr(t: torch.Tensor, what: str, dtype: torch.dtype = torch.float32,
     return t.data_ptr()
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on the current stream; count it."""
+def launch(name: str, *args, variant: str | None = None) -> None:
+    """Launch kernel ``name`` on the current stream; count it, and its
+    ``variant`` too when given."""
     handle = lib()
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(handle, f"ptudes_{name}")(*args, stream)
@@ -179,6 +184,8 @@ def launch(name: str, *args) -> None:
         msg = handle.ptudes_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg}")
     LAUNCHES[name] += 1
+    if variant is not None:
+        VARIANT_LAUNCHES[variant] += 1
 
 
 def device_kind(t: torch.Tensor, what: str) -> str:

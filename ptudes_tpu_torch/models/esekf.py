@@ -5,7 +5,10 @@ block offsets 0, 3, 6, 9, 12, 15; IMU mechanization predict and the 6-DoF
 pose update. The plain forms here are the twins of the CUDA kernels in
 ``ops.cuda_ekf``: the ``"unroll"`` predict block is K1's, the ``"xla"`` pose
 update K2's. ``EkfConfig.predict_batch`` / ``update_form`` = ``"cuda"``
-route through the kernel wrappers instead.
+route through the kernel wrappers instead; ``predict_batch="assoc"`` runs
+the covariance chain as a log-depth scan of batched products (plain torch
+ops: the JAX package's form of it is XLA glue, no kernel). ``FilterLog``
+and :func:`run_filter` are the IMU-rate filter history and run.
 """
 from __future__ import annotations
 
@@ -41,6 +44,36 @@ class Imu(NamedTuple):
     ts: torch.Tensor
 
 
+class FilterLog(NamedTuple):
+    """Per-IMU-step filter history, stacked along a leading step axis."""
+    ts: torch.Tensor         # [T] the step's own timestamp
+    pos: torch.Tensor        # [T, 3]
+    vel: torch.Tensor        # [T, 3]
+    att_q: torch.Tensor      # [T, 4]
+    bias_gyr: torch.Tensor   # [T, 3]
+    bias_acc: torch.Tensor   # [T, 3]
+    grav: torch.Tensor       # [T, 3]
+    cov_diag: torch.Tensor   # [T, 18]
+    updated: torch.Tensor    # [T] bool: a pose update applied at this step
+
+
+def filter_log(states: list[EkfState], ts: torch.Tensor,
+               updated: torch.Tensor) -> FilterLog:
+    """The history of ``states`` (the state after each step)."""
+    def stack(xs, width):
+        return torch.stack(xs) if xs else ts.new_zeros((0, width))
+
+    return FilterLog(
+        ts=ts, pos=stack([x.pos for x in states], 3),
+        vel=stack([x.vel for x in states], 3),
+        att_q=stack([x.quat for x in states], 4),
+        bias_gyr=stack([x.bias_gyr for x in states], 3),
+        bias_acc=stack([x.bias_acc for x in states], 3),
+        grav=stack([x.grav for x in states], 3),
+        cov_diag=stack([torch.diagonal(x.cov) for x in states], STATE_RANK),
+        updated=updated)
+
+
 def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -57,14 +90,21 @@ def init_cov(cfg: EkfConfig, device) -> torch.Tensor:
     return torch.diag(d)
 
 
-def init_state(cfg: EkfConfig, device) -> EkfState:
-    """At rest at the origin, zero biases, gravity straight down."""
+def init_state(cfg: EkfConfig, device, init_grav=None, init_bacc=None,
+               init_bgyr=None) -> EkfState:
+    """At rest at the origin; biases zero and gravity straight down unless
+    a prior is given (a numpy array or a tensor, cast to f32 on
+    ``device``)."""
+    def prior(x, default):
+        return _f32(default if x is None else x, device)
+
     z3 = torch.zeros(3, dtype=torch.float32, device=device)
     return EkfState(
         pos=z3, vel=z3.clone(),
         quat=_f32([0.0, 0.0, 0.0, 1.0], device),
-        bias_gyr=z3.clone(), bias_acc=z3.clone(),
-        grav=_f32([0.0, 0.0, -GRAV], device),
+        bias_gyr=prior(init_bgyr, [0.0] * 3),
+        bias_acc=prior(init_bacc, [0.0] * 3),
+        grav=prior(init_grav, [0.0, 0.0, -GRAV]),
         cov=init_cov(cfg, device),
         imu_ts=torch.zeros((), dtype=torch.float32, device=device),
         initialized=torch.zeros((), dtype=torch.bool, device=device),
@@ -125,29 +165,114 @@ def process_imu(s: EkfState, imu: Imu, *, cfg: EkfConfig) -> EkfState:
 
 
 def process_imu_batch(s: EkfState, imus: Imu, valid: torch.Tensor, *,
-                      cfg: EkfConfig, want_twist: bool = False):
+                      cfg: EkfConfig, want_twist: bool = False,
+                      log: bool = False):
     """Predict over a padded block of K samples ([K, 3] / [K] / [K] valid).
 
     ``predict_batch="unroll"`` is the step-by-step chain (K1's twin);
-    ``"cuda"`` runs the block as one kernel (``ops.cuda_ekf``). With
-    ``want_twist`` also returns ``log(T_in^-1 T_out)``, the deskew twist.
+    ``"cuda"`` runs the block as one kernel (``ops.cuda_ekf``); ``"assoc"``
+    is :func:`_process_imu_batch_assoc`. Returns the state, then
+    ``log(T_in^-1 T_out)`` (the deskew twist) with ``want_twist``, then the
+    block's :class:`FilterLog` (one entry per padded slot) with ``log``.
+    Logging does not touch the carried state: it is the one ``log=False``
+    returns, bit for bit. Under ``"assoc"`` the history is the unrolled
+    chain's (as in the JAX package); under ``"cuda"`` the kernel writes it.
     """
     if cfg.predict_batch == "cuda":
         from ..ops import cuda_ekf
         return cuda_ekf.predict_block(s, imus, valid, cfg=cfg,
-                                      want_twist=want_twist)
-    if cfg.predict_batch != "unroll":
-        raise NotImplementedError(
-            f"predict_batch={cfg.predict_batch!r} is not ported; see "
-            "ROADMAP.md")
-    out = s
-    for k in range(valid.shape[0]):
-        nxt = process_imu(out, Imu(imus.lacc[k], imus.avel[k], imus.ts[k]),
-                          cfg=cfg)
-        out = masked_update(out, nxt, valid[k])
+                                      want_twist=want_twist, log=log)
+    if cfg.predict_batch not in ("unroll", "assoc"):
+        raise ValueError(f"unknown predict_batch {cfg.predict_batch!r}")
+    if cfg.predict_batch == "unroll" or log:
+        out, steps = s, []
+        for k in range(valid.shape[0]):
+            nxt = process_imu(out, Imu(imus.lacc[k], imus.avel[k],
+                                       imus.ts[k]), cfg=cfg)
+            out = masked_update(out, nxt, valid[k])
+            steps.append(out)
+    if cfg.predict_batch == "assoc":
+        out = _process_imu_batch_assoc(s, imus, valid, cfg=cfg)
+    res = (out,)
     if want_twist:
-        return out, se3.log_pose(se3.inv(pose_mat(s)) @ pose_mat(out))
-    return out
+        res += (se3.log_pose(se3.inv(pose_mat(s)) @ pose_mat(out)),)
+    if log:
+        res += (filter_log(steps, imus.ts, torch.zeros_like(valid)),)
+    return res if len(res) > 1 else out
+
+
+def suffix_products(f: torch.Tensor) -> torch.Tensor:
+    """G_k = F_{K-1} @ ... @ F_k for [K, n, n] ``f``: a log-depth scan, each
+    level one batched product of the later partial onto the earlier."""
+    g, d, k = f, 1, f.shape[0]
+    while d < k:
+        g = torch.cat([g[d:] @ g[:k - d], g[k - d:]])
+        d *= 2
+    return g
+
+
+def _process_imu_batch_assoc(s: EkfState, imus: Imu, valid: torch.Tensor,
+                             *, cfg: EkfConfig) -> EkfState:
+    """The predict block with a batched covariance: the nav chain runs step
+    by step, the covariance as
+
+        P' = G_1 P G_1^T + sum_k G_{k+1} W_k G_{k+1}^T,  G_k = F_K ... F_k,
+
+    symmetrised once (the unrolled chain does so every step; the two differ
+    by f32 reassociation). A padded or latching sample has dt = 0, so F = I
+    and W = 0."""
+    k = valid.shape[0]
+    if k == 0:
+        return s
+    pos, vel, quat, ts, init = (s.pos, s.vel, s.quat, s.imu_ts,
+                                s.initialized)
+    zero = torch.zeros_like(ts)
+    r_prev, acc_body, rot_d, dts = [], [], [], []
+    for i in range(k):
+        ok = valid[i]
+        t = imus.ts[i]
+        eff = ok & init
+        dt = torch.where(eff, torch.clamp(t - ts, min=0.0), zero)
+        r = so3.quat_to_mat(quat)
+        ab = imus.lacc[i] - s.bias_acc
+        rd = so3.exp_rotvec((imus.avel[i] - s.bias_gyr) * dt)
+        acc_total = r @ ab + s.grav
+        pos = pos + vel * dt + 0.5 * acc_total * dt * dt
+        vel = vel + acc_total * dt
+        quat = torch.where(eff, so3.quat_mul(quat, so3.mat_to_quat(rd)), quat)
+        # a fresh filter's first valid sample latches ts (no max)
+        ts = torch.where(ok, torch.where(init, torch.maximum(t, ts), t), ts)
+        init = init | ok
+        r_prev.append(r)
+        acc_body.append(ab)
+        rot_d.append(rd)
+        dts.append(dt)
+    r_prev, acc_body, rot_d, dt = (torch.stack(x) for x in (
+        r_prev, acc_body, rot_d, dts))
+
+    dev = s.cov.device
+    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
+    eye = torch.eye(STATE_RANK, dtype=torch.float32, device=dev)
+    dtm = dt[:, None, None]
+    fx = eye.repeat(k, 1, 1)
+    fx[:, POS:POS + 3, VEL:VEL + 3] = dtm * eye3
+    fx[:, VEL:VEL + 3, PHI:PHI + 3] = -dtm * (r_prev @ so3.hat(acc_body))
+    fx[:, VEL:VEL + 3, BA:BA + 3] = -dtm * r_prev
+    fx[:, PHI:PHI + 3, PHI:PHI + 3] = rot_d.transpose(1, 2)
+    fx[:, PHI:PHI + 3, BG:BG + 3] = -dtm * eye3
+    wdiag = torch.zeros((k, STATE_RANK), dtype=torch.float32, device=dev)
+    wdiag[:, VEL:VEL + 3] = ((dt * cfg.acc_bias_std) ** 2)[:, None]
+    wdiag[:, PHI:PHI + 3] = ((dt * cfg.gyr_bias_std) ** 2)[:, None]
+    wdiag[:, BA:BA + 3] = (dt * cfg.acc_vrw ** 2)[:, None]
+    wdiag[:, BG:BG + 3] = (dt * cfg.gyr_arw ** 2)[:, None]
+
+    gs = suffix_products(fx)
+    g1, gnext = gs[0], torch.cat([gs[1:], eye[None]])
+    cov = g1 @ s.cov @ g1.T + torch.einsum("kij,kj,klj->il", gnext, wdiag,
+                                           gnext)
+    cov = 0.5 * (cov + cov.T)
+    return EkfState(pos, vel, quat, s.bias_gyr, s.bias_acc, s.grav, cov, ts,
+                    init)
 
 
 def default_meas_cov(cfg: EkfConfig, device) -> torch.Tensor:
@@ -204,3 +329,22 @@ def process_pose(s: EkfState, pose_meas: torch.Tensor, *, cfg: EkfConfig,
         bias_acc=s.bias_acc + dx[BA:BA + 3],
         grav=s.grav + dx[G:G + 3], cov=cov,
         imu_ts=s.imu_ts, initialized=s.initialized)
+
+
+def run_filter(s: EkfState, imus: Imu, corr_mask: torch.Tensor,
+               corr_poses: torch.Tensor, *, cfg: EkfConfig,
+               meas_cov: torch.Tensor | None = None
+               ) -> tuple[EkfState, FilterLog]:
+    """The IMU-rate filter over stacked samples [T]: each step one predict,
+    then the pose update with ``corr_poses[t]`` where ``corr_mask[t]``
+    (``cfg.update_form`` picks the op chain or K2). Returns the last state
+    and the history."""
+    steps = []
+    for t in range(corr_mask.shape[0]):
+        s = process_imu(s, Imu(imus.lacc[t], imus.avel[t], imus.ts[t]),
+                        cfg=cfg)
+        corrected = process_pose(s, corr_poses[t], cfg=cfg,
+                                 meas_cov=meas_cov)
+        s = masked_update(s, corrected, corr_mask[t])
+        steps.append(s)
+    return s, filter_log(steps, imus.ts, corr_mask)

@@ -1,12 +1,13 @@
 """KISS-ICP-style odometry, grid path (``ptudes_tpu.models.kiss``).
 
-Per scan: deskew by the EKF twist -> range clip -> window pre-dedup on the
-range-image grid -> compaction -> two sort-based first-in-voxel passes
-(0.5 and 1.5 voxel) -> evenly decimated ICP source -> adaptive threshold
--> cached-candidate robust ICP -> model-deviation statistics -> map insert
-with fused eviction. Every stage has a static shape; the step synchronises
-with the host only in the ICP's candidate-refresh loop (one read per GN
-iteration, ``icp.read_flags``), never with frozen candidates.
+Per scan: deskew (by the EKF twist, or KISS's constant velocity) -> range
+clip -> window pre-dedup on the range-image grid -> compaction -> two
+sort-based first-in-voxel passes (0.5 and 1.5 voxel) -> evenly decimated
+ICP source -> adaptive threshold -> cached-candidate robust ICP ->
+model-deviation statistics -> map insert with fused eviction. Every stage
+has a static shape; the step synchronises with the host only in the ICP's
+candidate-refresh loop (one read per GN iteration, ``icp.read_flags``),
+never with frozen candidates.
 """
 from __future__ import annotations
 
@@ -51,6 +52,11 @@ def init_state(cfg: KissConfig, cap: Capacity, device) -> KissState:
         num_scans=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def prediction_model(state: KissState) -> torch.Tensor:
+    """Constant-velocity prediction: inv(T_{k-2}) @ T_{k-1}."""
+    return se3.inv(state.pose_prev) @ state.pose
+
+
 def get_adaptive_threshold(state: KissState, cfg: KissConfig
                            ) -> torch.Tensor:
     """sigma: the initial value until motion statistics exist, then
@@ -69,16 +75,27 @@ def model_error(dev_t: torch.Tensor, dev_r: torch.Tensor,
 
 def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
                   ts01: torch.Tensor, *, cfg: KissConfig, cap: Capacity,
-                  initial_guess: torch.Tensor, deskew_twist: torch.Tensor,
                   update_ok: torch.Tensor, grid_hw: tuple[int, int],
+                  initial_guess: torch.Tensor | None = None,
+                  use_guess: bool = False,
+                  deskew_twist: torch.Tensor | None = None,
                   insert_overflow: bool | str = True
                   ) -> tuple[KissState, torch.Tensor, KissAux]:
-    """Register one scan at the given guess; returns (new state, pose,
-    diagnostics). ``update_ok`` (scalar bool) gates all state mutation
-    through the map insert's inputs (empty mask, infinite eviction radius)
-    and selects on the small leaves."""
+    """Register one scan; returns (new state, pose, diagnostics). The
+    guess is ``initial_guess`` with ``use_guess``, else the constant-
+    velocity prediction from the last two poses. With ``cfg.deskew`` the
+    scan is deskewed by ``deskew_twist`` when given, else by the constant-
+    velocity twist (``deskew_scan``, off before two poses exist).
+    ``update_ok`` (scalar bool) gates all state mutation through the map
+    insert's inputs (empty mask, infinite eviction radius) and selects on
+    the small leaves."""
     vs = cfg.resolved_voxel_size
-    pts = deskew_ops.deskew_by_twist(pts, ts01 - 0.5, deskew_twist)
+    if cfg.deskew:
+        if deskew_twist is not None:
+            pts = deskew_ops.deskew_by_twist(pts, ts01 - 0.5, deskew_twist)
+        else:
+            pts = deskew_ops.deskew_scan(pts, ts01, state.pose_prev,
+                                         state.pose, state.num_scans >= 2)
     mask = voxel.range_clip_mask(pts, mask, cfg.min_range, cfg.max_range)
     pre = voxel.window_prededup_mask(pts, mask, vs * 0.5, grid_hw)
     pre_pts, pre_mask = voxel.compact(pts, pre, cap.max_frame)
@@ -90,7 +107,10 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
                                         decimate_overflow=True)
 
     sigma = get_adaptive_threshold(state, cfg)
-    guess = initial_guess.to(torch.float32)
+    if use_guess:
+        guess = initial_guess.to(torch.float32)
+    else:
+        guess = state.pose @ prediction_model(state)
     res = icp.register_frame_cached(
         source, source_mask, state.local_map, guess, 3.0 * sigma,
         sigma / 3.0, voxel_size=vs, max_probes=cap.max_probes,

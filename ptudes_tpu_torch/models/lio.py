@@ -2,13 +2,16 @@
 (``ptudes_tpu.models.lio``).
 
 Per scan: EKF predict over the scan's IMU block (which also yields the
-deskew twist) -> range image to points -> KISS registration at the EKF
-guess -> map insert -> EKF pose update -> one packed output row. Scans
-with no IMU samples are skipped as masked updates. The same entry points
-as the JAX package: :func:`init_state`, :func:`build_batches`,
-:func:`run_sequence`; here ``run_sequence`` is a Python loop over scans
-whose steps synchronise with the host only in the ICP's candidate-refresh
-loop (``nn_refresh_drift > 0``: one small read per GN iteration).
+deskew twist) -> range image to points -> KISS registration at the guess
+(the EKF prediction, ground truth or KISS's constant velocity) -> map
+insert -> EKF pose update -> one packed output row. Scans with no IMU
+samples are skipped as masked updates. The same entry points as the JAX
+package: :func:`init_state`, :func:`build_batches`, :func:`run_sequence`
+(with ``log=True`` also the IMU-rate filter history), and the host-side
+:func:`flatten_filter_log`; here ``run_sequence`` is a Python loop over
+scans whose steps synchronise with the host only in the ICP's
+candidate-refresh loop (``nn_refresh_drift > 0``: one small read per GN
+iteration).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 from ..config import PipelineConfig, check_supported
 from ..ops.projection import XyzLut, scan_to_points
 from . import esekf, kiss
-from .esekf import EkfState, Imu
+from .esekf import EkfState, FilterLog, Imu
 from .kiss import KissAux, KissState
 
 
@@ -49,6 +52,10 @@ class LioOut(NamedTuple):
     ekf_grav: torch.Tensor
     ekf_cov_diag: torch.Tensor
     aux: KissAux
+    # the IMU-rate filter history ([..., K] per scan, aligned with
+    # imu_valid) of a run with log=True, else None; each scan's pose update
+    # is folded into its last valid slot (updated=True there)
+    flog: FilterLog | None = None
 
 
 # packed per-scan output row (same layout as the JAX package)
@@ -100,36 +107,71 @@ def _device(device) -> torch.device:
     return dev
 
 
-def init_state(cfg: PipelineConfig, device="cuda") -> LioState:
-    """A fresh state on ``device``: the card unless the caller asks for
-    another."""
+def init_state(cfg: PipelineConfig, device="cuda", *, init_grav=None,
+               init_bacc=None, init_bgyr=None) -> LioState:
+    """A fresh state on ``device`` (the card unless the caller asks for
+    another), with the EKF's gravity and bias priors when given."""
     dev = _device(device)
     return LioState(kiss=kiss.init_state(cfg.kiss, cfg.cap, dev),
-                    ekf=esekf.init_state(cfg.ekf, dev))
+                    ekf=esekf.init_state(cfg.ekf, dev, init_grav=init_grav,
+                                         init_bacc=init_bacc,
+                                         init_bgyr=init_bgyr))
+
+
+def _fold_knot(flog: FilterLog, valid: torch.Tensor, has_imu: torch.Tensor,
+               ekf: EkfState) -> FilterLog:
+    """The scan's history with the post-update state in its last valid
+    slot (the knot, ``updated`` there); on the device, no host read."""
+    k = valid.shape[0]
+    last = valid.to(torch.int32).sum() - 1
+    knot = (torch.arange(k, device=valid.device) == last) & has_imu
+
+    def put(seq, post):
+        m = knot.reshape((k,) + (1,) * (seq.dim() - 1))
+        return torch.where(m, post[None], seq)
+
+    return FilterLog(
+        ts=flog.ts, pos=put(flog.pos, ekf.pos), vel=put(flog.vel, ekf.vel),
+        att_q=put(flog.att_q, ekf.quat),
+        bias_gyr=put(flog.bias_gyr, ekf.bias_gyr),
+        bias_acc=put(flog.bias_acc, ekf.bias_acc),
+        grav=put(flog.grav, ekf.grav),
+        cov_diag=put(flog.cov_diag, torch.diagonal(ekf.cov)), updated=knot)
 
 
 def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
-                   insert_overflow: bool | str = True):
+                   insert_overflow: bool | str = True, log: bool = False):
     """The scan step closure over the projection LUT: (state, one scan of
-    the batch) -> (state, packed output row). ``insert_overflow=True`` is
-    the bootstrap body (whole frame inserted as one chunk); the steady
-    body takes ``cfg.steady_insert_mode``: ``"cond"`` inserts every new
-    point in chunks of ``cap.max_new_per_scan``, ``False`` decimates them
-    to one such chunk."""
+    the batch) -> (state, packed output row), and with ``log`` the scan's
+    :class:`FilterLog` as a third element. ``insert_overflow=True`` is the
+    bootstrap body (whole frame inserted as one chunk); the steady body
+    takes ``cfg.steady_insert_mode``: ``"cond"`` inserts every new point in
+    chunks of ``cap.max_new_per_scan``, ``False`` decimates them to one
+    such chunk. The guess is ``cfg.guess``'s (the EKF prediction, the
+    batch's ``guess_pose``, or KISS's constant velocity); the deskew twist
+    is the EKF's over the sweep with ``deskew_mode="ekf"``."""
     check_supported(cfg)
     h, w = lut.direction.shape[:2]
+    need_twist = cfg.deskew_mode == "ekf" and cfg.kiss.deskew
 
-    def scan_step(state: LioState, batch: ScanBatch) -> tuple[LioState,
-                                                              torch.Tensor]:
-        ekf1, twist = esekf.process_imu_batch(
+    def scan_step(state: LioState, batch: ScanBatch):
+        res = esekf.process_imu_batch(
             state.ekf, batch.imu, batch.imu_valid, cfg=cfg.ekf,
-            want_twist=True)
+            want_twist=need_twist, log=log)
+        res = res if need_twist or log else (res,)
+        ekf1 = res[0]
+        twist = res[1] if need_twist else None
         pts, mask, ts01 = scan_to_points(lut, batch.range_m)
         has_imu = torch.any(batch.imu_valid)
+        guess = None                          # "kiss": constant velocity
+        if cfg.guess == "ekf":
+            guess = esekf.pose_mat(ekf1)
+        elif cfg.guess == "gt":
+            guess = batch.guess_pose
         kiss1, pose, aux = kiss.register_scan(
             state.kiss, pts, mask, ts01, cfg=cfg.kiss, cap=cfg.cap,
-            initial_guess=esekf.pose_mat(ekf1), deskew_twist=twist,
-            update_ok=has_imu, grid_hw=(h, w),
+            initial_guess=guess, use_guess=guess is not None,
+            deskew_twist=twist, update_ok=has_imu, grid_hw=(h, w),
             insert_overflow=insert_overflow)
         ekf2 = esekf.process_pose(ekf1, pose, cfg=cfg.ekf)
         ekf_out = esekf.masked_update(ekf1, ekf2, has_imu)
@@ -139,7 +181,11 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
             ekf_vel=ekf_out.vel, ekf_bias_gyr=ekf_out.bias_gyr,
             ekf_bias_acc=ekf_out.bias_acc, ekf_grav=ekf_out.grav,
             ekf_cov_diag=torch.diagonal(ekf_out.cov), aux=aux)
-        return LioState(kiss=kiss1, ekf=ekf_out), _pack_out(out)
+        new_state = LioState(kiss=kiss1, ekf=ekf_out)
+        if log:
+            return new_state, _pack_out(out), _fold_knot(
+                res[-1], batch.imu_valid, has_imu, ekf_out)
+        return new_state, _pack_out(out)
 
     return scan_step
 
@@ -156,20 +202,40 @@ def run_sequence(state: LioState, batches: ScanBatch, lut: XyzLut, *,
                  ) -> tuple[LioState, LioOut]:
     """Run every scan of ``batches``: the first ``cfg.bootstrap_scans``
     with the whole-frame insert, the rest with the steady insert
-    (``bootstrap_scans < 0``: all bootstrap)."""
-    if log:
-        raise NotImplementedError(
-            "run_sequence(log=True) (the IMU-rate filter log) is not ported; "
-            "see ROADMAP.md")
+    (``bootstrap_scans < 0``: all bootstrap). ``log=True`` also returns the
+    IMU-rate filter history in ``LioOut.flog``, shaped [N, K] (filter it
+    with ``batches.imu_valid``, :func:`flatten_filter_log`); the carried
+    states are the same as without."""
     n = batches.range_m.shape[0]
     k = n if cfg.bootstrap_scans < 0 else min(cfg.bootstrap_scans, n)
-    boot = make_scan_step(lut, cfg, insert_overflow=True)
-    steady = make_scan_step(lut, cfg, insert_overflow=cfg.steady_insert_mode)
-    rows = []
+    boot = make_scan_step(lut, cfg, insert_overflow=True, log=log)
+    steady = make_scan_step(lut, cfg, insert_overflow=cfg.steady_insert_mode,
+                            log=log)
+    rows, logs = [], []
     for i in range(n):
-        state, row = (boot if i < k else steady)(state, scan_at(batches, i))
+        state, row, *flog = (boot if i < k else steady)(state,
+                                                        scan_at(batches, i))
         rows.append(row)
-    return state, unpack_out(torch.stack(rows))
+        logs += flog
+    out = unpack_out(torch.stack(rows))
+    if log:
+        out = out._replace(flog=FilterLog(*map(torch.stack, zip(*logs))))
+    return state, out
+
+
+def flatten_filter_log(flog: FilterLog, imu_valid) -> FilterLog:
+    """Host-side: a [N, K] history from ``run_sequence(log=True)`` as
+    numpy, flattened to its valid IMU-rate entries [T]."""
+    def np_(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+
+    def flat(x):
+        x = np_(x)
+        return x.reshape((-1,) + x.shape[2:])[v]
+
+    v = np_(imu_valid).reshape(-1)
+    return FilterLog(*map(flat, flog))
 
 
 def time_origin(scan_ts, imu_ts) -> float:

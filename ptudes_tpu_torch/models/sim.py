@@ -1,9 +1,11 @@
-"""Synthetic lidar + IMU data, numpy only (a copy of the numpy subset of
-``ptudes_tpu.models.sim``): the analytic raycast world, the sensor LUT,
+"""Synthetic lidar + IMU data, made with numpy (a copy of the numpy subset
+of ``ptudes_tpu.models.sim``): the analytic raycast world, the sensor LUT,
 range-image rendering with a true rotosweep, the speed-ramped circle
-trajectory and its exact IMU. Everything returns numpy, so the card's
-machine (which has no JAX) can make the same scenes as the JAX package;
-``utils.convert.lut_from_numpy`` moves a sensor's LUT to a device.
+trajectory and its exact IMU, and the seeded IMU streams of ``ekf-bench
+sim`` (:func:`sim_imu_arrays`, the only one that returns tensors). The
+rest returns numpy, so the card's machine (which has no JAX) can make the
+same scenes as the JAX package; ``utils.convert.lut_from_numpy`` moves a
+sensor's LUT to a device.
 """
 from __future__ import annotations
 
@@ -12,9 +14,11 @@ import tempfile
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from .. import GRAV
 from ..ops.projection import XyzLut, make_xyz_lut_np
+from .esekf import Imu
 
 
 class SimWorld(NamedTuple):
@@ -36,6 +40,46 @@ class SimImu(NamedTuple):
     lacc: np.ndarray  # [M, 3] f32
     avel: np.ndarray  # [M, 3] f32
     ts: np.ndarray    # [M] f32
+
+
+def sim_imu_arrays(seed: int, n: int, *, freq: float = 100.0,
+                   acc_mean: np.ndarray | None = None, acc_std: float = 1.5,
+                   acc_noise_std: float = 0.4,
+                   acc_bias: np.ndarray | None = None,
+                   gyr_mean: np.ndarray | None = None, gyr_std: float = 1.0,
+                   gyr_noise_std: float = 0.2,
+                   gyr_bias: np.ndarray | None = None,
+                   gravity: np.ndarray | None = None,
+                   device="cuda") -> tuple[Imu, Imu]:
+    """Piecewise-constant motion resampled every 10 ticks, plus white noise
+    and fixed biases: the (ideal, noisy) IMU streams of length n as f32
+    tensors on ``device`` (the card unless the caller asks for another),
+    from the same ``default_rng(seed)`` draws as the JAX package's."""
+    rng = np.random.default_rng(seed)
+    acc_mean = np.zeros(3) if acc_mean is None else acc_mean
+    gyr_mean = np.zeros(3) if gyr_mean is None else gyr_mean
+    acc_bias = np.array([0.9, -0.2, -0.4]) if acc_bias is None else acc_bias
+    gyr_bias = np.array([0.01, 0.03, -0.012]) if gyr_bias is None \
+        else gyr_bias
+    gravity = GRAV * np.array([0.0, 0.0, -1.0]) if gravity is None \
+        else gravity
+
+    nseg = (n + 9) // 10
+    acc_seg = rng.normal(0.0, acc_std, (nseg, 3)) + acc_mean - gravity
+    gyr_seg = rng.normal(0.0, gyr_std, (nseg, 3)) + gyr_mean
+    acc = np.repeat(acc_seg, 10, axis=0)[:n]
+    gyr = np.repeat(gyr_seg, 10, axis=0)[:n]
+    acc_noise = rng.normal(0.0, acc_noise_std, (n, 3))
+    gyr_noise = rng.normal(0.0, gyr_noise_std, (n, 3))
+    ts = np.arange(n) * (1.0 / freq)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    ideal = Imu(lacc=f32(acc), avel=f32(gyr), ts=f32(ts))
+    noisy = Imu(lacc=f32(acc + acc_noise + acc_bias),
+                avel=f32(gyr + gyr_noise + gyr_bias), ts=f32(ts))
+    return ideal, noisy
 
 
 def make_sim_world(seed: int = 0, extent: float = 40.0, n_boxes: int = 14,

@@ -1,8 +1,11 @@
 """Motion compensation by a twist (``ptudes_tpu.ops.deskew``): every
-point moves by exp(s_i * twist), expanded in closed form per point."""
+point moves by exp(s_i * twist), expanded in closed form per point; the
+KISS constant-velocity deskew takes its twist from the last two poses."""
 from __future__ import annotations
 
 import torch
+
+from ..geom import se3
 
 _EPS = 1e-8
 
@@ -36,3 +39,14 @@ def deskew_by_twist(pts: torch.Tensor, scales: torch.Tensor,
     wwxv = torch.linalg.cross(w, wxv)
     t = scales[:, None] * v + bb[:, None] * wxv + cc[:, None] * wwxv
     return rotated + t
+
+
+def deskew_scan(pts: torch.Tensor, col_ts01: torch.Tensor,
+                pose_prev2: torch.Tensor, pose_prev1: torch.Tensor,
+                enabled: torch.Tensor) -> torch.Tensor:
+    """KISS constant-velocity deskew: the twist log(T_{k-2}^-1 T_{k-1}),
+    about the mid-scan anchor; ``enabled`` (a device bool, false before two
+    poses exist) zeroes it by ``torch.where``, without a host branch."""
+    twist = se3.log_pose(se3.inv(pose_prev2) @ pose_prev1)
+    twist = torch.where(enabled, twist, torch.zeros_like(twist))
+    return deskew_by_twist(pts, col_ts01 - 0.5, twist)

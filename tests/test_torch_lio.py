@@ -225,9 +225,9 @@ def test_cuda_device_is_not_a_fallback():
 
 
 @pytest.mark.parametrize("change", [
-    dict(guess="kiss"), dict(deskew_mode="kiss"), dict(col_decimation=2),
-    dict(map_frozen=True), dict(kiss=dict(nn_mode="every")),
-    dict(ekf=dict(predict_batch="assoc")),
+    dict(col_decimation=2), dict(map_frozen=True),
+    dict(kiss=dict(nn_mode="every")), dict(kiss=dict(loss="point")),
+    dict(kiss=dict(nn_neighborhood=4)),
 ])
 def test_unported_options_raise(run, change):
     cfg = port_config()
@@ -264,22 +264,28 @@ def test_bench_config_matches_bench_py():
     assert a == b
 
 
-def test_cli_config_matches_the_cli():
+@pytest.mark.parametrize("flag,guess", [
+    ("--use-imu-prediction", "ekf"), ("--use-gt-guess", "gt"), (None, "kiss")])
+def test_cli_config_matches_the_cli(flag, guess):
     """The port's cli_config carries the configuration that ``ekf-bench
-    ouster --use-imu-prediction`` builds (ptudes_tpu/cli/main.py:441-452,
-    rebuilt here with no other flags); only the JAX-only knobs are dropped
-    and the kernel forms renamed (the command's TPU branch picks the
-    predict kernel; the ICP kernels are the refresh path's)."""
+    ouster`` builds with each guess flag and no other
+    (ptudes_tpu/cli/main.py:428-452, rebuilt here); only the JAX-only knobs
+    are dropped and the kernel forms renamed (the command's TPU branch picks
+    the predict kernel; the ICP kernels are the refresh path's)."""
     from ptudes_tpu.config import Capacity, EkfConfig, KissConfig, \
         PipelineConfig
     h, w = 128, 1024
+    use_imu_prediction, use_gt_guess = (flag == "--use-imu-prediction",
+                                        flag == "--use-gt-guess")
     j = PipelineConfig(
         kiss=KissConfig(max_range=70.0, min_range=1.0, deskew=True,
                         loss="plane", voxel_size=None),
         cap=Capacity(max_points=h * w),
         ekf=EkfConfig(predict_batch="pallas"),
-        guess="ekf", map_frozen=False)
-    p = config.cli_config(h, w)
+        guess=("ekf" if use_imu_prediction
+               else "gt" if use_gt_guess else "kiss"), map_frozen=False)
+    assert j.guess == guess
+    p = config.cli_config(h, w, guess=guess)
     forms = {"icp_form": ("cuda", None), "predict_batch": ("cuda", "pallas"),
              "update_form": ("xla", "xla")}
     for part in ("kiss", "cap", "ekf"):
@@ -302,9 +308,3 @@ def test_cli_config_matches_the_cli():
     assert (twin.kiss.icp_form, twin.ekf.predict_batch,
             twin.ekf.update_form) == ("torch", "unroll", "xla")
 
-
-def test_filter_log_is_not_ported(run):
-    cfg = port_config()
-    with pytest.raises(NotImplementedError):
-        lio.run_sequence(lio.init_state(cfg, "cpu"), run["batches"],
-                         run["lut"], cfg=cfg, log=True)

@@ -92,7 +92,7 @@ def main() -> None:
             for v, fn in fns.items():
                 def k1(fn=fn, imu=imu, k=k):
                     if fn(scal.data_ptr(), imu.data_ptr(), cov.data_ptr(),
-                          out.data_ptr(), cov_out.data_ptr(), k,
+                          out.data_ptr(), cov_out.data_ptr(), None, k,
                           cfg.acc_bias_std, cfg.gyr_bias_std, cfg.acc_vrw,
                           cfg.gyr_arw, stream) != 0:
                         raise SystemExit("ekf_predict launch failed")

@@ -9,7 +9,7 @@ and writes one row of 12 floats (the 3 x 4 top of each pose, row-major) per
 scan, after a header with the configuration and the JAX ATE RMSE.
 
     JAX_PLATFORMS=cpu python tools/make_torch_reference.py \
-        [--config bench|bench_fused|cli] [PATH]
+        [--config bench|bench_fused|cli|cli_kiss] [PATH]
 
 ``--config bench`` (default): ``bench.py:bench_config``, written to
 ``tests/data/bench_jax_poses.txt``. ``--config bench_fused``: the same with
@@ -18,7 +18,16 @@ kernels in interpret mode (``gn_backend="fused"``), written to
 ``tests/data/bench_fused_jax_poses.txt``. ``--config cli``: the flagship
 command's configuration (``ptudes_tpu/cli/main.py:441-452`` with
 ``--use-imu-prediction``; the port's ``config.cli_config(128, 1024)``),
-written to ``tests/data/cli_jax_poses.txt``.
+written to ``tests/data/cli_jax_poses.txt``. ``--config cli_kiss``: the same
+command with no guess flag (``guess="kiss"``, ``cli/main.py:428-429``) and
+the predict form it picks off the TPU, ``predict_batch="assoc"``
+(``:448-449``), written to ``tests/data/cli_kiss_jax_poses.txt``; the
+port's ``config.cli_config(128, 1024, guess="kiss")``. It runs the first
+``KISS_SCANS`` scans of the 50-scan scene only: from scan 15 on, the JAX
+run with the constant-velocity guess leaves the track on this scene (0.17
+m off at scan 16, non-finite poses from scan 25; as with ``bench.py``'s
+configuration or KISS's own deskew, while the EKF and ground-truth guesses
+track).
 """
 from __future__ import annotations
 
@@ -32,10 +41,13 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+KISS_SCANS = 15   # scans of the cli_kiss reference (see above)
 
 
 def jax_config(which: str):
-    """The JAX configuration of ``which`` with the kernels' XLA forms."""
+    """The JAX configuration of ``which`` with the kernels' XLA forms
+    (``cli_kiss``: the associative-scan predict the command runs off the
+    TPU)."""
     from ptudes_tpu.config import Capacity, KissConfig, PipelineConfig
 
     if which in ("bench", "bench_fused"):
@@ -46,11 +58,13 @@ def jax_config(which: str):
         base = PipelineConfig(
             kiss=KissConfig(max_range=70.0, min_range=1.0, deskew=True,
                             loss="plane"),
-            cap=Capacity(max_points=h * w), guess="ekf")
+            cap=Capacity(max_points=h * w),
+            guess="kiss" if which == "cli_kiss" else "ekf")
     return dataclasses.replace(
         base,
-        ekf=dataclasses.replace(base.ekf, predict_batch="unroll",
-                                update_form="xla"),
+        ekf=dataclasses.replace(
+            base.ekf, update_form="xla",
+            predict_batch="assoc" if which == "cli_kiss" else "unroll"),
         kiss=dataclasses.replace(
             base.kiss, **(dict(gn_backend="fused", fused_gather=True)
                           if which == "bench_fused" else
@@ -72,9 +86,15 @@ def main(which: str, path: str) -> None:
     where = {"bench": "bench.py:bench_config",
              "bench_fused": "bench.py:bench_config with fused_gather=True",
              "cli": "ptudes_tpu/cli/main.py:441-452 (ekf-bench ouster "
-                    "--use-imu-prediction, 128x1024)"}[which]
+                    "--use-imu-prediction, 128x1024)",
+             "cli_kiss": "ptudes_tpu/cli/main.py:428-452 (ekf-bench ouster "
+                         "with no guess flag, 128x1024)"}[which]
     batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
                                 imu.ts)
+    if which == "cli_kiss":
+        batches = jax.tree.map(lambda x: x[:KISS_SCANS], batches)
+        gt_mid = gt_mid[:KISS_SCANS]
+        where += f", the first {KISS_SCANS} scans"
     lut = XyzLut(jnp.asarray(sensor.lut.direction),
                  jnp.asarray(sensor.lut.offset))
     t0 = time.monotonic()
@@ -85,7 +105,7 @@ def main(which: str, path: str) -> None:
         "JAX reference poses of the bench scene (ptudes_tpu_torch.models."
         "sim.bench_scene: 50 scans, 128x1024, bench.py:make_data)",
         f"ptudes_tpu lio.run_sequence on {jax.devices()[0].platform} at "
-        f"{where} with predict_batch='unroll', "
+        f"{where} with predict_batch={cfg.ekf.predict_batch!r}, "
         f"update_form='xla', gn_backend={cfg.kiss.gn_backend!r}, "
         "scan_unroll=1",
         f"kiss={cfg.kiss}", f"cap={cfg.cap}", f"ekf={cfg.ekf}",
@@ -102,7 +122,8 @@ def main(which: str, path: str) -> None:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("bench", "bench_fused", "cli"),
+    ap.add_argument("--config",
+                    choices=("bench", "bench_fused", "cli", "cli_kiss"),
                     default="bench")
     ap.add_argument("path", nargs="?", help="output file (default "
                     "tests/data/<config>_jax_poses.txt)")

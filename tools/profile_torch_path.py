@@ -2,13 +2,19 @@
 card: ``torch.profiler`` over steady scans of the bench scene at
 ``bench_config()`` (``--config bench``), at the same with
 ``fused_gather=True`` (``--config bench_fused``: K6, the one kernel
-``gather_fused``, in place of the gather and K3) or at the flagship
-command's ``cli_config(128, 1024)`` (``--config cli``). Several
-configurations profile one after another in one process, so their numbers
-compare on one card and host.
+``gather_fused``, in place of the gather and K3), at the flagship
+command's ``cli_config(128, 1024)`` (``--config cli``), at the command
+with no guess flag, ``cli_config(128, 1024, guess="kiss")`` (``cli_kiss``;
+``cli_kiss_assoc`` with the associative predict, ``stat --kiss-run``'s EKF)
+or at ``bench_config()`` with the filter log (``bench_log``: K1 writing
+the history). Several configurations profile one after another in one
+process, so their numbers compare on one card and host. The ``cli_kiss``
+windows end with the scans ``tests/data/cli_kiss_jax_poses.txt`` holds (15:
+the JAX run with that guess leaves the track after them), so they hold at
+most 8 scans.
 
-    python3 tools/profile_torch_path.py [--config bench|bench_fused|cli
-        [...]] [--scans 20] [--json PATH]
+    python3 tools/profile_torch_path.py [--config bench|bench_fused|cli|
+        cli_kiss|cli_kiss_assoc|bench_log [...]] [--scans 20] [--json PATH]
 
 Prints per configuration (and with ``--json`` also writes as JSON, a list
 with one summary per configuration): wall time per scan
@@ -33,6 +39,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,6 +67,12 @@ def make_config(name: str, h: int, w: int):
 
     if name == "cli":
         return config.cli_config(h, w)
+    if name.startswith("cli_kiss"):
+        cfg = config.cli_config(h, w, guess="kiss")
+        if name == "cli_kiss_assoc":
+            cfg = dataclasses.replace(cfg, ekf=dataclasses.replace(
+                cfg.ekf, predict_batch="assoc"))
+        return cfg
     cfg = config.bench_config()
     if name == "bench_fused":
         cfg = dataclasses.replace(cfg, kiss=dataclasses.replace(
@@ -69,10 +82,14 @@ def make_config(name: str, h: int, w: int):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("bench", "bench_fused", "cli"),
+    ap.add_argument("--config", choices=("bench", "bench_fused", "cli",
+                                          "cli_kiss", "cli_kiss_assoc",
+                                          "bench_log"),
                     nargs="+", default=["bench"],
                     help="bench_config(), the same with fused_gather=True, "
-                         "or cli_config(128, 1024); several run in turn")
+                         "cli_config(128, 1024), the same with guess='kiss' "
+                         "(and the assoc predict), or bench_config() with "
+                         "log=True; several run in turn")
     ap.add_argument("--scans", type=int, default=20,
                     help="steady scans in the profiled window")
     ap.add_argument("--json", help="also write the summaries to this file")
@@ -106,7 +123,6 @@ def wrapper_calls(dev, reps: int = 20) -> dict:
     lost."""
     import dataclasses
 
-    import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
@@ -182,25 +198,32 @@ def profile_config(which: str, scene, n_scans: int, card: str) -> dict:
     lut = convert.lut_from_numpy(sensor.lut, dev)
     batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
                                 imu.ts, device=dev)
-    boot = lio.make_scan_step(lut, cfg, insert_overflow=True)
+    log = which == "bench_log"
+    boot = lio.make_scan_step(lut, cfg, insert_overflow=True, log=log)
     steady = lio.make_scan_step(lut, cfg,
-                                insert_overflow=cfg.steady_insert_mode)
+                                insert_overflow=cfg.steady_insert_mode,
+                                log=log)
     n0 = cfg.bootstrap_scans
+    end = len(scans)
+    if which.startswith("cli_kiss"):
+        end = len(np.loadtxt(os.path.join(ROOT, "tests", "data",
+                                          "cli_kiss_jax_poses.txt")))
+    n_scans = min(n_scans, end - (n0 + 5))
     window = range(n0 + 5, n0 + 5 + n_scans)
-    assert window[-1] < len(scans), "not enough scans for the window"
+    assert n_scans > 0, "not enough scans for the window"
 
     state = lio.init_state(cfg, dev)
     for i in range(n0):
-        state, _ = boot(state, lio.scan_at(batches, i))
+        state, *_ = boot(state, lio.scan_at(batches, i))
     for i in range(n0, window[0]):             # warm-up steady scans
-        state, _ = steady(state, lio.scan_at(batches, i))
+        state, *_ = steady(state, lio.scan_at(batches, i))
     torch.cuda.synchronize()
 
     icp.reset_refresh_counts()
     t0 = time.monotonic()
     s_unprof = state
     for i in window:
-        s_unprof, _ = steady(s_unprof, lio.scan_at(batches, i))
+        s_unprof, *_ = steady(s_unprof, lio.scan_at(batches, i))
     torch.cuda.synchronize()
     wall_plain = (time.monotonic() - t0) / n_scans
     refresh = {k: v / n_scans for k, v in icp.REFRESH_COUNTS.items()}
@@ -210,7 +233,7 @@ def profile_config(which: str, scene, n_scans: int, card: str) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for i in window:
-            state, row = steady(state, lio.scan_at(batches, i))
+            state, row, *_ = steady(state, lio.scan_at(batches, i))
             rows.append(row)
         torch.cuda.synchronize()
         wall_prof = (time.monotonic() - t0) / n_scans
