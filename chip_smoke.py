@@ -58,7 +58,32 @@ Phases, each reported on its own line:
      for bit, the log [50, 12] with one knot a scan at its last valid slot
      holding the scan's EKF position, its flattened entries rising in time;
      (d) ``esekf.run_filter`` at ``ekf-bench sim``'s defaults with the op
-     chain update and with K2 (once a step), against the CPU run.
+     chain update and with K2 (once a step), against the CPU run (phases 5,
+     6, 7a, 7b and 8 also profile the last scans of their warm-up runs:
+     device busy and device operations a scan);
+  8. the pipeline's remaining options, each warmed up (its last scans
+     profiled: device busy and device operations a scan) and timed with
+     host syncs made errors (but the counted reads of ``icp.read_flags``),
+     its kernels' launches checked, every pose within 0.02 m of the JAX
+     run in ``tests/data/<name>_jax_poses.txt``: (a) ``cli_config(128,
+     1024)`` with ``loss="point"`` (K1, K5 with point rows; ATE within
+     0.005 m of JAX's), (b) ``bench_config()`` with ``loss="point"``
+     through the gather, K3's point mode and K4, and with
+     ``fused_gather=True`` through K6 and K4 (their pose difference
+     printed), (c) ``bench_config()`` mapping scans 0-24, a checkpoint
+     saved and loaded (``utils.checkpoint``), scans 25-49 with
+     ``map_frozen=True`` (the map after them bit-equal to the loaded one;
+     the mapping scans and an unfrozen resume bit-equal to phase 4's run),
+     (d) ``col_decimation=2``, (e) ``nn_neighborhood=4`` with
+     ``fused_gather=True`` (the gather and K3, K6 never), (f)
+     ``kiss.register_scan`` alone at ``KissConfig()``'s defaults with
+     ``nn_mode="every"``, ``loss="point"`` and no grid (no kernel; the
+     first 13 scans, which the JAX run tracks); one JSON line of the runs'
+     summaries with the card's name and power limit.
+Phase 3 also holds K3's point mode (``loss="point"``: the instance without
+the fit) bit for bit against its twin, K4 on its point rows and K5 on
+point rows at the CLI shapes; phase 2 prints the SASS instruction count of
+both K3 instances (``cuobjdump``).
 Every kernel's line in the JSON summary carries its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the H100 SXM data
@@ -74,8 +99,11 @@ import argparse
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -83,18 +111,15 @@ import torch
 
 from ptudes_tpu_torch import config, kernels
 from ptudes_tpu_torch.geom import se3, so3
-from ptudes_tpu_torch.models import esekf, lio, sim
+from ptudes_tpu_torch.models import esekf, kiss, lio, sim
 from ptudes_tpu_torch.ops import (cuda_ekf, cuda_gather, cuda_gn, cuda_icp,
                                   hashmap, icp)
 from ptudes_tpu_torch.ops import voxel
-from ptudes_tpu_torch.utils import convert, metrics
+from ptudes_tpu_torch.ops.projection import scan_to_points
+from ptudes_tpu_torch.utils import checkpoint, convert, metrics
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REF_POSES = os.path.join(HERE, "tests", "data", "bench_jax_poses.txt")
-CLI_REF_POSES = os.path.join(HERE, "tests", "data", "cli_jax_poses.txt")
-FUSED_REF_POSES = os.path.join(HERE, "tests", "data",
-                               "bench_fused_jax_poses.txt")
-KISS_REF_POSES = os.path.join(HERE, "tests", "data", "cli_kiss_jax_poses.txt")
 ATE_GATE_M = 0.02    # bench.py's absolute ATE gate
 CLI_ATE_SLACK_M = 0.005  # the CLI path's ATE may exceed the JAX run's by
 POSE_GATE_M = 0.02   # per-pose parity with the JAX reference poses
@@ -173,6 +198,28 @@ def kernel_us(fn, name: str, reps: int = 20) -> float:
     if len(ds) < reps:
         say(f"  {name}: the profiler kept {len(ds)} of {reps} kernel records")
     return float(np.mean(ds))
+
+
+def sass_sizes(lib_path: str, kernel: str) -> dict[str, int] | None:
+    """SASS instructions of each instance of ``kernel`` in the built
+    library (``cuobjdump -sass``), by mangled name; None without
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(kernels.find_nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    sizes, cur = {}, None
+    for line in out.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            cur = head.group(1) if kernel in head.group(1) else None
+            if cur:
+                sizes[cur] = 0
+        elif cur and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+            sizes[cur] += 1
+    return sizes
 
 
 def check(ok: bool, what: str) -> None:
@@ -511,6 +558,28 @@ def check_icp(dev, results):
     say(f"  gn_prep on the device: {results['gn_prep']['device_us']:.2f} us "
         f"(bound {results['gn_prep']['bound_ms'] * 1e3:.3f} us)")
 
+    # K3's point mode (loss="point"): the instance without the fit
+    pk_pt, err_pt = check_prep_point(cand, mask, q_w, r, "gn_prep point")
+    _, err_pt_r = check_prep_point(cand_r, mask[:m_],
+                                   q_w[:m_].contiguous(), r,
+                                   "gn_prep point ragged")
+
+    def kern_point():
+        return cuda_gn.prep_with_plane(cand, mask, q_w, r, loss="point")
+
+    # reads the CandidateSet and the mask, writes feat and the rows
+    point = dict(
+        max_abs_err=max(err_pt, err_pt_r),
+        **bound(nbytes(cand.pts, cand.valid, mask, pk_pt), 0),
+        ms=cuda_ms(kern_point, 200),
+        plain_ms=cuda_ms(lambda: cuda_gn.prep_with_plane_torch(
+            cand, mask, q_w, r, loss="point"), 20),
+        device_us=kernel_us(kern_point, "gn_prep"))
+    results["gn_prep"]["point"] = point
+    say(f"  gn_prep point mode on the device: {point['device_us']:.2f} us "
+        f"(bound {point['bound_ms'] * 1e3:.3f} us; plane mode "
+        f"{results['gn_prep']['device_us']:.2f} us)")
+
     kern = torch.tensor(0.1667, device=dev)
     max_d2 = torch.tensor(0.25, device=dev)
     kw = dict(plane_min_quality=k.plane_min_quality,
@@ -530,12 +599,17 @@ def check_icp(dev, results):
     cut = cuda_gn.PreppedCandidates(*(x[:, :m_].contiguous() for x in pp))
     check_loop("icp_loop ragged", src[:m_], cut, guess, kern, max_d2,
                1e-5, kw)
+    # point rows only (K3's point-mode candidates: quality -1)
+    _, _, npt, _, _, kern_pt, _ = check_loop(
+        "icp_loop point", src, pk_pt, guess, kern, max_d2, 1e-5, kw)
+    check(npt > 1000, f"icp_loop point twin found {npt} correspondences")
     # reads the source, feat and candidates once; per iteration ~8
     # operations per candidate and ~120 per point
     results["icp_loop"] = dict(
         max_abs_err=d, ms=cuda_ms(kern_loop, 50),
         plain_ms=cuda_ms(plain_loop, 5), iterations=ik,
         device_us=kernel_us(kern_loop, "icp_loop"), plan=plan._asdict(),
+        device_us_point=kernel_us(kern_pt, "icp_loop"),
         **bound(nbytes(src, pp, guess), ik * n * (8 * c + 120)))
     say(f"  icp_loop plan {plan}: kernel "
         f"{results['icp_loop']['device_us']:.2f} us on the device")
@@ -567,6 +641,26 @@ def check_prep(cand, mask, q_w, r, name):
         f"exact, normal dot q01 {q01:.6f} (> 0.999), centroid {cen:.2e} "
         f"(2e-3), quality {qual:.2e} (2e-2); repeats bit for bit")
     return pk, pp, max(cen, qual, 1.0 - float(dots.min()))
+
+
+def check_prep_point(cand, mask, q_w, r, name):
+    """K3's point mode against its twin and ``prep_with_plane_pallas``'s
+    point branch (feat zeros, quality -1, the mask; the lane-major rows):
+    every output bit for bit, a second launch too. Returns (kernel output,
+    largest difference from the twin)."""
+    pk = cuda_gn.prep_with_plane(cand, mask, q_w, r, loss="point")
+    pp = cuda_gn.prep_with_plane_torch(cand, mask, q_w, r, loss="point")
+    again = cuda_gn.prep_with_plane(cand, mask, q_w, r, loss="point")
+    err = max(float((a - b).abs().max()) for a, b in zip(pk, pp)
+              if a.numel())
+    check(all(torch.equal(a, b) for a, b in zip(pk, pp)),
+          f"{name}: differs from its twin by {err}")
+    check(all(torch.equal(a, b) for a, b in zip(pk, again)),
+          f"{name} does not repeat bit for bit")
+    check(bool((pk.feat[6] == -1).all()), f"{name}: quality row")
+    say(f"  {name} (N={q_w.shape[0]}, C={pk.cx.shape[0]}): feat and "
+        "lane-major rows bit for bit against the twin; repeats bit for bit")
+    return pk, err
 
 
 def check_loop(name, src, prepped, guess, kern, max_d2, conv, kw):
@@ -762,10 +856,15 @@ def check_gn_iter(dev, results):
     kern = torch.tensor(0.1667, device=dev)
     max_d2 = torch.tensor(2.25, device=dev)
     worst, times, bounds = 0.0, {}, {}
-    for name, scene in (("cli", cli_gn_scene), ("test_pallas_gn",
-                                                 pallas_gn_scene)):
-        t, src, mask, cand = scene(dev)
-        prepped = cuda_gn.prep_candidates(cand, mask)
+    cli = cli_gn_scene(dev)
+    # the CLI shapes with the plane and with the point loss (loss="point":
+    # quality -1, point rows only), tests/test_pallas_gn.py's scene
+    for name, scene, loss in (("cli", cli, "plane"),
+                              ("cli_point", cli, "point"),
+                              ("test_pallas_gn", pallas_gn_scene(dev),
+                               "plane")):
+        t, src, mask, cand = scene
+        prepped = cuda_gn.prep_candidates(cand, mask, loss=loss)
         c, n = prepped.cx.shape
 
         def kern_build():
@@ -796,7 +895,8 @@ def check_gn_iter(dev, results):
         # one build: the source, feat and candidates once, ~8 operations
         # per candidate and ~120 per point
         bounds[name] = bound(nbytes(src, prepped, t), n * (8 * c + 120))
-        say(f"  gn_iter {name} (N={n}, C={c}): n_corr {int(nk)} exact, jtj "
+        say(f"  gn_iter {name} (N={n}, C={c}, {loss} loss): n_corr "
+            f"{int(nk)} exact, jtj "
             f"rel {rel_j:.2e}, jtr rel {rel_r:.2e}, total_w rel {rel_w:.2e} "
             f"(1e-5); repeats bit for bit; {times[name][0]:.4f} ms vs twin "
             f"{times[name][1]:.4f} ms; kernel {times[name][2]:.2f} us on "
@@ -804,6 +904,8 @@ def check_gn_iter(dev, results):
     results["gn_iter"] = dict(
         max_abs_err=worst, ms=times["cli"][0], plain_ms=times["cli"][1],
         device_us=times["cli"][2], **bounds["cli"],
+        ms_point=times["cli_point"][0], plain_ms_point=times["cli_point"][1],
+        device_us_point=times["cli_point"][2],
         ms_test_shape=times["test_pallas_gn"][0],
         plain_ms_test_shape=times["test_pallas_gn"][1],
         device_us_test_shape=times["test_pallas_gn"][2])
@@ -1082,11 +1184,11 @@ def check_plane_moments(dev, results):
 
 # --------------------------------------------------------------- phase 4
 
-def timed_run(c, batches, lut, dev, log=False):
-    """One ``lio.run_sequence`` from a fresh state with host syncs made
-    errors (the refresh loop lifts that for its counted reads only);
-    returns (out, seconds)."""
-    state = lio.init_state(c, dev)
+def timed_run(c, batches, lut, dev, log=False, state=None):
+    """One ``lio.run_sequence`` from ``state`` (default a fresh one) with
+    host syncs made errors (the refresh loop lifts that for its counted
+    reads only); returns (out, seconds)."""
+    state = lio.init_state(c, dev) if state is None else state
     torch.cuda.synchronize()
     t = time.monotonic()
     torch.cuda.set_sync_debug_mode("error")
@@ -1158,138 +1260,6 @@ def run_main_path(n_scans: int, dev):
         f"RMSE {ate_t:.4f} m, max |pose - kernel path| "
         f"{np.linalg.norm(kt[:, :3, 3] - kp[:, :3, 3], axis=1).max():.4f} m")
     return launches, scene, out, n_scans / dt, repeat
-
-
-# --------------------------------------------------------------- phase 6
-
-def run_fused_path(scene, n_scans: int, dev, bench_poses, bench_rate
-                   ) -> dict[str, int]:
-    """Phase 6: ``bench_config()`` with ``fused_gather=True`` on the bench
-    scene; returns each kernel's launches in the timed run."""
-    sensor, scans, scan_ts, gt_mid, imu = scene
-    base = config.bench_config()
-    cfg = dataclasses.replace(base, kiss=dataclasses.replace(
-        base.kiss, fused_gather=True))
-    lut = convert.lut_from_numpy(sensor.lut, dev)
-    batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
-                                imu.ts, device=dev)
-    timed_run(cfg, batches, lut, dev)           # warm-up
-    kernels.reset_launches()
-    out, dt = timed_run(cfg, batches, lut, dev)
-    launches = launch_counts()
-    for name, count in launches.items():
-        want = 0 if name in ("gn_prep", "gn_iter", "plane_moments",
-                             "ekf_predict_history") else n_scans
-        check(count == want,
-              f"{name} launched {count} times in {n_scans} fused scans")
-    kp = out.kiss_pose.double().cpu().numpy()
-    check(bool(np.isfinite(kp).all()), "non-finite poses")
-    check(kp.shape == (n_scans, 4, 4), f"pose shape {kp.shape}")
-    _, ate = metrics.calc_ate_rmse(kp, gt_mid)
-    check(ate <= ATE_GATE_M, f"ATE RMSE {ate:.4f} m > {ATE_GATE_M} m")
-    ref = np.loadtxt(FUSED_REF_POSES).reshape(-1, 3, 4)[:n_scans]
-    ref_err = np.linalg.norm(kp[:, :3, 3] - ref[:, :, 3], axis=1)
-    check(float(ref_err.max()) <= POSE_GATE_M,
-          f"pose vs JAX reference {ref_err.max():.4f} m > {POSE_GATE_M} m")
-    vs_bench = np.linalg.norm(kp[:, :3, 3] - bench_poses[:, :3, 3], axis=1)
-    say(f"  kernel path: {n_scans / dt:.2f} scans/s ({dt:.3f} s; phase 4 "
-        f"in this call {bench_rate:.2f} scans/s), ATE RMSE {ate:.4f} m "
-        f"(<= {ATE_GATE_M}; JAX {reference_ate(FUSED_REF_POSES):.4f}), max "
-        f"|pose - JAX| {ref_err.max():.4f} m (<= {POSE_GATE_M}), max |pose "
-        f"- phase 4| {vs_bench.max():.4f} m, no host sync, launches "
-        f"{launches}")
-
-    tcfg = config.twin_config(cfg)
-    lio.run_sequence(lio.init_state(tcfg, dev),
-                     lio.scan_at(batches, slice(0, 4)), lut,
-                     cfg=tcfg)                          # warm-up
-    kernels.reset_launches()
-    out_t, dt_t = timed_run(tcfg, batches, lut, dev)
-    check(sum(kernels.LAUNCHES.values()) == 0, "twin path launched kernels")
-    kt = out_t.kiss_pose.double().cpu().numpy()
-    _, ate_t = metrics.calc_ate_rmse(kt, gt_mid)
-    say(f"  twin path: {n_scans / dt_t:.2f} scans/s ({dt_t:.3f} s), ATE "
-        f"RMSE {ate_t:.4f} m, max |pose - kernel path| "
-        f"{np.linalg.norm(kt[:, :3, 3] - kp[:, :3, 3], axis=1).max():.4f} m")
-    return launches
-
-
-# --------------------------------------------------------------- phase 5
-
-def reference_ate(path: str) -> float:
-    """The JAX ATE RMSE a reference poses file states in its header."""
-    with open(path) as f:
-        for line in f:
-            if "JAX ATE RMSE" in line:
-                return float(line.split(":")[1].split()[0])
-    raise ValueError(f"{path}: no JAX ATE RMSE in the header")
-
-
-def run_cli_path(scene, n_scans: int, dev, cfg, ref_path: str, tag: str,
-                 twins: bool = True) -> dict[str, int]:
-    """A run of the flagship command's configuration ``cfg`` (phases 5, 7a
-    and 7b) on the first scans of the bench scene that ``ref_path`` holds
-    (at most ``n_scans``), warmed up and timed with host syncs made errors
-    but the refresh loop's counted reads: K1 once a scan (none with the
-    associative predict), K5 once a GN iteration, no other kernel; ATE
-    RMSE within 0.005 m of the JAX run's and every pose within 0.02 m of
-    the JAX poses; then, with ``twins``, the same run with the twins.
-    Returns each kernel's launches in the timed run."""
-    sensor, scans, scan_ts, gt_mid, imu = scene
-    ref = np.loadtxt(ref_path).reshape(-1, 3, 4)[:n_scans]
-    n = len(ref)
-    gt_mid = gt_mid[:n]
-    lut = convert.lut_from_numpy(sensor.lut, dev)
-    batches = lio.scan_at(lio.build_batches(
-        cfg, scans, scan_ts, imu.lacc, imu.avel, imu.ts, device=dev),
-        slice(0, n))
-    timed_run(cfg, batches, lut, dev)           # warm-up
-    kernels.reset_launches()
-    icp.reset_refresh_counts()
-    out, dt = timed_run(cfg, batches, lut, dev)
-    launches, counts = launch_counts(), dict(icp.REFRESH_COUNTS)
-    iters = int(out.aux.iterations.sum())
-    want = {"ekf_predict": n if cfg.ekf.predict_batch == "cuda" else 0,
-            "gn_iter": iters}
-    check(all(c == want.get(k, 0) for k, c in launches.items()),
-          f"{tag}: launches {launches} in {n} scans, {iters} GN iterations")
-    check(counts["host_reads"] <= iters + n,
-          f"{tag}: {counts['host_reads']} host reads > {iters} iterations "
-          f"+ {n} scans")
-    kp = out.kiss_pose.double().cpu().numpy()
-    check(bool(np.isfinite(kp).all()) and kp.shape == (n, 4, 4),
-          f"{tag}: poses {kp.shape}, finite {np.isfinite(kp).all()}")
-    check(bool(out.scan_valid.all()), f"{tag}: a scan was skipped")
-    _, ate = metrics.calc_ate_rmse(kp, gt_mid)
-    jax_ate = reference_ate(ref_path)
-    check(ate <= jax_ate + CLI_ATE_SLACK_M,
-          f"{tag}: ATE RMSE {ate:.4f} m > JAX {jax_ate:.4f} + "
-          f"{CLI_ATE_SLACK_M} m")
-    ref_err = np.linalg.norm(kp[:, :3, 3] - ref[:, :, 3], axis=1)
-    check(float(ref_err.max()) <= POSE_GATE_M,
-          f"{tag}: pose vs JAX reference {ref_err.max():.4f} m > "
-          f"{POSE_GATE_M} m")
-    say(f"  {tag} ({cfg.guess} guess, {cfg.ekf.predict_batch} predict, {n} "
-        f"scans): {n / dt:.2f} scans/s ({dt:.3f} s), ATE RMSE {ate:.4f} m "
-        f"(JAX {jax_ate:.4f} + {CLI_ATE_SLACK_M}), max |pose - JAX| "
-        f"{ref_err.max():.4f} m (<= {POSE_GATE_M}), {iters} GN iterations, "
-        f"{counts['regathers']} re-gathers, {counts['host_reads']} host "
-        f"reads (<= {iters + n}), no other host sync, launches {launches}")
-    if not twins:
-        return launches
-    tcfg = config.twin_config(cfg)
-    lio.run_sequence(lio.init_state(tcfg, dev),
-                     lio.scan_at(batches, slice(0, 4)), lut,
-                     cfg=tcfg)                          # warm-up
-    kernels.reset_launches()
-    out_t, dt_t = timed_run(tcfg, batches, lut, dev)
-    check(sum(kernels.LAUNCHES.values()) == 0, "twin path launched kernels")
-    kt = out_t.kiss_pose.double().cpu().numpy()
-    _, ate_t = metrics.calc_ate_rmse(kt, gt_mid)
-    say(f"  {tag} twin path: {n / dt_t:.2f} scans/s ({dt_t:.3f} s), ATE "
-        f"RMSE {ate_t:.4f} m, max |pose - kernel path| "
-        f"{np.linalg.norm(kt[:, :3, 3] - kp[:, :3, 3], axis=1).max():.4f} m")
-    return launches
 
 
 # --------------------------------------------------------------- phase 7
@@ -1430,6 +1400,361 @@ def run_filter_path(dev) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------- phases 5-8: one path's run
+
+def reference_ate(path: str) -> float:
+    """The JAX ATE RMSE a reference poses file states in its header."""
+    with open(path) as f:
+        for line in f:
+            if "JAX ATE RMSE" in line:
+                return float(line.split(":")[1].split()[0])
+    raise ValueError(f"{path}: no JAX ATE RMSE in the header")
+
+
+def ref_poses(name: str) -> tuple[str, np.ndarray]:
+    """(path, [N, 3, 4]) of ``tests/data/<name>_jax_poses.txt``."""
+    path = os.path.join(HERE, "tests", "data", f"{name}_jax_poses.txt")
+    return path, np.loadtxt(path).reshape(-1, 3, 4)
+
+
+def busy_us(events) -> float:
+    """Length of the union of the device intervals of ``events`` (us)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return total + (0.0 if cur_e is None else cur_e - cur_s)
+
+
+def device_window(run, n_scans: int) -> dict:
+    """Device busy us a scan (the union of the device intervals in a
+    ``torch.profiler`` trace) and device operations (kernels, copies and
+    fills) a scan over ``run()``, which runs ``n_scans`` scans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(busy_us_per_scan=busy_us(ev) / n_scans,
+                device_ops_per_scan=len(ev) / n_scans)
+
+
+def lio_warm_up(cfg, batches, lut, dev, state, window: int) -> dict:
+    """A phase-8 run's warm-up: its first scans, then its last ``window``
+    scans from there (the steady step, as in an unbroken run) under the
+    profiler; returns :func:`device_window`'s numbers."""
+    n = batches.range_m.shape[0]
+    k = n - window
+    state = lio.init_state(cfg, dev) if state is None else state
+    state, _ = lio.run_sequence(state, lio.scan_at(batches, slice(0, k)),
+                                lut, cfg=cfg)
+    tail = dataclasses.replace(cfg, bootstrap_scans=0)
+    return device_window(lambda: lio.run_sequence(
+        state, lio.scan_at(batches, slice(k, n)), lut, cfg=tail), window)
+
+
+def run_option_path(scene, dev, cfg, tag: str, ref_name: str, want, *,
+                    card: str, batches=None, state=None, rows=None,
+                    ate_slack=None, ate_max=None, twins: bool = False,
+                    window: int = 10):
+    """A run of ``cfg`` on the bench scene (phases 5-8): ``batches`` and
+    the start ``state`` when given, else the scans the JAX poses
+    ``tests/data/<ref_name>_jax_poses.txt`` hold from a fresh state. The
+    warm-up with its last ``window`` scans profiled, then a run timed with
+    host syncs made errors (the counted reads of ``icp.read_flags``
+    excepted). Gates: each kernel launched ``want(n, gn_iterations)[name]``
+    times (0 when absent), at most one host read a GN iteration and scan,
+    every pose finite and within 0.02 m of the JAX poses (their ``rows``),
+    with ``ate_slack`` the ATE RMSE within that of the JAX run's, with
+    ``ate_max`` at most that. With ``twins`` the same run with every kernel
+    replaced by its twin (no launch). Returns (launches, output,
+    summary)."""
+    sensor, scans, scan_ts, gt_mid, imu = scene
+    ref_path, ref = ref_poses(ref_name)
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    if batches is None:
+        k = min(len(scans), len(ref))
+        batches = lio.scan_at(lio.build_batches(
+            cfg, scans, scan_ts, imu.lacc, imu.avel, imu.ts, device=dev),
+            slice(0, k))
+    n = batches.range_m.shape[0]
+    window = min(window, n // 2)
+    rows = slice(0, n) if rows is None else rows
+    ref, gt = ref[rows], gt_mid[rows]
+    busy = lio_warm_up(cfg, batches, lut, dev, state, window)
+    kernels.reset_launches()
+    icp.reset_refresh_counts()
+    out, dt = timed_run(cfg, batches, lut, dev, state=state)
+    launches, counts = launch_counts(), dict(icp.REFRESH_COUNTS)
+    reads = counts["host_reads"]
+    iters = int(out.aux.iterations.sum())
+    expect = want(n, iters)
+    check(all(c == expect.get(k, 0) for k, c in launches.items()),
+          f"{tag}: launches {launches} in {n} scans, {iters} GN "
+          f"iterations, want {expect}")
+    check(reads <= iters + n, f"{tag}: {reads} host reads")
+    kp = out.kiss_pose.double().cpu().numpy()
+    check(bool(np.isfinite(kp).all()) and kp.shape == (n, 4, 4),
+          f"{tag}: poses {kp.shape}, finite {np.isfinite(kp).all()}")
+    check(bool(out.scan_valid.all()), f"{tag}: a scan was skipped")
+    err = np.linalg.norm(kp[:, :3, 3] - ref[:, :, 3], axis=1)
+    check(float(err.max()) <= POSE_GATE_M,
+          f"{tag}: pose vs JAX reference {err.max():.4f} m > "
+          f"{POSE_GATE_M} m")
+    _, ate = metrics.calc_ate_rmse(kp, gt)
+    jax_ate = reference_ate(ref_path)
+    if ate_slack is not None:
+        check(ate <= jax_ate + ate_slack,
+              f"{tag}: ATE RMSE {ate:.4f} m > JAX {jax_ate:.4f} + "
+              f"{ate_slack} m")
+    if ate_max is not None:
+        check(ate <= ate_max, f"{tag}: ATE RMSE {ate:.4f} m > {ate_max} m")
+    ran = {k: v / n for k, v in launches.items() if v}
+    summary = dict(path=tag, scans=n, scans_per_s=n / dt,
+                   max_pose_vs_jax_m=float(err.max()), ate_rmse_m=ate,
+                   jax_ate_rmse_m=jax_ate, gn_iterations=iters,
+                   host_reads=reads, regathers=counts["regathers"],
+                   kernel_launches_per_scan=ran, **busy, card=card)
+    say(f"  {tag}: {n} scans, {n / dt:.2f} scans/s ({dt:.3f} s), device "
+        f"busy {busy['busy_us_per_scan']:.1f} us and "
+        f"{busy['device_ops_per_scan']:.1f} device operations a scan (the "
+        f"last {window} scans), ATE RMSE {ate:.4f} m (JAX run "
+        f"{jax_ate:.4f}), max |pose - JAX| {err.max():.4f} m (<= "
+        f"{POSE_GATE_M}), {iters} GN iterations, {counts['regathers']} "
+        f"re-gathers, {reads} host reads (<= {iters + n}), no other host "
+        f"sync, hand kernels a scan {ran}; {card}")
+    if twins:
+        tcfg = config.twin_config(cfg)
+        lio.run_sequence(lio.init_state(tcfg, dev) if state is None
+                         else state, lio.scan_at(batches, slice(0, 4)), lut,
+                         cfg=tcfg)                      # warm-up
+        kernels.reset_launches()
+        out_t, dt_t = timed_run(tcfg, batches, lut, dev, state=state)
+        check(sum(kernels.LAUNCHES.values()) == 0,
+              f"{tag}: the twin path launched kernels")
+        kt = out_t.kiss_pose.double().cpu().numpy()
+        _, ate_t = metrics.calc_ate_rmse(kt, gt)
+        say(f"  {tag} twin path: {n / dt_t:.2f} scans/s ({dt_t:.3f} s), "
+            f"ATE RMSE {ate_t:.4f} m, max |pose - kernel path| "
+            f"{np.linalg.norm(kt[:, :3, 3] - kp[:, :3, 3], axis=1).max():.4f}"
+            " m")
+    return launches, out, summary
+
+
+def cli_want(cfg):
+    """``want`` of the refresh-loop paths: K1 once a scan (none with the
+    associative predict), K5 once a GN iteration."""
+    k1 = cfg.ekf.predict_batch == "cuda"
+    return lambda n, iters: {"ekf_predict": n if k1 else 0,
+                             "gn_iter": iters}
+
+
+def once_a_scan(*names):
+    """``want`` for kernels launched once a scan each."""
+    return lambda n, iters: {k: n for k in names}
+
+
+# --------------------------------------------------------------- phase 8
+
+def run_frozen_path(scene, dev, bench_out, card: str):
+    """Phase 8c: ``bench_config()`` maps scans 0..split-1 (bit-equal to
+    phase 4's first scans), the state goes through ``checkpoint.save_state``
+    (with ``time_origin`` and ``end_scan_ts``) and ``load_state`` into a
+    fresh state, and the rest of the scans run with ``map_frozen=True`` on
+    batches built on the checkpoint's clock (``prev_scan_ts``), as
+    ``ekf-bench ouster --save-state`` and then ``--resume-state
+    --frozen-map`` do: the map after the frozen run is the loaded one bit
+    for bit, and the poses are within 0.02 m of JAX's same two-step run.
+    The same resume without freezing (``bootstrap_scans=0``) is phase 4's
+    unbroken run bit for bit."""
+    sensor, scans, scan_ts, gt_mid, imu = scene
+    n = len(scans)
+    split = min(25, n // 2)       # the reference's 25 at the 50-scan scene
+    cfg = config.bench_config()
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    origin = lio.time_origin(scan_ts[:split], imu.ts)
+    head = lio.build_batches(cfg, scans[:split], scan_ts[:split], imu.lacc,
+                             imu.avel, imu.ts, time_origin=origin,
+                             device=dev)
+    fin, out_head = lio.run_sequence(lio.init_state(cfg, dev), head, lut,
+                                     cfg=cfg)
+    check(torch.equal(out_head.kiss_pose, bench_out.kiss_pose[:split]),
+          "8c: the mapping scans differ from phase 4's")
+    _, ref = ref_poses("bench_frozen")
+    kp = out_head.kiss_pose.double().cpu().numpy()
+    err_head = np.linalg.norm(kp[:, :3, 3] - ref[:split, :, 3], axis=1)
+    check(float(err_head.max()) <= POSE_GATE_M,
+          f"8c: mapping pose vs JAX {err_head.max():.4f} m")
+    frozen = dataclasses.replace(cfg, map_frozen=True)
+    resume = dataclasses.replace(cfg, bootstrap_scans=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        checkpoint.save_state(path, fin, extra={
+            "end_scan_ts": float(scan_ts[split - 1]),
+            "time_origin": float(origin)})
+        extra = checkpoint.checkpoint_extra(path)
+        loaded = checkpoint.load_state(path, lio.init_state(frozen, dev))
+        again = checkpoint.load_state(path, lio.init_state(resume, dev))
+
+    def tail(c):
+        return lio.build_batches(
+            c, scans[split:], scan_ts[split:], imu.lacc, imu.avel, imu.ts,
+            time_origin=extra["time_origin"],
+            prev_scan_ts=extra["end_scan_ts"], device=dev)
+
+    launches, out, summary = run_option_path(
+        scene, dev, frozen, "8c frozen map", "bench_frozen",
+        once_a_scan("ekf_predict", "gn_prep", "icp_loop", "ekf_update"),
+        card=card, batches=tail(frozen), state=loaded,
+        rows=slice(split, n))
+    fin_frozen, _ = lio.run_sequence(loaded, tail(frozen), lut, cfg=frozen)
+    check(torch.equal(fin_frozen.kiss.local_map.meta,
+                      loaded.kiss.local_map.meta)
+          and torch.equal(fin_frozen.kiss.local_map.points,
+                          loaded.kiss.local_map.points),
+          "8c: the frozen run changed the map")
+    check(int(fin_frozen.kiss.num_scans) == n, "8c: num_scans")
+    _, out_resume = lio.run_sequence(again, tail(resume), lut, cfg=resume)
+    check(torch.equal(out_resume.kiss_pose, bench_out.kiss_pose[split:])
+          and torch.equal(out_resume.ekf_pose, bench_out.ekf_pose[split:]),
+          "8c: save -> load -> continue differs from phase 4's run")
+    say(f"  8c: map after the frozen run bit-equal to the loaded one; "
+        f"mapping scans bit-equal to phase 4's (max |pose - JAX| "
+        f"{err_head.max():.4f} m); the unfrozen resume bit-equal to phase "
+        "4's unbroken run")
+    return launches, summary
+
+
+def run_kiss_every(scene, dev, card: str, window: int = 5):
+    """Phase 8f: ``kiss.register_scan`` alone, scan after scan, at
+    ``KissConfig()``'s defaults with ``nn_mode="every"`` and
+    ``loss="point"`` (a map query every GN iteration, plain torch as in the
+    JAX package), no range-image grid, the constant-velocity guess and
+    deskew, on the scans ``tests/data/kiss_every_jax_poses.txt`` holds (the
+    JAX run leaves the track after them): no kernel launches, at most one
+    host read a GN iteration, every pose within 0.02 m of JAX's."""
+    sensor, scans, scan_ts, gt_mid, imu = scene
+    ref_path, ref = ref_poses("kiss_every")
+    n = min(len(ref), len(scans))
+    ref, window = ref[:n], min(window, n // 2)
+    kcfg = config.KissConfig(nn_mode="every", loss="point")
+    cap = config.Capacity(max_points=scans.shape[1] * scans.shape[2])
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    ranges = torch.tensor(scans[:n], dtype=torch.float32, device=dev)
+
+    def run(k0, k1, state=None):
+        state = kiss.init_state(kcfg, cap, dev) if state is None else state
+        poses, iters = [], []
+        for i in range(k0, k1):
+            state, pose, aux = kiss.register_scan(
+                state, *scan_to_points(lut, ranges[i]), cfg=kcfg, cap=cap)
+            poses.append(pose)
+            iters.append(aux.iterations)
+        return state, torch.stack(poses), torch.stack(iters)
+
+    state, _, _ = run(0, n - window)
+    busy = device_window(lambda: run(n - window, n, state), window)
+    kernels.reset_launches()
+    icp.reset_refresh_counts()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, poses, iters = run(0, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t
+    launches, reads = launch_counts(), icp.REFRESH_COUNTS["host_reads"]
+    n_it = int(iters.sum())
+    check(sum(launches.values()) == 0, f"8f: kernels launched {launches}")
+    check(reads <= n_it, f"8f: {reads} host reads, {n_it} iterations")
+    kp = poses.double().cpu().numpy()
+    check(bool(np.isfinite(kp).all()), "8f: non-finite poses")
+    err = np.linalg.norm(kp[:, :3, 3] - ref[:, :, 3], axis=1)
+    check(float(err.max()) <= POSE_GATE_M,
+          f"8f: pose vs JAX reference {err.max():.4f} m")
+    _, ate = metrics.calc_ate_rmse(kp, gt_mid[:n])
+    summary = dict(path="8f kiss every", scans=n, scans_per_s=n / dt,
+                   max_pose_vs_jax_m=float(err.max()), ate_rmse_m=ate,
+                   jax_ate_rmse_m=reference_ate(ref_path),
+                   gn_iterations=n_it, host_reads=reads,
+                   kernel_launches_per_scan={}, **busy, card=card)
+    say(f"  8f kiss every ({n} scans): {n / dt:.2f} scans/s ({dt:.3f} s), "
+        f"device busy {busy['busy_us_per_scan']:.1f} us and "
+        f"{busy['device_ops_per_scan']:.1f} device operations a scan (the "
+        f"last {window} scans), ATE RMSE {ate:.4f} m (JAX run "
+        f"{summary['jax_ate_rmse_m']:.4f}), max |pose - JAX| "
+        f"{err.max():.4f} m (<= {POSE_GATE_M}), {n_it} GN iterations, "
+        f"{reads} host reads (one a GN iteration at most), no kernel; "
+        f"{card}")
+    return launches, summary
+
+
+def run_phase8(scene, dev, bench_out, card: str
+               ) -> dict[str, dict[str, int]]:
+    """Phase 8: the options the port carries since the bring-up of the
+    point loss, frozen-map localisation on a checkpoint, column
+    decimation, the octant gather and the every-iteration query. Returns
+    each run's launches; prints one JSON line of the runs' summaries."""
+    sensor, scans, scan_ts, gt_mid, imu = scene
+    h, w = scans.shape[1:]
+    R = dataclasses.replace
+    bench = config.bench_config()
+    by_path, summaries = {}, []
+
+    def kiss_cfg(base, **kw):
+        return R(base, kiss=R(base.kiss, **kw))
+
+    cli = config.cli_config(h, w)
+    by_path["cli_point"], _, sm = run_option_path(
+        scene, dev, kiss_cfg(cli, loss="point"), "8a cli point",
+        "cli_point", cli_want(cli), card=card, ate_slack=CLI_ATE_SLACK_M)
+    summaries.append(sm)
+    outs = []
+    for fused, name in ((False, "bench_point"), (True, "bench_point_fused")):
+        want = (once_a_scan("ekf_predict", "gather_fused", "icp_loop",
+                            "ekf_update") if fused else
+                once_a_scan("ekf_predict", "gn_prep", "icp_loop",
+                            "ekf_update"))
+        by_path[name], out, sm = run_option_path(
+            scene, dev, kiss_cfg(bench, loss="point", fused_gather=fused),
+            f"8b bench point{' fused' if fused else ''}", "bench_point",
+            want, card=card)
+        outs.append(out.kiss_pose.double().cpu().numpy())
+        summaries.append(sm)
+    gap = float(np.abs(outs[0] - outs[1])[:, :3, 3].max())
+    say(f"  8b: max |pose(fused) - pose(gather + K3)| {gap:.3e} m")
+    by_path["bench_frozen"], sm = run_frozen_path(scene, dev, bench_out,
+                                                  card)
+    summaries.append(sm)
+    by_path["bench_dec2"], _, sm = run_option_path(
+        scene, dev, R(bench, col_decimation=2), "8d column decimation 2",
+        "bench_dec2",
+        once_a_scan("ekf_predict", "gn_prep", "icp_loop", "ekf_update"),
+        card=card)
+    summaries.append(sm)
+    # the octant gather with fused_gather=True: the gather and K3, never K6
+    by_path["bench_nn4"], _, sm = run_option_path(
+        scene, dev, kiss_cfg(bench, nn_neighborhood=4, fused_gather=True),
+        "8e octant gather (fused_gather=True)", "bench_nn4",
+        once_a_scan("ekf_predict", "gn_prep", "icp_loop", "ekf_update"),
+        card=card)
+    summaries.append(sm)
+    by_path["kiss_every"], sm = run_kiss_every(scene, dev, card)
+    summaries.append(sm)
+    say(json.dumps({"phase8": summaries}))
+    return by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scans", type=int, default=50,
@@ -1456,12 +1781,21 @@ def main() -> int:
         spills = "spill" in line and " 0 bytes spill" not in line
         if "registers" in line or spills:
             say(f"  {line.strip()}")
+    sass = sass_sizes(path, "gn_prep_kernel")
+    # the template instances: ILb1E the plane fit, ILb0E the point mode
+    k3_sass = None if sass is None else {
+        ("plane" if "ILb1E" in k else "point" if "ILb0E" in k else k): v
+        for k, v in sass.items()}
+    say("  K3 SASS instructions: " + (
+        str(k3_sass) if k3_sass is not None else "not measured (no "
+        "cuobjdump)"))
 
     say("phase 3: kernels against their twins")
     results: dict[str, dict] = {}
     rng = np.random.default_rng(0)
     check_ekf(dev, rng, results)
     check_icp(dev, results)
+    results["gn_prep"]["sass_instructions"] = k3_sass
     check_icp_streamed(dev, results)
     check_gn_iter(dev, results)
     check_ties(dev)
@@ -1474,25 +1808,41 @@ def main() -> int:
     bench_launches, scene, bench_out, bench_rate, repeat = run_main_path(
         args.scans, dev)
     h, w = scene[1].shape[1:]
+    bench = config.bench_config()
+    card = card_line()
     say("phase 5: CLI path")
-    cli_launches = run_cli_path(scene, args.scans, dev,
-                                config.cli_config(h, w), CLI_REF_POSES, "5")
+    cli = config.cli_config(h, w)
+    cli_launches, _, _ = run_option_path(
+        scene, dev, cli, "5 cli", "cli", cli_want(cli), card=card,
+        ate_slack=CLI_ATE_SLACK_M, twins=True)
     say("phase 6: fused bench path")
+    fused = dataclasses.replace(bench, kiss=dataclasses.replace(
+        bench.kiss, fused_gather=True))
+    fused_launches, fused_out, sm = run_option_path(
+        scene, dev, fused, "6 bench fused", "bench_fused",
+        once_a_scan("ekf_predict", "gather_fused", "icp_loop", "ekf_update"),
+        card=card, ate_max=ATE_GATE_M, twins=True)
+    vs_bench = (fused_out.kiss_pose - bench_out.kiss_pose)[:, :3, 3].abs()
+    say(f"  6: {sm['scans_per_s']:.2f} scans/s against phase 4's "
+        f"{bench_rate:.2f} in this call; max |pose - phase 4| "
+        f"{float(vs_bench.max()):.4f} m")
     by_path = {"bench": bench_launches, "cli": cli_launches,
-               "bench_fused": run_fused_path(
-                   scene, args.scans, dev,
-                   bench_out.kiss_pose.double().cpu().numpy(), bench_rate)}
+               "bench_fused": fused_launches}
     say("phase 7: the CLI's EKF-facing paths")
-    kiss = config.cli_config(h, w, guess="kiss")
-    by_path["cli_kiss"] = run_cli_path(scene, args.scans, dev, kiss,
-                                       KISS_REF_POSES, "7a")
-    by_path["cli_kiss_assoc"] = run_cli_path(
-        scene, args.scans, dev, dataclasses.replace(
-            kiss, ekf=dataclasses.replace(kiss.ekf, predict_batch="assoc")),
-        KISS_REF_POSES, "7b", twins=False)
+    kiss_cfg = config.cli_config(h, w, guess="kiss")
+    by_path["cli_kiss"], _, _ = run_option_path(
+        scene, dev, kiss_cfg, "7a cli kiss", "cli_kiss", cli_want(kiss_cfg),
+        card=card, ate_slack=CLI_ATE_SLACK_M, twins=True)
+    assoc = dataclasses.replace(kiss_cfg, ekf=dataclasses.replace(
+        kiss_cfg.ekf, predict_batch="assoc"))
+    by_path["cli_kiss_assoc"], _, _ = run_option_path(
+        scene, dev, assoc, "7b cli kiss assoc", "cli_kiss", cli_want(assoc),
+        card=card, ate_slack=CLI_ATE_SLACK_M)
     by_path["bench_log"] = run_log_path(scene, args.scans, dev, bench_out,
                                         bench_rate, repeat)
     by_path["sim_filter"] = run_filter_path(dev)
+    say("phase 8: the pipeline's remaining options")
+    by_path.update(run_phase8(scene, dev, bench_out, card))
 
     rows = []
     for name in (*kernels.KERNELS, *kernels.VARIANT_LAUNCHES):

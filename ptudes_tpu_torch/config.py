@@ -8,8 +8,9 @@ The kernel forms are named for the port: ``EkfConfig.predict_batch`` and
 plain PyTorch twins (``"torch"``). There is no
 ``"auto"``: the configuration says which form runs.
 
-Options the port does not carry yet raise ``NotImplementedError`` when a run
-uses them (:func:`check_supported`); ROADMAP.md lists them in order.
+Every option of the JAX ``PipelineConfig`` that runs on one device runs
+here; :func:`check_supported` raises ``ValueError`` for values neither
+package knows.
 """
 from __future__ import annotations
 
@@ -159,31 +160,26 @@ def twin_config(cfg: PipelineConfig) -> PipelineConfig:
 
 
 def check_supported(cfg: PipelineConfig) -> None:
-    """Raise ``NotImplementedError`` for options the port does not carry
-    yet, and ``ValueError`` for unknown form names."""
+    """Raise ``ValueError`` for unknown option values and form names."""
     k, e = cfg.kiss, cfg.ekf
-    todo = [
-        (cfg.col_decimation != 1, f"col_decimation={cfg.col_decimation}"),
-        (cfg.map_frozen, "map_frozen=True"),
-        (k.nn_mode != "cached", f"nn_mode={k.nn_mode!r}"),
-        (k.nn_neighborhood not in (7, 27),
-         f"nn_neighborhood={k.nn_neighborhood}"),
-        (k.loss != "plane", f"loss={k.loss!r}"),
+    choices = [
+        ("guess", cfg.guess, ("ekf", "kiss", "gt")),
+        ("deskew_mode", cfg.deskew_mode, ("ekf", "kiss")),
+        ("steady_insert_mode", cfg.steady_insert_mode, (False, True, "cond")),
+        ("loss", k.loss, ("plane", "point")),
+        ("nn_mode", k.nn_mode, ("cached", "every")),
+        ("nn_neighborhood", k.nn_neighborhood, (4, 7, 27)),
+        ("icp_form", k.icp_form, ("torch", "cuda")),
+        ("predict_batch", e.predict_batch, ("unroll", "cuda", "assoc")),
+        ("update_form", e.update_form, ("xla", "cuda")),
     ]
-    for bad, what in todo:
-        if bad:
-            raise NotImplementedError(
-                f"the PyTorch port does not carry {what} yet; see ROADMAP.md")
-    if cfg.guess not in ("ekf", "kiss", "gt"):
-        raise ValueError(f"unknown guess {cfg.guess!r}")
-    if cfg.deskew_mode not in ("ekf", "kiss"):
-        raise ValueError(f"unknown deskew_mode {cfg.deskew_mode!r}")
-    if cfg.steady_insert_mode not in (False, True, "cond"):
-        raise ValueError(
-            f"unknown steady_insert_mode {cfg.steady_insert_mode!r}")
-    if e.predict_batch not in ("unroll", "cuda", "assoc"):
-        raise ValueError(f"unknown predict_batch {e.predict_batch!r}")
-    if e.update_form not in ("xla", "cuda"):
-        raise ValueError(f"unknown update_form {e.update_form!r}")
-    if k.icp_form not in ("torch", "cuda"):
-        raise ValueError(f"unknown icp_form {k.icp_form!r}")
+    for name, value, known in choices:
+        if not any(value is c or (type(value) is type(c) and value == c)
+                   for c in known):
+            raise ValueError(f"unknown {name} {value!r}")
+    if not (isinstance(cfg.col_decimation, int) and cfg.col_decimation >= 1):
+        raise ValueError(f"col_decimation {cfg.col_decimation!r} (an int "
+                         ">= 1 that divides the scan width)")
+    if k.nn_mode == "every" and k.nn_neighborhood == 4:
+        raise ValueError("nn_mode='every' queries the 7- or 27-"
+                         "neighbourhood, not 4")

@@ -43,6 +43,13 @@
 // Moments are of offsets from q, so f32 never squares world-scale
 // coordinates. The lane-major rows are copies: bit for bit the
 // CandidateSet's values.
+//
+// Point mode (fit = 0, loss="point"): prep_with_plane_pallas skips the fit
+// and writes feat as zeros, quality -1 (no correspondence takes the plane
+// row) and the source mask (pallas_gn.py:288-295). The kernel is a template
+// on the fit: the point instance drops the moments and the finish, lane i of
+// warp 0 writing point i's constant feat column, so the lane-major rows keep
+// their one launch; the plane instance is the code above.
 #include "common.cuh"
 
 namespace {
@@ -68,6 +75,7 @@ __device__ __forceinline__ int tile_at(int r, int i) {
 // pts [N, C, 3], valid [N, C] bool, q_w [N, 3]: the query points (source
 // at the gather pose), mask [N] bool. Outputs feat [8, N] (nx ny nz,
 // centroid xyz, quality, mask) and cx/cy/cz/inf [C, N].
+template <bool kFit>
 __global__ void __launch_bounds__(kThreads)
 gn_prep_kernel(const float* __restrict__ pts,
                const unsigned char* __restrict__ valid,
@@ -89,8 +97,9 @@ gn_prep_kernel(const float* __restrict__ pts,
     // ---- loads: the point's row as consecutive floats and its validity
     // bytes, kLoads of each a lane in flight before the first store (one
     // pass for C <= 42), into the tiles
-    const float px = __ldg(q_w + 3 * p), py = __ldg(q_w + 3 * p + 1),
-                pz = __ldg(q_w + 3 * p + 2);
+    [[maybe_unused]] const float px = __ldg(q_w + 3 * p),
+                                 py = __ldg(q_w + 3 * p + 1),
+                                 pz = __ldg(q_w + 3 * p + 2);
     const float* row = pts + static_cast<size_t>(p) * 3 * c;
     const unsigned char* ok = valid + static_cast<size_t>(p) * c;
     for (int e0 = 0; e0 < 3 * c; e0 += 32 * kLoads) {
@@ -112,29 +121,39 @@ gn_prep_kernel(const float* __restrict__ pts,
         if (e < c) t_inf[tile_at(e, w)] = b[u] ? 0.0f : kBig;
       }
     }
-    __syncwarp();
+    if constexpr (kFit) {
+      __syncwarp();
 
-    // ---- moments: lane k is candidates k, k + 32, ...
-    ptudes::PatchMoments m;
-    for (int k = lane; k < c; k += 32) {
-      const int s = tile_at(k, w);
-      ptudes::patch_add(m, tile[s] - px, tile[c * kWarps + s] - py,
-                        tile[2 * c * kWarps + s] - pz, t_inf[s], r2);
-    }
-    m = ptudes::patch_warp_sum(m);
-    if (lane == 0) {
-      mom[w] = m;
-      query[w] = make_float4(px, py, pz, __ldg(mask + p) ? 1.0f : 0.0f);
+      // ---- moments: lane k is candidates k, k + 32, ...
+      ptudes::PatchMoments m;
+      for (int k = lane; k < c; k += 32) {
+        const int s = tile_at(k, w);
+        ptudes::patch_add(m, tile[s] - px, tile[c * kWarps + s] - py,
+                          tile[2 * c * kWarps + s] - pz, t_inf[s], r2);
+      }
+      m = ptudes::patch_warp_sum(m);
+      if (lane == 0) {
+        mom[w] = m;
+        query[w] = make_float4(px, py, pz, __ldg(mask + p) ? 1.0f : 0.0f);
+      }
     }
   }
   __syncthreads();
 
   if (w == 0) {
     // ---- finish: lane i is point p0 + i
-    if (lane < kWarps && p0 + lane < n) {
-      const float4 q = query[lane];
-      ptudes::plane_feat<true>(mom[lane], q.x, q.y, q.z, q.w, feat,
-                               p0 + lane, n);
+    const int q = p0 + lane;
+    if (lane < kWarps && q < n) {
+      if constexpr (kFit) {
+        const float4 qm = query[lane];
+        ptudes::plane_feat<true>(mom[lane], qm.x, qm.y, qm.z, qm.w, feat, q,
+                                 n);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 6; ++r) feat[r * n + q] = 0.0f;
+        feat[6 * n + q] = -1.0f;
+        feat[7 * n + q] = __ldg(mask + q) ? 1.0f : 0.0f;
+      }
     }
     return;
   }
@@ -154,12 +173,16 @@ gn_prep_kernel(const float* __restrict__ pts,
 extern "C" int ptudes_gn_prep(const float* pts, const unsigned char* valid,
                               const float* q_w, const unsigned char* mask,
                               float* feat, float* cx, float* cy, float* cz,
-                              float* inf, int n, int c, float r2,
+                              float* inf, int n, int c, float r2, int fit,
                               cudaStream_t stream) {
   if (n <= 0 || c <= 0 || tile_bytes(c) > kMaxSmem)
     return cudaErrorInvalidValue;
-  gn_prep_kernel<<<(n + kWarps - 1) / kWarps, kThreads, tile_bytes(c),
-                   stream>>>(pts, valid, q_w, mask, feat, cx, cy, cz, inf, n,
-                             c, r2);
+  const int blocks = (n + kWarps - 1) / kWarps;
+  if (fit)
+    gn_prep_kernel<true><<<blocks, kThreads, tile_bytes(c), stream>>>(
+        pts, valid, q_w, mask, feat, cx, cy, cz, inf, n, c, r2);
+  else
+    gn_prep_kernel<false><<<blocks, kThreads, tile_bytes(c), stream>>>(
+        pts, valid, q_w, mask, feat, cx, cy, cz, inf, n, c, r2);
   return static_cast<int>(cudaGetLastError());
 }

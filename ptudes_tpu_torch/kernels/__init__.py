@@ -42,7 +42,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ptudes_ekf_predict": [_P] * 6 + [_I] + [_F] * 4 + [_P],
     "ptudes_ekf_update": [_P] * 4 + [_I, _P],
-    "ptudes_gn_prep": [_P] * 9 + [_I, _I, _F, _P],
+    "ptudes_gn_prep": [_P] * 9 + [_I, _I, _F, _I, _P],
     "ptudes_icp_loop": [_P] * 8 + [_I, _I] + [_F] * 4 + [_I] * 4 + [_P],
     "ptudes_gn_iter": [_P] * 10 + [_I, _I, _F, _P],
     "ptudes_gather_fused": [_P] * 10 + [_I] * 6 + [_F] * 3 + [_I, _P],

@@ -149,9 +149,13 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
     chunks of ``cap.max_new_per_scan``, ``False`` decimates them to one
     such chunk. The guess is ``cfg.guess``'s (the EKF prediction, the
     batch's ``guess_pose``, or KISS's constant velocity); the deskew twist
-    is the EKF's over the sweep with ``deskew_mode="ekf"``."""
+    is the EKF's over the sweep with ``deskew_mode="ekf"``. The range image
+    is decimated by ``cfg.col_decimation`` columns before the front end
+    (its grid then H x W/d); with ``cfg.map_frozen`` the map is left as it
+    is."""
     check_supported(cfg)
     h, w = lut.direction.shape[:2]
+    d = cfg.col_decimation
     need_twist = cfg.deskew_mode == "ekf" and cfg.kiss.deskew
 
     def scan_step(state: LioState, batch: ScanBatch):
@@ -161,7 +165,7 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
         res = res if need_twist or log else (res,)
         ekf1 = res[0]
         twist = res[1] if need_twist else None
-        pts, mask, ts01 = scan_to_points(lut, batch.range_m)
+        pts, mask, ts01 = scan_to_points(lut, batch.range_m, decimate=d)
         has_imu = torch.any(batch.imu_valid)
         guess = None                          # "kiss": constant velocity
         if cfg.guess == "ekf":
@@ -171,8 +175,8 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
         kiss1, pose, aux = kiss.register_scan(
             state.kiss, pts, mask, ts01, cfg=cfg.kiss, cap=cfg.cap,
             initial_guess=guess, use_guess=guess is not None,
-            deskew_twist=twist, update_ok=has_imu, grid_hw=(h, w),
-            insert_overflow=insert_overflow)
+            deskew_twist=twist, update_ok=has_imu, grid_hw=(h, w // d),
+            insert_overflow=insert_overflow, map_frozen=cfg.map_frozen)
         ekf2 = esekf.process_pose(ekf1, pose, cfg=cfg.ekf)
         ekf_out = esekf.masked_update(ekf1, ekf2, has_imu)
         out = LioOut(
@@ -202,15 +206,22 @@ def run_sequence(state: LioState, batches: ScanBatch, lut: XyzLut, *,
                  ) -> tuple[LioState, LioOut]:
     """Run every scan of ``batches``: the first ``cfg.bootstrap_scans``
     with the whole-frame insert, the rest with the steady insert
-    (``bootstrap_scans < 0``: all bootstrap). ``log=True`` also returns the
+    (``bootstrap_scans < 0``: all bootstrap); with ``cfg.map_frozen``
+    (localisation on a prior map, which has no insert) every scan with
+    the one step the JAX package builds with ``insert_overflow=False``.
+    ``log=True`` also returns the
     IMU-rate filter history in ``LioOut.flog``, shaped [N, K] (filter it
     with ``batches.imu_valid``, :func:`flatten_filter_log`); the carried
     states are the same as without."""
     n = batches.range_m.shape[0]
     k = n if cfg.bootstrap_scans < 0 else min(cfg.bootstrap_scans, n)
-    boot = make_scan_step(lut, cfg, insert_overflow=True, log=log)
-    steady = make_scan_step(lut, cfg, insert_overflow=cfg.steady_insert_mode,
-                            log=log)
+    if cfg.map_frozen:
+        k = 0
+    steady = make_scan_step(
+        lut, cfg, insert_overflow=(False if cfg.map_frozen
+                                   else cfg.steady_insert_mode), log=log)
+    boot = make_scan_step(lut, cfg, insert_overflow=True, log=log) if k \
+        else steady
     rows, logs = [], []
     for i in range(n):
         state, row, *flog = (boot if i < k else steady)(state,

@@ -96,14 +96,9 @@ def prep_selected_torch(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor,
                   for i in range(3))
     inf = torch.where(valid, 0.0, _BIG).to(_F32).reshape(
         n, v * ppv).T.contiguous()
-    if loss == "plane":
-        feat = cuda_gn.plane_feat_torch(pts_w, source_mask, cx, cy, cz, inf,
-                                        radius2)
-    else:
-        feat = torch.cat([torch.zeros((6, n), dtype=_F32, device=pts_w.device),
-                          torch.full((1, n), -1.0, dtype=_F32,
-                                     device=pts_w.device),
-                          source_mask.to(_F32)[None]])
+    feat = (cuda_gn.plane_feat_torch(pts_w, source_mask, cx, cy, cz, inf,
+                                     radius2) if loss == "plane"
+            else cuda_gn.point_feat_torch(source_mask))
     return cuda_gn.PreppedCandidates(feat, cx, cy, cz, inf)
 
 

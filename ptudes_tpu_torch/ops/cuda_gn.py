@@ -113,26 +113,44 @@ def plane_feat_torch(q_w: torch.Tensor, source_mask: torch.Tensor, cx, cy,
                       source_mask.to(_F32)[:, None]], 1).T.contiguous()
 
 
+def point_feat_torch(source_mask: torch.Tensor) -> torch.Tensor:
+    """The feat rows [8, N] of the point loss: no fit, zeros, quality -1 (no
+    correspondence takes the plane row) and the mask
+    (``pallas_gn.py:288-295``)."""
+    n = source_mask.shape[0]
+    dev = source_mask.device
+    return torch.cat([torch.zeros((6, n), dtype=_F32, device=dev),
+                      torch.full((1, n), -1.0, dtype=_F32, device=dev),
+                      source_mask.to(_F32)[None]])
+
+
 def prep_with_plane_torch(cand, source_mask: torch.Tensor,
-                          q_w: torch.Tensor, radius: float
-                          ) -> PreppedCandidates:
+                          q_w: torch.Tensor, radius: float, *,
+                          loss: str = "plane") -> PreppedCandidates:
     """K3's plain twin: :func:`plane_feat_torch` on the lane-major
-    candidates."""
+    candidates, or with ``loss="point"`` :func:`point_feat_torch`."""
     cx, cy, cz, inf = lane_major(cand)
-    return PreppedCandidates(
-        plane_feat_torch(q_w, source_mask, cx, cy, cz, inf,
-                         _radius2(radius)), cx, cy, cz, inf)
+    feat = (plane_feat_torch(q_w, source_mask, cx, cy, cz, inf,
+                             _radius2(radius)) if loss == "plane"
+            else point_feat_torch(source_mask))
+    return PreppedCandidates(feat, cx, cy, cz, inf)
 
 
 def prep_with_plane(cand, source_mask: torch.Tensor, q_w: torch.Tensor,
-                    radius: float) -> PreppedCandidates:
+                    radius: float, *, loss: str = "plane"
+                    ) -> PreppedCandidates:
     """K3: CUDA tensors launch ``gn_prep``, which takes the CandidateSet as
     gathered (``pts`` [N, C, 3] f32, ``valid`` [N, C] bool, read as bytes)
     with ``q_w`` [N, 3] f32 and ``source_mask`` [N] bool, all contiguous,
     and writes feat and the lane-major candidates in one launch; anything
-    else raises. CPU tensors take the twin."""
+    else raises. ``loss="point"`` runs the kernel's instance without the
+    plane fit (feat as :func:`point_feat_torch`). CPU tensors take the
+    twin."""
+    if loss not in ("plane", "point"):
+        raise ValueError(f"gn_prep: loss {loss!r}")
     if kernels.device_kind(q_w, "gn_prep") == "cpu":
-        return prep_with_plane_torch(cand, source_mask, q_w, radius)
+        return prep_with_plane_torch(cand, source_mask, q_w, radius,
+                                     loss=loss)
     n, c = cand.valid.shape
     if cand.pts.shape != (n, c, 3) or q_w.shape != (n, 3) \
             or source_mask.shape != (n,):
@@ -146,7 +164,7 @@ def prep_with_plane(cand, source_mask: torch.Tensor, q_w: torch.Tensor,
         kernels.ptr(cand.valid, "valid", torch.bool), kernels.ptr(q_w, "q_w"),
         kernels.ptr(source_mask, "source_mask", torch.bool),
         *(kernels.ptr(x, name) for x, name in zip(prepped, prepped._fields)),
-        n, c, _radius2(radius))
+        n, c, _radius2(radius), int(loss == "plane"))
     return prepped
 
 
@@ -155,14 +173,10 @@ def prep_candidates(cand, source_mask: torch.Tensor, *,
     """The lane-major candidates with the feat rows taken from ``cand``'s
     own patch plane fit (``pallas_gn.prep_candidates``); ``loss="point"``
     sets quality -1, so no correspondence takes the plane row."""
-    n = cand.pts.shape[0]
-    if loss == "plane":
-        normal, centroid, quality = cand.normal, cand.centroid, cand.quality
-    else:
-        normal = torch.zeros((n, 3), dtype=_F32, device=cand.pts.device)
-        centroid = normal
-        quality = torch.full((n,), -1.0, dtype=_F32, device=cand.pts.device)
-    feat = torch.cat([normal, centroid, quality[:, None],
+    if loss != "plane":
+        return PreppedCandidates(point_feat_torch(source_mask),
+                                 *lane_major(cand))
+    feat = torch.cat([cand.normal, cand.centroid, cand.quality[:, None],
                       source_mask.to(_F32)[:, None]], 1).T.contiguous()
     return PreppedCandidates(feat, *lane_major(cand))
 

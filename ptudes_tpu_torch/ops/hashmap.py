@@ -19,10 +19,8 @@ from typing import NamedTuple
 
 import torch
 
-from .voxel import (compact_with_payload, coord_hash, mix32, recip, to_i32,
-                    voxel_coords)
-
-_INT_MAX = 2 ** 31 - 1
+from .voxel import (INT_MAX, compact_with_payload, coord_hash, mix32,
+                    recip, to_i32, voxel_coords)
 META_W = 8
 QBITS = 10
 QSCALE = 1 << QBITS
@@ -69,6 +67,17 @@ def _fingerprint_and_slot(coords: torch.Tensor, capacity: int
     return to_i32(fp), slot
 
 
+def neighbor_offsets(n: int, device) -> torch.Tensor:
+    """The first ``n`` voxel neighbour offsets ordered by L1 norm (centre,
+    6 faces, 12 edges, 8 corners; ``ptudes_tpu.ops.hashmap``'s order),
+    built on ``device``: a host tensor copied in would synchronise the
+    scan step."""
+    g = torch.arange(27, device=device)
+    o = torch.stack([g // 9 - 1, g // 3 % 3 - 1, g % 3 - 1], 1)
+    order = torch.sort(o.abs().sum(1), stable=True).indices
+    return o[order[:n]].to(torch.int32)
+
+
 def gather_rows(table: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """``table[s]`` with zero rows for ``s`` outside the table."""
     n = table.shape[0]
@@ -105,6 +114,40 @@ def probe(m: VoxelHashMap, keys: torch.Tensor, max_probes: int,
 
 def num_points(m: VoxelHashMap) -> torch.Tensor:
     return m.meta[:, 1].sum()
+
+
+def num_voxels(m: VoxelHashMap) -> torch.Tensor:
+    return (m.meta[:, 1] > 0).sum(dtype=torch.int32)
+
+
+def is_empty(m: VoxelHashMap) -> torch.Tensor:
+    return num_points(m) == 0
+
+
+def reps(m: VoxelHashMap) -> torch.Tensor:
+    """Each slot's representative (first stored) point [C, 3] f32."""
+    return m.meta[:, 2:5].contiguous().view(torch.float32)
+
+
+def stored_points(m: VoxelHashMap, voxel_size: float) -> torch.Tensor:
+    """The whole table decoded to [C, P, 3] f32 (exports and tests; the
+    paths decode only the rows they gather)."""
+    corners = voxel_coords(reps(m), voxel_size)
+    return unpack_points(m.points, corners[:, None, :], voxel_size)
+
+
+def remove_far(m: VoxelHashMap, origin: torch.Tensor,
+               max_range2: torch.Tensor) -> VoxelHashMap:
+    """Evict the voxels whose representative lies farther than
+    sqrt(max_range2) from ``origin`` (kiss ``RemovePointsFarFromLocation``):
+    their fingerprint, count and octant bits are zeroed; the representative
+    and the points stay as dead storage."""
+    d2 = torch.sum((reps(m) - origin) ** 2, -1)
+    evict = (m.meta[:, 1] > 0) & (d2 > max_range2)
+    col = torch.arange(META_W, device=m.meta.device)
+    dead = (col <= 1) | (col == 5)                  # fingerprint, count, octants
+    return VoxelHashMap(
+        meta=torch.where(evict[:, None] & dead, 0, m.meta), points=m.points)
 
 
 def _spare(col: torch.Tensor) -> torch.Tensor:
@@ -162,9 +205,9 @@ def _insert_chunk(state, pts: torch.Tensor, payload: torch.Tensor,
     for r in range(max_probes):
         s = ((ch0 + r) & (cap - 1)).long()
         want = ~resolved & (fps[s] == 0)
-        claim = torch.full((cap,), _INT_MAX, dtype=torch.int32, device=dev)
+        claim = torch.full((cap,), INT_MAX, dtype=torch.int32, device=dev)
         claim = claim.scatter_reduce(
-            0, s, torch.where(want, cidx, _INT_MAX), reduce="amin")
+            0, s, torch.where(want, cidx, INT_MAX), reduce="amin")
         won = want & (claim[s] == cidx)
         fps = fps.index_put((torch.where(won, s, cap),), cfp)
         match = ~resolved & (fps[s] == cfp)
@@ -194,6 +237,65 @@ def _insert_chunk(state, pts: torch.Tensor, payload: torch.Tensor,
     rep_tgt = torch.where(_last_writer(rep_tgt), rep_tgt, cap)
     reps = reps.index_put((rep_tgt,), cpts.view(torch.int32))
     return fps, counts, occ_col, reps, points
+
+
+def insert(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor, *,
+           voxel_size: float, max_probes: int = 2) -> VoxelHashMap:
+    """Insert the masked points with kiss ``VoxelHashMap::AddPoints``
+    semantics: append to the point's voxel until it holds
+    ``max_points_per_voxel`` points. A point first looks its voxel up over
+    the whole probe chain, then unresolved points claim free slots round by
+    round (lowest batch index wins); within a voxel the points go in batch
+    order after the stored ones. The octant column is left as it was."""
+    cap, ppv = m.meta.shape[0], m.points.shape[1]
+    n = pts.shape[0]
+    dev = pts.device
+    coords = voxel_coords(pts, voxel_size)
+    fp, h0 = _fingerprint_and_slot(coords, cap)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+
+    fps = _spare(m.meta[:, 0])
+    slot = torch.full((n,), cap, dtype=torch.int32, device=dev)
+    resolved = ~mask
+    for r in range(max_probes):                 # lookup over the chain
+        s = ((h0 + r) & (cap - 1)).long()
+        match = ~resolved & (fps[s] == fp)
+        slot = torch.where(match, s.to(torch.int32), slot)
+        resolved = resolved | match
+    for r in range(max_probes):                 # claim rounds
+        s = ((h0 + r) & (cap - 1)).long()
+        want = ~resolved & (fps[s] == 0)
+        claim = torch.full((cap,), INT_MAX, dtype=torch.int32, device=dev)
+        claim = claim.scatter_reduce(
+            0, s, torch.where(want, idx, INT_MAX), reduce="amin")
+        won = want & (claim[s] == idx)
+        fps = fps.index_put((torch.where(won, s, cap),), fp)
+        match = ~resolved & (fps[s] == fp)
+        slot = torch.where(match, s.to(torch.int32), slot)
+        resolved = resolved | match
+
+    # rank within the slot, in batch order
+    slot_sorted, order = torch.sort(slot, stable=True)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    start = torch.ones_like(slot_sorted, dtype=torch.bool)
+    start[1:] = slot_sorted[1:] != slot_sorted[:-1]
+    run_start = torch.cummax(torch.where(start, pos, 0), 0).values
+    rank = torch.empty_like(pos).scatter_(0, order, pos - run_start)
+
+    counts = _spare(m.meta[:, 1])
+    write_pos = counts[slot.long()] + rank      # spare row: count 0
+    accept = resolved & (write_pos < ppv)
+    tgt = torch.where(accept, slot, cap).long()
+    points = _spare(m.points).index_put(
+        (tgt, torch.where(accept, write_pos, 0).long()),
+        pack_points(pts, coords, voxel_size))
+    counts = counts.index_add(0, tgt, accept.to(torch.int32))
+    rep_tgt = torch.where(accept & (write_pos == 0), slot, cap).long()
+    reps_i32 = _spare(m.meta[:, 2:5]).index_put(
+        (rep_tgt,), pts.contiguous().view(torch.int32))
+    meta = torch.cat([fps[:cap, None], counts[:cap, None], reps_i32[:cap],
+                      m.meta[:, 5:]], 1)
+    return VoxelHashMap(meta=meta, points=points[:cap])
 
 
 def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
@@ -277,3 +379,78 @@ def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
     meta = torch.cat([fps[:, None], counts[:, None], reps, occ_col[:, None],
                       m.meta[:, 6:]], 1)
     return VoxelHashMap(meta=meta, points=points)
+
+
+class QueryResult(NamedTuple):
+    nn: torch.Tensor     # [M, 3] nearest stored point (0 if none)
+    d2: torch.Tensor     # [M] squared distance (inf if none)
+    found: torch.Tensor  # [M] bool
+    slot: torch.Tensor   # [M] int32 slot of nn's voxel (capacity if none)
+
+
+def argmin_select(d2: torch.Tensor, pts3: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(min of ``d2`` [M, K] over K, the point of ``pts3`` [M, K, 3] at its
+    first argmin)."""
+    dmin, j = torch.min(d2, -1, keepdim=True)
+    nn = pts3.gather(1, j[..., None].expand(-1, 1, 3))[:, 0]
+    return dmin[:, 0], nn
+
+
+def _voxel_nn(m: VoxelHashMap, q: torch.Tensor, sl: torch.Tensor,
+              rep: torch.Tensor, ok: torch.Tensor, voxel_size: float
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The nearest of voxel ``sl``'s stored points to each query (the voxel
+    decoded from its representative ``rep``): (d2, point); d2 inf where
+    the voxel holds none or ``ok`` is False."""
+    ppv = m.points.shape[1]
+    vox_pts = unpack_points(gather_rows(m.points, sl),
+                            voxel_coords(rep, voxel_size)[:, None, :],
+                            voxel_size)                       # [M, P, 3]
+    cnt = gather_rows(m.meta, sl)[:, 1]
+    d2 = torch.sum((vox_pts - q[:, None, :]) ** 2, -1)
+    valid = (torch.arange(ppv, device=q.device)[None, :] < cnt[:, None]) \
+        & ok[:, None]
+    return argmin_select(torch.where(valid, d2, torch.inf), vox_pts)
+
+
+def query(m: VoxelHashMap, q: torch.Tensor, *, voxel_size: float,
+          max_probes: int = 2, approx: bool = True,
+          neighborhood: int = 27) -> QueryResult:
+    """The nearest stored point to each query [M, 3] over its voxel's
+    ``neighborhood`` (27: the cube; 7: centre and faces), kiss-icp
+    ``GetClosestNeighbor`` semantics, with the slot of the winning voxel.
+    ``approx``: only two voxels are searched point by point, the one whose
+    representative is nearest and the query's own (exact self-matches);
+    otherwise all of them."""
+    if neighborhood not in (7, 27):
+        raise ValueError(f"query: neighborhood {neighborhood} (7 or 27)")
+    cap = m.meta.shape[0]
+    mnum = q.shape[0]
+    dev = q.device
+    keys = voxel_coords(q, voxel_size)[:, None, :] \
+        + neighbor_offsets(neighborhood, dev)[None]
+    found_slot, _, rep, found = probe(m, keys, max_probes, miss_slot=cap)
+    if approx:
+        rep_d2 = torch.where(
+            found, torch.sum((rep - q[:, None, :]) ** 2, -1), torch.inf)
+        rd_min, j = torch.min(rep_d2, -1, keepdim=True)
+        cands = ((found_slot.gather(1, j)[:, 0],
+                  rep.gather(1, j[..., None].expand(mnum, 1, 3))[:, 0],
+                  torch.isfinite(rd_min[:, 0])),
+                 (found_slot[:, 0], rep[:, 0], found[:, 0]))
+    else:
+        cands = [(found_slot[:, k], rep[:, k], found[:, k])
+                 for k in range(neighborhood)]
+    best_d2 = torch.full((mnum,), torch.inf, dtype=torch.float32, device=dev)
+    best_nn = torch.zeros((mnum, 3), dtype=torch.float32, device=dev)
+    win = torch.full((mnum,), cap, dtype=torch.int32, device=dev)
+    for sl, rp, ok in cands:
+        dmin, nn = _voxel_nn(m, q, sl, rp, ok, voxel_size)
+        better = dmin < best_d2
+        best_nn = torch.where(better[:, None], nn, best_nn)
+        win = torch.where(better, sl, win)
+        best_d2 = torch.where(better, dmin, best_d2)
+    ok = torch.isfinite(best_d2)
+    return QueryResult(torch.where(ok[:, None], best_nn, 0.0), best_d2, ok,
+                       win)

@@ -1,10 +1,11 @@
-"""Robust ICP against the voxel hash map, cached-candidate form
-(``ptudes_tpu.ops.icp``).
+"""Robust ICP against the voxel hash map (``ptudes_tpu.ops.icp``).
 
-Per registration: gather each source point's candidates at the guess pose
-(top-V voxels of its neighbourhood by representative distance) with a
-patch plane per point, then run the robust point-to-plane / point-to-point
-Gauss-Newton loop against them. Two forms:
+Cached candidates (``nn_mode="cached"``, :func:`register_frame_cached`):
+gather each source point's candidates at the guess pose (top-V voxels of
+its neighbourhood by representative distance) with a patch plane per
+point, then run the robust Gauss-Newton loop against them, point-to-plane
+(``loss="plane"``, point-to-point where the patch is not planar) or
+point-to-point (``loss="point"``). Two forms:
 
 - frozen candidates (``refresh_drift == 0``): one gather, the plane fit in
   K3 and the whole loop in K4 (``ops.cuda_gn``, ``ops.cuda_icp``); with
@@ -17,6 +18,12 @@ Gauss-Newton loop against them. Two forms:
 
 ``KissConfig.icp_form`` says whether the kernels or their plain PyTorch
 twins run.
+
+A map query every iteration (``nn_mode="every"``, :func:`register_frame`):
+kiss-icp's own registration, ``hashmap.query`` at the current pose each GN
+iteration, the plane fitted per matched voxel. The JAX package has no
+kernel on this path; here it is plain torch with one host read a GN
+iteration (:func:`read_flags`) for the early exit.
 """
 from __future__ import annotations
 
@@ -27,8 +34,9 @@ import torch
 from ..geom import se3, so3
 from ..geom.linalg import solve_spd6
 from . import hashmap
-from .plane import smallest_eigvec_sym3
-from .voxel import voxel_coords
+from .hashmap import neighbor_offsets
+from .plane import smallest_eigvec_sym3, voxel_plane
+from .voxel import recip, voxel_coords
 
 
 class IcpResult(NamedTuple):
@@ -47,17 +55,6 @@ class CandidateSet(NamedTuple):
     quality: torch.Tensor   # [M] planarity in [0, 1]
 
 
-def neighbor_offsets(n: int, device) -> torch.Tensor:
-    """The first ``n`` voxel neighbour offsets ordered by L1 norm (centre,
-    6 faces, 12 edges, 8 corners; ``ptudes_tpu.ops.hashmap``'s order),
-    built on ``device``: a host tensor copied in would synchronise the
-    scan step."""
-    g = torch.arange(27, device=device)
-    o = torch.stack([g // 9 - 1, g // 3 % 3 - 1, g % 3 - 1], 1)
-    order = torch.sort(o.abs().sum(1), stable=True).indices
-    return o[order[:n]].to(torch.int32)
-
-
 def gather_candidates(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor, *,
                       voxel_size: float, max_probes: int = 2,
                       neighborhood: int = 27, n_voxels: int = 4,
@@ -66,16 +63,25 @@ def gather_candidates(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor, *,
     """The ``n_voxels`` nearest neighbour voxels' decoded point lists per
     query point, ranked by representative-point distance; with
     ``fit_planes`` also the per-point patch plane fit within
-    ``plane_radius`` (default 1.5 * voxel_size)."""
-    if neighborhood not in (7, 27):
-        raise NotImplementedError(
-            f"neighborhood={neighborhood} is not ported; see ROADMAP.md")
+    ``plane_radius`` (default 1.5 * voxel_size). ``neighborhood`` 7 or 27
+    is the centre and faces or the cube; 4 is octant-directed, the centre
+    and the three face neighbours on the query's side of its voxel."""
     cap = vmap_.meta.shape[0]
     ppv = vmap_.points.shape[1]
     mnum = pts_w.shape[0]
     dev = pts_w.device
     qc = voxel_coords(pts_w, voxel_size)
-    keys = qc[:, None, :] + neighbor_offsets(neighborhood, dev)[None]
+    if neighborhood == 4:
+        frac = pts_w * recip(voxel_size) - qc.to(pts_w.dtype)
+        side = torch.where(frac >= 0.5, 1, -1).to(torch.int32)  # [M, 3]
+        axes = torch.eye(3, dtype=torch.int32, device=dev)
+        offsets = torch.cat([torch.zeros_like(side)[:, None],
+                             side[:, None, :] * axes[None]], 1)  # [M, 4, 3]
+        keys = qc[:, None, :] + offsets
+    elif neighborhood in (7, 27):
+        keys = qc[:, None, :] + neighbor_offsets(neighborhood, dev)[None]
+    else:
+        raise ValueError(f"neighborhood {neighborhood} (4, 7 or 27)")
     found_slot, cnt, rep, found = hashmap.probe(vmap_, keys, max_probes,
                                                 miss_slot=cap)
 
@@ -119,45 +125,58 @@ def gather_candidates(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor, *,
     return CandidateSet(cpts, cvalid, normal, centroid, quality)
 
 
-def _argmin_select(d2: torch.Tensor, pts3: torch.Tensor
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(min over the candidate axis, the point at its first argmin)."""
-    dmin, j = torch.min(d2, -1, keepdim=True)
-    nn = pts3.gather(1, j[..., None].expand(-1, 1, 3))[:, 0]
-    return dmin[:, 0], nn
-
-
 def gn_from_candidates(t_cur: torch.Tensor, source: torch.Tensor,
                        source_mask: torch.Tensor, cand: CandidateSet,
                        kernel: torch.Tensor, max_d2: torch.Tensor, *,
-                       plane_min_quality: float):
-    """One GN normal-equation build against fixed candidates, plane loss:
-    (jtj [6, 6], jtr [6], n_corr, total weight)."""
-    n = source.shape[0]
-    dev = source.device
+                       plane_min_quality: float, loss: str = "plane"):
+    """One GN normal-equation build against fixed candidates: (jtj [6, 6],
+    jtr [6], n_corr, total weight). ``loss="plane"`` takes the plane row
+    where the patch fit's quality reaches ``plane_min_quality``, the point
+    rows elsewhere; ``"point"`` the point rows everywhere."""
     pts_w = se3.transform(t_cur, source)
     d2 = torch.sum((cand.pts - pts_w[:, None, :]) ** 2, -1)
     d2 = torch.where(cand.valid, d2, torch.inf)
-    d2min, nn = _argmin_select(d2, cand.pts)
+    d2min, nn = hashmap.argmin_select(d2, cand.pts)
     corr = source_mask & torch.isfinite(d2min) & (d2min <= max_d2)
-    r_vec = pts_w - nn
-    k2 = kernel * kernel
+    if loss == "plane":
+        return _robust_system(pts_w, nn, d2min, corr, kernel, cand.normal,
+                              cand.centroid, cand.quality,
+                              plane_min_quality)
+    return _robust_system(pts_w, nn, d2min, corr, kernel)
 
-    use_plane = corr & (cand.quality >= plane_min_quality)
-    s = torch.sum(cand.normal * (pts_w - cand.centroid), -1)
-    w_pl = torch.where(use_plane, k2 / torch.square(kernel + s * s), 0.0)
-    row = torch.cat([torch.linalg.cross(pts_w, cand.normal), cand.normal], -1)
-    jtj_pl = (row * w_pl[:, None]).T @ row
-    jtr_pl = (row * w_pl[:, None]).T @ s
-    use_point = corr & ~use_plane
+
+def _robust_system(pts_w, nn, d2min, corr, kernel, normal=None,
+                   centroid=None, quality=None, plane_min_quality=0.0):
+    """The robust GN system of the correspondences ``corr`` (query
+    ``pts_w``, nearest point ``nn`` at squared distance ``d2min``): plane
+    rows where a plane (``normal``, ``centroid``) of ``quality`` at least
+    ``plane_min_quality`` is given, point rows elsewhere; weights
+    kernel^2 / (kernel + r^2)^2. Returns (jtj, jtr, n_corr int32, total
+    weight)."""
+    n = pts_w.shape[0]
+    dev = pts_w.device
+    k2 = kernel * kernel
+    use_point = corr
+    jtj = torch.zeros((6, 6), dtype=torch.float32, device=dev)
+    jtr = torch.zeros((6,), dtype=torch.float32, device=dev)
+    total_w = torch.zeros((), dtype=torch.float32, device=dev)
+    if normal is not None:
+        use_plane = corr & (quality >= plane_min_quality)
+        s = torch.sum(normal * (pts_w - centroid), -1)
+        w_pl = torch.where(use_plane, k2 / torch.square(kernel + s * s), 0.0)
+        row = torch.cat([torch.linalg.cross(pts_w, normal), normal], -1)
+        jtj = (row * w_pl[:, None]).T @ row
+        jtr = (row * w_pl[:, None]).T @ s
+        total_w = w_pl.sum()
+        use_point = corr & ~use_plane
 
     w_pt = torch.where(use_point, k2 / torch.square(kernel + d2min), 0.0)
     eye3 = torch.eye(3, dtype=torch.float32, device=dev).expand(n, 3, 3)
     j = torch.cat([-so3.hat(pts_w), eye3], -1)                # [N, 3, 6]
     jw = j * w_pt[:, None, None]
-    jtj = torch.einsum("nij,nik->jk", jw, j) + jtj_pl
-    jtr = torch.einsum("nij,ni->j", jw, r_vec) + jtr_pl
-    return jtj, jtr, corr.sum(dtype=torch.int32), w_pt.sum() + w_pl.sum()
+    jtj = torch.einsum("nij,nik->jk", jw, j) + jtj
+    jtr = torch.einsum("nij,ni->j", jw, pts_w - nn) + jtr
+    return jtj, jtr, corr.sum(dtype=torch.int32), w_pt.sum() + total_w
 
 
 def drift_metric(t_gather: torch.Tensor, t_cur: torch.Tensor
@@ -223,6 +242,7 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
                           max_distance: torch.Tensor, kernel: torch.Tensor,
                           *, voxel_size: float, max_probes: int = 2,
                           max_iterations: int = 50, convergence: float = 1e-4,
+                          loss: str = "plane",
                           plane_min_quality: float = 0.2,
                           prior_rot_weight: float = 0.0,
                           prior_trans_weight: float = 0.0,
@@ -231,40 +251,46 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
                           refresh_drift: float = 0.0,
                           fused_gather: bool = False,
                           form: str = "torch") -> IcpResult:
-    """Cached-candidate robust GN ICP, plane loss.
+    """Cached-candidate robust GN ICP, ``loss`` "plane" or "point".
 
     ``refresh_drift == 0``: the candidates gathered at the guess stay
     frozen; ``form="cuda"`` runs the candidate prep (K3) and the loop (K4)
     through their kernel wrappers (which take the twins for CPU tensors),
     ``"torch"`` the twins on any device. ``fused_gather``: the gather and
     the prep are K6 (``cuda_gather.gather_prep_fused``, or its twin for
-    ``"torch"``) instead of :func:`gather_candidates` and K3.
+    ``"torch"``) instead of :func:`gather_candidates` and K3, for the 7-
+    and 27-neighbourhoods; the octant neighbourhood (4) keeps the gather
+    and K3 with ``fused_gather`` too, as the JAX package routes it
+    (``ptudes_tpu/ops/icp.py:405-407``), so K6 does not launch there.
+    With ``loss="point"`` K3 and K6 skip the patch fit.
     ``refresh_drift > 0``: :func:`_register_refresh`, which always gathers
     with :func:`gather_candidates` (``fused_gather`` has no effect there,
     as in the JAX package)."""
     from . import cuda_gather, cuda_gn, cuda_icp
     if form not in ("cuda", "torch"):
         raise ValueError(f"unknown icp form {form!r}")
+    if loss not in ("plane", "point"):
+        raise ValueError(f"unknown loss {loss!r}")
     guess = initial_guess.to(torch.float32)
     if refresh_drift > 0.0:
         return _register_refresh(
             source, source_mask, vmap_, guess, max_distance * max_distance,
             kernel, voxel_size=voxel_size, max_probes=max_probes,
             max_iterations=max_iterations, convergence=convergence,
-            plane_min_quality=plane_min_quality,
+            loss=loss, plane_min_quality=plane_min_quality,
             prior_rot_weight=prior_rot_weight,
             prior_trans_weight=prior_trans_weight,
             neighborhood=neighborhood, n_voxels=n_voxels,
             plane_radius=plane_radius, refresh_drift=refresh_drift,
             form=form)
     r = 1.5 * voxel_size if plane_radius is None else plane_radius
-    if fused_gather:
+    if fused_gather and neighborhood in (7, 27):
         fused = (cuda_gather.gather_prep_fused if form == "cuda"
                  else cuda_gather.gather_prep_fused_torch)
         prepped = fused(vmap_, source, source_mask, guess,
                         voxel_size=voxel_size, max_probes=max_probes,
                         neighborhood=neighborhood, n_voxels=n_voxels,
-                        plane_radius=r)
+                        plane_radius=r, loss=loss)
     else:
         q_w = se3.transform(guess, source)
         cand = gather_candidates(
@@ -272,7 +298,7 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
             neighborhood=neighborhood, n_voxels=n_voxels, fit_planes=False)
         prep = (cuda_gn.prep_with_plane if form == "cuda"
                 else cuda_gn.prep_with_plane_torch)
-        prepped = prep(cand, source_mask, q_w, r)
+        prepped = prep(cand, source_mask, q_w, r, loss=loss)
     loop = cuda_icp.icp_loop if form == "cuda" else cuda_icp.icp_loop_torch
     pose, n_corr, iters, dev_t, dev_r = loop(
         source, prepped, guess, kernel, max_distance * max_distance,
@@ -284,7 +310,7 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
 
 def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
                       voxel_size, max_probes, max_iterations, convergence,
-                      plane_min_quality, prior_rot_weight,
+                      loss, plane_min_quality, prior_rot_weight,
                       prior_trans_weight, neighborhood, n_voxels,
                       plane_radius, refresh_drift, form) -> IcpResult:
     """The refresh loop (``ptudes_tpu.ops.icp.register_frame_cached`` with
@@ -305,8 +331,9 @@ def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
         cand = gather_candidates(
             vmap_, se3.transform(t_at, source), voxel_size=voxel_size,
             max_probes=max_probes, neighborhood=neighborhood,
-            n_voxels=n_voxels, fit_planes=True, plane_radius=plane_radius)
-        return cuda_gn.prep_candidates(cand, source_mask)
+            n_voxels=n_voxels, fit_planes=loss == "plane",
+            plane_radius=plane_radius)
+        return cuda_gn.prep_candidates(cand, source_mask, loss=loss)
 
     guess_inv = se3.inv(guess)
     prepped = fetch(guess)
@@ -326,6 +353,71 @@ def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
         jtj, jtr, n_corr, total_w = gn(t_cur, source, prepped, kernel,
                                        max_d2,
                                        plane_min_quality=plane_min_quality)
+        dx = gn_twist(t_cur, guess_inv, jtj, jtr, total_w,
+                      prior_rot_weight=prior_rot_weight,
+                      prior_trans_weight=prior_trans_weight)
+        t_cur = se3.exp_twist(dx) @ t_cur
+        converged = torch.linalg.vector_norm(dx) < convergence
+        iters += 1
+    dev_pose = guess_inv @ t_cur
+    return IcpResult(
+        t_cur, n_corr,
+        torch.full((), iters, dtype=torch.int32, device=source.device),
+        torch.linalg.vector_norm(se3.trans(dev_pose)),
+        torch.linalg.vector_norm(so3.log_rotmat(se3.rot(dev_pose))))
+
+
+def register_frame(source: torch.Tensor, source_mask: torch.Tensor,
+                   vmap_: hashmap.VoxelHashMap, initial_guess: torch.Tensor,
+                   max_distance: torch.Tensor, kernel: torch.Tensor, *,
+                   voxel_size: float, max_probes: int = 4,
+                   max_iterations: int = 50, convergence: float = 1e-4,
+                   approx: bool = True, loss: str = "point",
+                   plane_min_quality: float = 0.2,
+                   prior_rot_weight: float = 0.0,
+                   prior_trans_weight: float = 0.0,
+                   neighborhood: int = 27) -> IcpResult:
+    """Robust GN ICP with a map query every iteration
+    (``ptudes_tpu.ops.icp.register_frame``, ``nn_mode="every"``).
+
+    Per iteration: ``hashmap.query`` of the source at the current pose
+    (``approx``, ``neighborhood``), correspondences within
+    ``max_distance``, point rows (``loss="point"``) or plane rows from the
+    matched voxel's own plane (``plane.voxel_plane``, point rows where it
+    is not planar), the motion prior toward the guess, the Tikhonov floor,
+    the solve and the SE(3) update; it stops once the update is shorter
+    than ``convergence``. The JAX package's ``while_loop`` reads that
+    flag on the device; here the host reads it through :func:`read_flags`,
+    once an iteration from the second on."""
+    if loss not in ("plane", "point"):
+        raise ValueError(f"unknown loss {loss!r}")
+    max_d2 = max_distance * max_distance
+    guess = initial_guess.to(torch.float32)
+    guess_inv = se3.inv(guess)
+    t_cur = guess
+    n_corr = torch.zeros((), dtype=torch.int32, device=source.device)
+    iters = 0
+    while iters < max_iterations:
+        if iters > 0 and not read_flags((~converged)[None])[0]:
+            break
+        pts_w = se3.transform(t_cur, source)
+        res = hashmap.query(vmap_, pts_w, voxel_size=voxel_size,
+                            max_probes=max_probes, approx=approx,
+                            neighborhood=neighborhood)
+        corr = source_mask & res.found & (res.d2 <= max_d2)
+        if loss == "plane":
+            # res.nn lies in the winning voxel: its floor is the voxel
+            vox_pts = hashmap.unpack_points(
+                hashmap.gather_rows(vmap_.points, res.slot),
+                voxel_coords(res.nn, voxel_size)[:, None, :], voxel_size)
+            cnt = hashmap.gather_rows(vmap_.meta, res.slot)[:, 1]
+            normal, centroid, quality = voxel_plane(vox_pts, cnt)
+            jtj, jtr, n_corr, total_w = _robust_system(
+                pts_w, res.nn, res.d2, corr, kernel, normal, centroid,
+                quality, plane_min_quality)
+        else:
+            jtj, jtr, n_corr, total_w = _robust_system(
+                pts_w, res.nn, res.d2, corr, kernel)
         dx = gn_twist(t_cur, guess_inv, jtj, jtr, total_w,
                       prior_rot_weight=prior_rot_weight,
                       prior_trans_weight=prior_trans_weight)

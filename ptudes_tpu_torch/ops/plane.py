@@ -1,4 +1,6 @@
-"""Closed-form plane fit primitive (``ptudes_tpu.ops.plane``)."""
+"""Closed-form plane fits (``ptudes_tpu.ops.plane``): the smallest eigenpair
+of a symmetric 3x3 and the per-voxel fit of ``nn_mode="every"``'s plane
+loss."""
 from __future__ import annotations
 
 import math
@@ -38,3 +40,19 @@ def smallest_eigvec_sym3(a: torch.Tensor
     vn = torch.sqrt(torch.clamp(torch.sum(v * v, -1, keepdim=True), min=eps))
     quality = (l2 - l3) / torch.clamp(l1, min=eps)
     return v / vn, torch.clamp(quality, 0.0, 1.0)
+
+
+def voxel_plane(vox_pts: torch.Tensor, cnt: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A plane per voxel point list [M, P, 3] with ``cnt`` [M] valid
+    points: (unit normal [M, 3], centroid [M, 3], planarity [M], zero where
+    fewer than 4 points)."""
+    ppv = vox_pts.shape[1]
+    valid = torch.arange(ppv, device=vox_pts.device)[None, :] < cnt[:, None]
+    w = valid.to(vox_pts.dtype)
+    n = torch.clamp(cnt.to(vox_pts.dtype), min=1.0)
+    centroid = (vox_pts * w[..., None]).sum(1) / n[:, None]
+    d = (vox_pts - centroid[:, None, :]) * w[..., None]
+    cov = torch.einsum("mpi,mpj->mij", d, d) / n[:, None, None]
+    normal, quality = smallest_eigvec_sym3(cov)
+    return normal, centroid, torch.where(cnt >= 4, quality, 0.0)

@@ -53,13 +53,37 @@ def make_xyz_lut_np(w: int, h: int, beam_altitude_deg, beam_azimuth_deg,
     return direction @ r3.T, offset @ r3.T + t3
 
 
-def scan_to_points(lut: XyzLut, range_m: torch.Tensor
+def scan_to_points(lut: XyzLut, range_m: torch.Tensor, decimate: int = 1
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Range image [H, W] (0 = no return) -> flat points [H*W, 3], mask
-    [H*W] and per-column normalized timestamps [H*W] in [0, 1)."""
+    """Range image [H, W] (0 = no return) -> flat points [H*W/d, 3], mask
+    [H*W/d] and per-column normalized timestamps [H*W/d] in [0, 1).
+
+    ``decimate`` d > 1 keeps, per beam row, the first valid return of each
+    group of d adjacent columns: its exact direction, offset, range and
+    column timestamp (column 0 of the group where none is valid, masked
+    out)."""
     h, w = range_m.shape
-    pts = (lut.direction * range_m[..., None] + lut.offset).reshape(h * w, 3)
-    mask = (range_m > 0).reshape(h * w)
-    ts = (torch.arange(w, dtype=torch.float32, device=range_m.device)
-          / w).repeat(h)
+    dev = range_m.device
+    if decimate == 1:
+        pts = (lut.direction * range_m[..., None]
+               + lut.offset).reshape(h * w, 3)
+        mask = (range_m > 0).reshape(h * w)
+        ts = (torch.arange(w, dtype=torch.float32, device=dev) / w).repeat(h)
+        return pts, mask, ts
+    if decimate < 1 or w % decimate:
+        raise ValueError(f"decimate {decimate} must divide the width {w}")
+    g = w // decimate
+    rm = range_m.reshape(h, g, decimate)
+    valid = rm > 0
+    col = torch.arange(decimate, device=dev)
+    k = torch.where(valid, col, decimate).amin(-1)
+    k = torch.where(k == decimate, 0, k)                   # [h, g]
+    r = rm.gather(-1, k[..., None])[..., 0]
+    kk = k[..., None, None].expand(h, g, 1, 3)
+    d = lut.direction.reshape(h, g, decimate, 3).gather(2, kk)[:, :, 0]
+    o = lut.offset.reshape(h, g, decimate, 3).gather(2, kk)[:, :, 0]
+    pts = (d * r[..., None] + o).reshape(h * g, 3)
+    mask = valid.any(-1).reshape(h * g)
+    cols = torch.arange(g, device=dev)[None, :] * decimate + k
+    ts = (cols.to(torch.float32) / w).reshape(h * g)
     return pts, mask, ts

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
+INT_MAX = 2 ** 31 - 1
 _H1, _H2, _H3 = 73856093, 19349669, 83492791
 _C1, _C2 = 0x85EBCA6B, 0xC2B2AE35
 _G1, _G2 = 0x9E3779B9, 0x517CC1B7
@@ -90,6 +91,33 @@ def window_prededup_mask(pts: torch.Tensor, mask: torch.Tensor,
                 sh_m = sh_m & (row >= -dr)[:, None]
             keep = keep & ~((sh_ids == ids) & sh_m)
     return keep.reshape(h * w)
+
+
+def first_in_voxel_mask(pts: torch.Tensor, mask: torch.Tensor,
+                        voxel_size: float, table_size: int) -> torch.Tensor:
+    """The first valid point of each voxel (scan order) through a
+    ``table_size`` scratch table: each point's index is scatter-min'ed into
+    its voxel's ``spatial_hash`` slot, and a point survives iff it holds
+    its slot. Two voxels sharing a slot keep only the earlier one's first
+    point, as in the JAX package."""
+    n = pts.shape[0]
+    slots = spatial_hash(voxel_coords(pts, voxel_size), table_size).long()
+    idx = torch.arange(n, dtype=torch.int32, device=pts.device)
+    cand = torch.where(mask, idx, INT_MAX)
+    table = torch.full((table_size,), INT_MAX, dtype=torch.int32,
+                       device=pts.device)
+    table = table.scatter_reduce(0, slots, cand, reduce="amin",
+                                 include_self=True)
+    return mask & (table[slots] == idx)
+
+
+def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor,
+                     voxel_size: float, capacity: int, table_size: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """First point per voxel (:func:`first_in_voxel_mask`), compacted into a
+    [capacity, 3] buffer in scan order."""
+    keep = first_in_voxel_mask(pts, mask, voxel_size, table_size)
+    return compact(pts, keep, capacity)
 
 
 def _take_pad(col: torch.Tensor, capacity: int) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """State carried across packages: numpy <-> the port's tensors.
 
 The LIO state travels as the flattened leaves of the JAX package's
-``LioState`` pytree, keyed ``leaf_000`` ... ``leaf_014`` in its flatten
+``LioState`` pytree, keyed ``leaf_000`` ... ``leaf_015`` in its flatten
 order — the keys ``ptudes_tpu.utils.checkpoint.save_state`` writes, so a
 JAX checkpoint's ``np.load`` result converts directly (the JSON
 ``__meta__`` entry is ignored).
@@ -52,13 +52,18 @@ def lio_state_from_numpy(tree, device) -> LioState:
         ekf=EkfState(*t[7:]))
 
 
+def lio_state_leaves(state: LioState) -> list[torch.Tensor]:
+    """The state's tensors in ``LEAVES`` order."""
+    k = state.kiss
+    return [k.local_map.meta, k.local_map.points, k.pose, k.pose_prev,
+            k.model_sse, k.num_samples, k.num_scans, *state.ekf]
+
+
 def lio_state_to_numpy(state: LioState) -> dict[str, np.ndarray]:
     """The inverse: ``leaf_000 ...`` -> numpy array."""
-    k, e = state.kiss, state.ekf
-    leaves = [k.local_map.meta, k.local_map.points, k.pose, k.pose_prev,
-              k.model_sse, k.num_samples, k.num_scans, *e]
     return {leaf_key(i): x.detach().cpu().numpy().astype(dt)
-            for i, (x, (_, dt)) in enumerate(zip(leaves, LEAVES))}
+            for i, (x, (_, dt)) in enumerate(zip(lio_state_leaves(state),
+                                                 LEAVES))}
 
 
 def lut_from_numpy(lut, device) -> XyzLut:

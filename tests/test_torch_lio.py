@@ -224,23 +224,6 @@ def test_cuda_device_is_not_a_fallback():
         convert.lut_from_numpy(sim.make_sim_sensor(4, 8).lut, "cuda")
 
 
-@pytest.mark.parametrize("change", [
-    dict(col_decimation=2), dict(map_frozen=True),
-    dict(kiss=dict(nn_mode="every")), dict(kiss=dict(loss="point")),
-    dict(kiss=dict(nn_neighborhood=4)),
-])
-def test_unported_options_raise(run, change):
-    cfg = port_config()
-    for part in ("kiss", "ekf"):
-        if part in change:
-            change = dict(change, **{part: dataclasses.replace(
-                getattr(cfg, part), **change[part])})
-    cfg = dataclasses.replace(cfg, **change)
-    with pytest.raises(NotImplementedError):
-        lio.run_sequence(lio.init_state(cfg, "cpu"), run["batches"],
-                         run["lut"], cfg=cfg)
-
-
 def test_bench_config_matches_bench_py():
     """The port's bench_config carries bench.py's values; only the JAX-only
     knobs are dropped and the kernel forms renamed."""

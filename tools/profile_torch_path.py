@@ -45,21 +45,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-
-def busy_us(events) -> float:
-    """Length of the union of the device kernel intervals (us)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
+from chip_smoke import busy_us  # noqa: E402
 
 
 def make_config(name: str, h: int, w: int):
