@@ -79,7 +79,22 @@ Phases, each reported on its own line:
      ``kiss.register_scan`` alone at ``KissConfig()``'s defaults with
      ``nn_mode="every"``, ``loss="point"`` and no grid (no kernel; the
      first 13 scans, which the JAX run tracks); one JSON line of the runs'
-     summaries with the card's name and power limit.
+     summaries with the card's name and power limit;
+  9. the recording path through the port's command line: the bench scene
+     written as an Ouster recording (``tools/make_torch_fixture.py``'s
+     ``bench`` writer: a LEGACY pcap in 1024x10 mode, IP-fragmented, epoch
+     timestamps, ranges in mm, its metadata and ground truth) in a temp
+     dir, its LUT the scene sensor's, decoded by the native and by the
+     numpy decoder (the same arrays; both times printed); ``ekf-bench
+     ouster --use-imu-prediction -g gt.csv --save-kitti-poses`` on the
+     card, in batch (the native decoder; K1 once a scan and K5 once a GN
+     iteration over the command's two runs, no other kernel) and with
+     ``--online`` (its poses bit-equal to the batch run's, or the largest
+     difference printed; latency p50/p95/p99), every saved pose within
+     0.02 m of ``tests/data/cli_pcap_jax_poses.txt`` (the JAX command's on
+     the same file) and the printed ATE RMSE within the JAX run's + 0.005
+     m; ``stat`` on the file; one JSON line of the decode times, scans/s
+     and latencies with the card's name and power limit.
 Phase 3 also holds K3's point mode (``loss="point"``: the instance without
 the fit) bit for bit against its twin, K4 on its point rows and K5 on
 point rows at the CLI shapes; phase 2 prints the SASS instruction count of
@@ -96,6 +111,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -1755,6 +1771,155 @@ def run_phase8(scene, dev, bench_out, card: str
     return by_path
 
 
+# --------------------------------------------------------------- phase 9
+
+def run_recording_path(scene, dev, card: str) -> dict[str, dict[str, int]]:
+    """Phase 9: the recording path through the port's command line. The
+    bench scene is written as an Ouster recording (``tools/
+    make_torch_fixture.py``'s ``bench`` writer: a LEGACY pcap, 1024x10, IP-
+    fragmented, epoch timestamps, its metadata and ground truth) into a
+    temp dir, decoded by the native and the numpy decoders (the same
+    arrays; both times printed, set-up not step time), then run through
+    ``ekf-bench ouster --use-imu-prediction -g gt.csv --save-kitti-poses``
+    on the card in batch (its two runs: K1 once a scan, K5 once a GN
+    iteration, K2, K3, K4 and K6 never; the native decoder) and with
+    ``--online`` (K1 once a scan, K5 once a GN iteration; poses bit-equal
+    to the batch run's, else the largest difference and the first scan
+    where they part are printed), and ``stat`` on the same file. Every
+    pose within 0.02 m of ``tests/data/cli_pcap_jax_poses.txt`` and the
+    printed ATE RMSE within the JAX run's + 0.005 m. Prints one JSON line
+    of the decode times, scans/s and latencies with the card. Returns the
+    launches of the batch and the online runs."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import make_torch_fixture
+    from ptudes_tpu_torch import native
+    from ptudes_tpu_torch.cli import main as cli
+    from ptudes_tpu_torch.io import metadata, sources
+
+    sensor = scene[0]
+    ref_path, ref = ref_poses("cli_pcap")
+    jax_ate = reference_ate(ref_path)
+    tmp = tempfile.mkdtemp(prefix="ptudes_rec_")
+    try:
+        t = time.monotonic()
+        rec, meta, gt = make_torch_fixture.bench(tmp, scene=scene)
+        t_write = time.monotonic() - t
+        rec_bytes = os.path.getsize(rec)
+        info = metadata.read_metadata_json(meta)
+        lut = cli.nav_frame_lut(info, dev)
+        want = convert.lut_from_numpy(sensor.lut, dev)
+        check(all(torch.equal(a, b) for a, b in zip(lut, want)),
+              "9: the recording's LUT is not the scene sensor's")
+        # the library builds at first use: build it before the timed
+        # decodes, which alternate (native, numpy, native, numpy)
+        t = time.monotonic()
+        check(native.get_lib() is not None, "9: the native decoder did "
+              "not build")
+        native_build_s = time.monotonic() - t
+        decode, first = {"native": [], "numpy": []}, None
+        for name in ("native", "numpy") * 2:
+            ctx = native.numpy_only() if name == "numpy" \
+                else contextlib.nullcontext()
+            with ctx:
+                t = time.monotonic()
+                scans, imu = sources.read_packet_source(rec, info)
+                decode[name].append(time.monotonic() - t)
+                check(native.backend() == name,
+                      f"9: decoded with {native.backend()}, not {name}")
+            got = (scans.range_mm, scans.col_ts, scans.ts, imu.lacc,
+                   imu.avel, imu.ts)
+            first = first or got
+            check(all(np.array_equal(a, b) for a, b in zip(first, got)),
+                  "9: the native and numpy decodes differ")
+        n = len(scans)
+        check(scans.range_mm.shape == (n, info.h, info.w) and n == len(ref),
+              f"9: {scans.range_mm.shape} decoded, {len(ref)} reference "
+              "poses")
+        check(np.array_equal(scans.range_mm, np.clip(
+            scene[1][:n] * 1000.0, 0, (1 << 20) - 1).astype(np.uint32)),
+            "9: the decoded ranges are not the scene's in mm")
+
+        base = ["ekf-bench", "ouster", rec, "-m", meta,
+                "--use-imu-prediction", "-g", gt]
+        runs, launches, outs = {}, {}, {}
+        for mode in ("batch", "online"):
+            kitti = os.path.join(tmp, f"{mode}.txt")
+            kernels.reset_launches()
+            icp.reset_refresh_counts()
+            t = time.monotonic()
+            res = cli.run(base + ["--save-kitti-poses", kitti]
+                          + (["--online"] if mode == "online" else []))
+            wall = time.monotonic() - t
+            launches[mode] = launch_counts()
+            reads = icp.REFRESH_COUNTS["host_reads"]
+            check(native.backend() == "native",
+                  f"9 {mode}: the command decoded with {native.backend()}")
+            iters = int(res["iterations"].sum()) + (
+                int(res["iterations_first"].sum()) if mode == "batch"
+                else 0)
+            k = 2 if mode == "batch" else 1     # the batch command runs twice
+            expect = {"ekf_predict": k * n, "gn_iter": iters}
+            check(all(c == expect.get(name, 0)
+                      for name, c in launches[mode].items()),
+                  f"9 {mode}: launches {launches[mode]}, want {expect}")
+            kp = np.loadtxt(kitti).reshape(-1, 3, 4)
+            check(kp.shape == (n, 3, 4) and bool(np.isfinite(kp).all()),
+                  f"9 {mode}: saved poses {kp.shape}")
+            err = np.linalg.norm(kp[:, :, 3] - ref[:, :, 3], axis=1)
+            check(float(err.max()) <= POSE_GATE_M,
+                  f"9 {mode}: pose vs JAX {err.max():.4f} m > "
+                  f"{POSE_GATE_M} m")
+            ate = res["ate_ekf"]["rmse_trans"]
+            check(ate <= jax_ate + CLI_ATE_SLACK_M,
+                  f"9 {mode}: ATE RMSE {ate:.4f} m > JAX {jax_ate:.4f} + "
+                  f"{CLI_ATE_SLACK_M} m")
+            outs[mode] = res
+            runs[mode] = dict(
+                wall_s=wall, max_pose_vs_jax_m=float(err.max()),
+                ate_rmse_m=ate, jax_ate_rmse_m=jax_ate, gn_iterations=iters,
+                host_reads=reads, kernel_launches=launches[mode])
+            if mode == "batch":
+                runs[mode].update(first_s=res["first_s"],
+                                  steady_s=res["steady_s"],
+                                  scans_per_s=n / res["steady_s"])
+            else:
+                lat = np.asarray(res["latencies_s"][1:]) * 1e3
+                runs[mode].update(
+                    first_scan_s=res["latencies_s"][0],
+                    latency_ms={f"p{q}": float(np.percentile(lat, q))
+                                for q in (50, 95, 99)},
+                    latency_max_ms=float(lat.max()),
+                    scans_per_s=n / float(np.sum(res["latencies_s"])))
+        diff = {key: np.abs(outs["online"][key] - outs["batch"][key])
+                for key in ("ekf_poses", "kiss_poses")}
+        gap = max(float(d.max()) for d in diff.values())
+        if gap == 0:
+            say("  9: the online poses are the batch run's bit for bit")
+        else:
+            parted = int(np.argmax(diff["kiss_poses"].reshape(n, -1).max(1)
+                                   + diff["ekf_poses"].reshape(n, -1).max(1)
+                                   > 0))
+            say(f"  9: online vs batch poses differ by up to {gap:.3e} from "
+                f"scan {parted} on: the online run steps the same scan "
+                "functions on the same inputs, so a difference is the "
+                "card's order of sums in a kernel or op repeating "
+                "differently between runs (phase 3 repeats each kernel bit "
+                "for bit), not the online run's windowing")
+        runs["online"]["max_pose_vs_batch"] = gap
+        st = cli.run(["stat", rec, "-m", meta])["tracker"]
+        check(st._scans_num == n and st._imu_num == len(imu),
+              f"9 stat: {st._scans_num} scans, {st._imu_num} IMU samples")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = dict(phase9=dict(
+        recording=dict(bytes=rec_bytes, scans=n, imu=len(imu),
+                       write_s=t_write),
+        native_build_s=native_build_s, decode_s=decode, **runs, card=card))
+    say(json.dumps(summary))
+    return {"cli_pcap": launches["batch"],
+            "cli_pcap_online": launches["online"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scans", type=int, default=50,
@@ -1843,6 +2008,8 @@ def main() -> int:
     by_path["sim_filter"] = run_filter_path(dev)
     say("phase 8: the pipeline's remaining options")
     by_path.update(run_phase8(scene, dev, bench_out, card))
+    say("phase 9: the recording path through the command line")
+    by_path.update(run_recording_path(scene, dev, card))
 
     rows = []
     for name in (*kernels.KERNELS, *kernels.VARIANT_LAUNCHES):

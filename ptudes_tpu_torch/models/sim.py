@@ -209,6 +209,17 @@ def circle_poses_at(t, *, radius: float = 8.0, speed: float = 2.0,
     return poses.astype(np.float64)
 
 
+def circle_trajectory(n_scans: int, *, radius: float = 8.0,
+                      speed: float = 2.0, scan_dt: float = 0.1,
+                      z: float = 1.2, ramp: float = 0.0
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """(ts [n], poses [n, 4, 4]) of the circle with tangent heading,
+    sampled every ``scan_dt`` from 0 (``ramp`` > 0: from rest)."""
+    ts = np.arange(n_scans) * scan_dt
+    return ts, circle_poses_at(ts, radius=radius, speed=speed, ramp=ramp,
+                               z=z)
+
+
 def imu_for_circle(imu_ts, *, radius: float = 8.0, speed: float = 2.0,
                    ramp: float = 0.0) -> SimImu:
     """Exact IMU (specific force, body rates) along the circle."""

@@ -2,8 +2,10 @@
 
 The XYZ lookup table is built on the host with numpy
 (:func:`make_xyz_lut_np`, the Ouster legacy-frame model) and moved to the
-device once (``utils.convert.lut_from_numpy``); the per-scan projection is
-one multiply-add.
+device once (:func:`make_xyz_lut`, or ``utils.convert.lut_from_numpy`` for
+a table already built); the per-scan projection is one multiply-add.
+:func:`reduce_active_beams_mask` keeps a subset of the beam rows (the
+commands' ``--beams``).
 """
 from __future__ import annotations
 
@@ -53,6 +55,21 @@ def make_xyz_lut_np(w: int, h: int, beam_altitude_deg, beam_azimuth_deg,
     return direction @ r3.T, offset @ r3.T + t3
 
 
+def make_xyz_lut(w: int, h: int, beam_altitude_deg, beam_azimuth_deg,
+                 lidar_origin_to_beam_origin_mm: float = 0.0,
+                 lidar_to_sensor_transform=None, extrinsic=None, *,
+                 device="cuda") -> XyzLut:
+    """The projection LUT as f32 tensors on ``device`` (the card unless the
+    caller asks for another): :func:`make_xyz_lut_np` in f64 on the host,
+    then cast, as ``ptudes_tpu.ops.projection.make_xyz_lut`` does."""
+    direction, offset = make_xyz_lut_np(
+        w, h, beam_altitude_deg, beam_azimuth_deg,
+        lidar_origin_to_beam_origin_mm, lidar_to_sensor_transform,
+        extrinsic)
+    return XyzLut(*(torch.tensor(x.astype(np.float32), device=device)
+                    for x in (direction, offset)))
+
+
 def scan_to_points(lut: XyzLut, range_m: torch.Tensor, decimate: int = 1
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Range image [H, W] (0 = no return) -> flat points [H*W/d, 3], mask
@@ -87,3 +104,12 @@ def scan_to_points(lut: XyzLut, range_m: torch.Tensor, decimate: int = 1
     cols = torch.arange(g, device=dev)[None, :] * decimate + k
     ts = (cols.to(torch.float32) / w).reshape(h * g)
     return pts, mask, ts
+
+
+def reduce_active_beams_mask(h: int, beams_num: int) -> np.ndarray:
+    """Row mask keeping ``beams_num`` uniformly spaced beams of ``h`` (a
+    copy of ``ptudes_tpu.ops.projection.reduce_active_beams_mask``: the
+    reference zeroes the other rows to simulate a low-resolution sensor)."""
+    keep = np.zeros(h, dtype=bool)
+    keep[np.linspace(0, h, num=beams_num, endpoint=False, dtype=int)] = True
+    return keep

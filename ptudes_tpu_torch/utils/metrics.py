@@ -1,5 +1,6 @@
-"""Trajectory metrics (copy of ``ptudes_tpu.utils.metrics.calc_ate_rmse``
-and its helpers; numpy + scipy)."""
+"""Trajectory metrics (copy of ``ptudes_tpu.utils.metrics``; numpy +
+scipy): the reference's ATE (mean squared errors, no square root, the
+rotation scaled by 180/pi after squaring) and the conventional RMSE."""
 from __future__ import annotations
 
 import numpy as np
@@ -21,6 +22,15 @@ def _pose_errors(est: np.ndarray, gt: np.ndarray
     rel = np.einsum("nij,nik->njk", est[:, :3, :3], gt[:, :3, :3])
     rot_d = np.linalg.norm(Rotation.from_matrix(rel).as_rotvec(), axis=-1)
     return rot_d, trans_d
+
+
+def calc_ate(est_poses, gt_poses) -> tuple[float, float]:
+    """Reference-compatible ATE: (rot 'deg' = mean-squared-rad * 180/pi,
+    trans = mean-squared meters)."""
+    rot_d, trans_d = _pose_errors(np.asarray(est_poses),
+                                  np.asarray(gt_poses))
+    return (float(np.mean(np.square(rot_d)) * 180.0 / np.pi),
+            float(np.mean(np.square(trans_d))))
 
 
 def calc_ate_rmse(est_poses, gt_poses) -> tuple[float, float]:

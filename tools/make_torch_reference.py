@@ -51,6 +51,15 @@ Each ``--config`` NAME is written to ``tests/data/<NAME>_jax_poses.txt``
   non-finite poses from 24), where the sparse source (about 800 points
   beyond the 5 m minimum range, at 1 m voxels) and the constant-velocity
   guess meet the part of the circle where ``cli_kiss`` leaves it too.
+- ``cli_pcap``: the JAX command itself, ``ekf-bench ouster
+  --use-imu-prediction -g gt.csv --save-kitti-poses`` on the CPU, on the
+  bench scene written as an Ouster recording by
+  ``tools/make_torch_fixture.py``'s ``bench`` writer over ``ptudes_tpu.io``
+  (a LEGACY pcap of 128 x 1024 in 1024x10 mode, epoch timestamps, ranges in
+  millimetres, its metadata and the mid-sweep ground truth); on the CPU the
+  command picks ``predict_batch="assoc"``. The poses are the command's
+  saved EKF poses, and the header's ATE RMSE is the one it prints for them
+  against the ground-truth file.
 """
 from __future__ import annotations
 
@@ -65,12 +74,13 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 KISS_SCANS = 15   # scans of the cli_kiss reference (see above)
 KISS_EVERY_SCANS = 13  # scans of the kiss_every reference (see above)
 FROZEN_SPLIT = 25  # bench_frozen: scans mapped before the checkpoint
 CONFIGS = ("bench", "bench_fused", "cli", "cli_kiss", "cli_point",
            "bench_point", "bench_dec2", "bench_nn4", "bench_frozen",
-           "kiss_every")
+           "kiss_every", "cli_pcap")
 WHERE = {
     "bench": "bench.py:bench_config",
     "bench_fused": "bench.py:bench_config with fused_gather=True",
@@ -189,6 +199,50 @@ def run_kiss_every(scene, lut):
     return np.stack(poses)
 
 
+def write_cli_pcap(path: str, scene) -> None:
+    """``cli_pcap`` (see the module docstring)."""
+    import re
+    import types
+
+    from click.testing import CliRunner
+
+    import make_torch_fixture
+    from ptudes_tpu.cli.main import ptudes_cli
+    from ptudes_tpu.io import metadata, packets, pcap, poses
+
+    t0 = time.monotonic()
+    jax_io = types.SimpleNamespace(metadata=metadata, packets=packets,
+                                   pcap=pcap, poses=poses)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, meta, gt = make_torch_fixture.bench(tmp, io=jax_io,
+                                                 scene=scene)
+        out_path = os.path.join(tmp, "poses.txt")
+        args = ["ekf-bench", "ouster", rec, "-m", meta,
+                "--use-imu-prediction", "-g", gt,
+                "--save-kitti-poses", out_path]
+        r = CliRunner().invoke(ptudes_cli, args, catch_exceptions=False)
+        if r.exit_code:
+            raise RuntimeError(r.output)
+        kitti = np.loadtxt(out_path)
+    rmse = re.findall(r"ATE RMSE:\s+\S+ deg / (\S+) m", r.output)
+    ate = float(rmse[0])            # the EKF poses' line comes first
+    header = "\n".join([
+        "JAX reference poses of the bench scene (ptudes_tpu_torch.models."
+        "sim.bench_scene: 50 scans, 128x1024, bench.py:make_data) written "
+        "as an Ouster recording (tools/make_torch_fixture.py bench over "
+        "ptudes_tpu.io: LEGACY pcap, 1024x10, ranges in mm)",
+        "ptudes_tpu ekf-bench ouster REC.pcap -m REC.json "
+        "--use-imu-prediction -g gt.csv --save-kitti-poses OUT on the CPU "
+        "(predict_batch='assoc', update_form='xla')",
+        f"JAX ATE RMSE vs gt.csv: {rmse[0]} m (the command's ES EKF line, "
+        "as it prints it)",
+        "one row per scan: the 3x4 top of the command's saved EKF pose, "
+        "row-major (KITTI)"])
+    np.savetxt(path, kitti, fmt="%.9g", header=header)
+    print(f"wrote {path}: {len(kitti)} poses, JAX ATE RMSE {ate:.4f} m, "
+          f"{time.monotonic() - t0:.0f} s", flush=True)
+
+
 def main(which: str, path: str, scene) -> None:
     import jax
     import jax.numpy as jnp
@@ -196,6 +250,8 @@ def main(which: str, path: str, scene) -> None:
     from ptudes_tpu.ops.projection import XyzLut
     from ptudes_tpu.utils.metrics import align_first_pose, calc_ate_rmse
 
+    if which == "cli_pcap":
+        return write_cli_pcap(path, scene)
     sensor, scans, scan_ts, gt_mid, imu = scene
     lut = XyzLut(jnp.asarray(sensor.lut.direction),
                  jnp.asarray(sensor.lut.offset))
