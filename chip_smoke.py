@@ -94,7 +94,27 @@ Phases, each reported on its own line:
      0.02 m of ``tests/data/cli_pcap_jax_poses.txt`` (the JAX command's on
      the same file) and the printed ATE RMSE within the JAX run's + 0.005
      m; ``stat`` on the file; one JSON line of the decode times, scans/s
-     and latencies with the card's name and power limit.
+     and latencies with the card's name and power limit;
+ 10. several sequences at once: (a) K1 (both instances), K2, K3 (both
+     modes) and K4 launched once with a replica axis at B = 4 on four
+     distinct inputs, each replica bit-equal to its own single launch, and
+     their device times at B = 1, 2, 4; (b) ``parallel.batched.
+     run_sequence_batched`` at ``bench_config()`` on B = 1, 2, 4 replicas
+     of the scene and on B = 2 of {the scene, the scene at 64 beams}, each
+     warmed up (its last 10 scans profiled: device operations, busy ms and
+     idle share a scan) and timed with host syncs made errors: K1-K4 once
+     a scan whatever B is, K5 and K6 never, identical replicas bit-equal,
+     every replica within 0.02 m of ``tests/data/bench_jax_poses.txt`` or
+     ``bench_beams64_jax_poses.txt``, B = 1 within 1e-4 m of phase 4,
+     device operations a scan at B = 4 at most 1.25x those at B = 1,
+     aggregate scans/s from alternating runs; (c) ``ekf-bench sweep`` on
+     the scene written as phase 9's pcap: ``--replicas 2`` over the 50
+     scans (replicas bit-equal, within 0.02 m of
+     ``tests/data/sweep_pcap_jax_poses.txt``, the printed ATE within the
+     JAX run's + 0.005 m), ``--bacc-z -0.1,0,0.1`` and ``--beams 128,64``
+     on scans 0-20; K5 once a GN iteration, no other kernel; (d) one JSON
+     line of phase 10's figures with the card's name and power limit.
+     ``--phases 10`` (or ``3,10``) runs phases 1, 2, 4 and 10 alone.
 Phase 3 also holds K3's point mode (``loss="point"``: the instance without
 the fit) bit for bit against its twin, K4 on its point rows and K5 on
 point rows at the CLI shapes; phase 2 prints the SASS instruction count of
@@ -132,7 +152,8 @@ from ptudes_tpu_torch.ops import (cuda_ekf, cuda_gather, cuda_gn, cuda_icp,
                                   hashmap, icp)
 from ptudes_tpu_torch.ops import voxel
 from ptudes_tpu_torch.ops.projection import scan_to_points
-from ptudes_tpu_torch.utils import checkpoint, convert, metrics
+from ptudes_tpu_torch.parallel import batched, replay
+from ptudes_tpu_torch.utils import checkpoint, convert, metrics, replicas
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REF_POSES = os.path.join(HERE, "tests", "data", "bench_jax_poses.txt")
@@ -1920,11 +1941,414 @@ def run_recording_path(scene, dev, card: str) -> dict[str, dict[str, int]]:
             "cli_pcap_online": launches["online"]}
 
 
+# -------------------------------------------------------------- phase 10
+
+REPLICAS = (1, 2, 4)        # the batched driver's replica counts
+SELF_GATE_M = 1e-4          # B = 1 against phase 4's run_sequence
+
+
+def same_bits(a, b) -> bool:
+    """Every tensor of the trees ``a`` and ``b`` equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, tuple):
+        return all(same_bits(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def replica_axis_kernel(name, many, one, inputs, outputs, flops_one):
+    """Phase 10a for one kernel: ``many(b)`` launches it once with a
+    replica axis over the first b of four distinct inputs, ``one(i)``
+    once for replica i alone; replica i of the B = 4 launch must equal that
+    single launch bit for bit, and a second B = 4 launch the first. Returns
+    the device us at B = 1, 2, 4 and the bounds at B = 2, 4 (``inputs(b)``
+    and ``outputs(b)`` the tensors moved, ``flops_one(i)`` replica i's
+    operations)."""
+    kernels.reset_launches()
+    got = many(4)
+    check(kernels.LAUNCHES[name] == 1,
+          f"10a {name}: {kernels.LAUNCHES[name]} launches for B = 4")
+    again = many(4)
+    check(same_bits(got, again), f"10a {name}: B = 4 does not repeat")
+    for i in range(4):
+        check(same_bits(replicas.take(got, i), one(i)),
+              f"10a {name}: replica {i} of the B = 4 launch differs from "
+              "its single launch")
+    r = {f"device_us_b{b}": kernel_us(lambda b=b: many(b), name)
+         for b in REPLICAS}
+    for b in (2, 4):
+        bd = bound(nbytes(inputs(b), outputs(b)),
+                   sum(flops_one(i) for i in range(b)))
+        r[f"bound_ms_b{b}"], r[f"bound_by_b{b}"] = bd["bound_ms"], \
+            bd["bound_by"]
+    say(f"  10a {name}: each replica of one B = 4 launch equals its own "
+        f"single launch bit for bit, repeats bit for bit; device "
+        f"{r['device_us_b1']:.2f} / {r['device_us_b2']:.2f} / "
+        f"{r['device_us_b4']:.2f} us at B = 1 / 2 / 4 (bound "
+        f"{r['bound_ms_b2'] * 1e3:.3f} / {r['bound_ms_b4'] * 1e3:.3f} us "
+        f"at B = 2 / 4)")
+    return r
+
+
+def check_replica_axis(dev, results):
+    """Phase 10a: K1 (both instances), K2, K3 and K4 with a replica axis at
+    B = 4 on four distinct inputs against four single launches, bit for
+    bit; their device times at B = 1, 2, 4 and bounds at B = 2, 4."""
+    rng = np.random.default_rng(10)
+    bench = config.bench_config()
+    cfg = bench.ekf
+    states = [generic_ekf_state(cfg, dev, rng) for _ in range(4)]
+    k = bench.max_imu_per_scan
+    valid = torch.ones((4, k), dtype=torch.bool, device=dev)
+    valid[1, 10:] = False
+    valid[2, 3] = valid[2, 7] = False
+    valid[3] = False
+    t0 = np.array([float(s.imu_ts) for s in states])[:, None]
+    imus = esekf.Imu(
+        lacc=torch.tensor(rng.normal(0, 1, (4, k, 3)) + [0, 0, 9.78],
+                          dtype=torch.float32, device=dev),
+        avel=torch.tensor(rng.normal(0, 0.2, (4, k, 3)),
+                          dtype=torch.float32, device=dev),
+        ts=torch.tensor(t0 + np.arange(1, k + 1) * 0.01,
+                        dtype=torch.float32, device=dev))
+    st = replay.stack_bags(states)
+    out = {}
+    for log, name in ((False, "ekf_predict"),
+                      (True, "ekf_predict_history")):
+        def many(b, log=log):
+            return cuda_ekf.predict_block(
+                replicas.take(st, slice(0, b)),
+                replicas.take(imus, slice(0, b)), valid[:b], cfg=cfg,
+                want_twist=True, log=log)
+
+        def one(i, log=log):
+            return cuda_ekf.predict_block(
+                states[i], replicas.take(imus, i), valid[i], cfg=cfg,
+                want_twist=True, log=log)
+
+        out[name] = replica_axis_kernel(
+            "ekf_predict", many, one,
+            lambda b: (replicas.take(st, slice(0, b)),
+                       replicas.take(imus, slice(0, b)), valid[:b]),
+            many, lambda i: predict_block_ops(int(valid[i].sum())))
+    meas = se3.exp_twist(torch.tensor(rng.normal(0, 0.05, (4, 6)),
+                                      dtype=torch.float32, device=dev))
+    mc = esekf.default_meas_cov(cfg, dev)
+    out["ekf_update"] = replica_axis_kernel(
+        "ekf_update",
+        lambda b: cuda_ekf.update_pose(replicas.take(st, slice(0, b)),
+                                       meas[:b], mc),
+        lambda i: cuda_ekf.update_pose(states[i], meas[i], mc),
+        lambda b: (replicas.take(st, slice(0, b)), meas[:b], mc),
+        lambda b: cuda_ekf.update_pose(replicas.take(st, slice(0, b)),
+                                       meas[:b], mc),
+        lambda i: 4 * 18 ** 3 + 8 * 18 * 18 * 6)
+
+    kc = bench.kiss
+    r = kc.plane_fit_radius
+    scenes = [icp_scene(dev, seed=5 + i) for i in range(4)]
+    cands, masks, qws, srcs, guesses = [], [], [], [], []
+    for m, src, mask, guess in scenes:
+        q_w = se3.transform(guess, src)
+        cands.append(icp.gather_candidates(
+            m, q_w, voxel_size=0.3, max_probes=2, neighborhood=7,
+            n_voxels=4, fit_planes=False))
+        masks.append(mask)
+        qws.append(q_w)
+        srcs.append(src)
+        guesses.append(guess)
+    cand = icp.CandidateSet(*(torch.stack(x) for x in zip(*cands)))
+    mask, q_w = torch.stack(masks), torch.stack(qws)
+    src, guess = torch.stack(srcs), torch.stack(guesses)
+    c, n = 4 * 8, src.shape[1]
+    for loss in ("plane", "point"):
+        def prep_b(b, loss=loss):
+            return cuda_gn.prep_with_plane(
+                icp.CandidateSet(*(x[:b] for x in cand)), mask[:b],
+                q_w[:b], r, loss=loss)
+
+        out["gn_prep" if loss == "plane" else "gn_prep_point"] = \
+            replica_axis_kernel(
+                "gn_prep", prep_b,
+                lambda i, loss=loss: cuda_gn.prep_with_plane(
+                    cands[i], masks[i], qws[i], r, loss=loss),
+                lambda b: (cand.pts[:b], cand.valid[:b], q_w[:b],
+                           mask[:b]),
+                prep_b, lambda i, loss=loss: n * (
+                    20 * c + 150 if loss == "plane" else 0))
+    prepped = cuda_gn.prep_with_plane(cand, mask, q_w, r)
+    kern = torch.tensor([0.1667, 0.15, 0.2, 0.1], device=dev)
+    max_d2 = torch.tensor([0.25, 0.2, 0.3, 0.16], device=dev)
+    kw = dict(plane_min_quality=kc.plane_min_quality,
+              max_iterations=kc.max_iterations,
+              prior_rot_weight=kc.prior_rot_weight,
+              prior_trans_weight=kc.prior_trans_weight)
+
+    def loop_b(b):
+        return cuda_icp.icp_loop(
+            src[:b], cuda_gn.PreppedCandidates(*(x[:b] for x in prepped)),
+            guess[:b], kern[:b], max_d2[:b], 1e-5, **kw)
+
+    singles = [cuda_icp.icp_loop(
+        srcs[i], cuda_gn.prep_with_plane(cands[i], masks[i], qws[i], r),
+        guesses[i], kern[i], max_d2[i], 1e-5, **kw) for i in range(4)]
+    iters = [int(x[2]) for x in singles]
+    out["icp_loop"] = replica_axis_kernel(
+        "icp_loop", loop_b, lambda i: singles[i],
+        lambda b: (src[:b], tuple(x[:b] for x in prepped), guess[:b]),
+        loop_b, lambda i: iters[i] * n * (8 * c + 120))
+    say(f"  10a icp_loop: each cluster its own exit: iterations {iters}")
+    for name, r_ in out.items():
+        if name == "gn_prep_point":
+            results.setdefault("gn_prep", {}).setdefault(
+                "point", {})["replica_axis"] = r_
+        else:
+            results.setdefault(name, {})["replica_axis"] = r_
+    return out
+
+
+def batched_window(cfg, states, batches, lut, window: int) -> dict:
+    """The batched run's first scans, then its last ``window`` scans (the
+    steady step) under the profiler: device busy us and operations a scan
+    and the idle share of the window (1 - busy / the span from the first
+    device operation's start to the last one's end)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = batches.range_m.shape[1]
+    k = n - window
+    fin, _ = batched.run_sequence_batched(
+        states, batched.scan_of(batches, slice(0, k)), lut, cfg=cfg)
+    tail = dataclasses.replace(cfg, bootstrap_scans=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        batched.run_sequence_batched(
+            fin, batched.scan_of(batches, slice(k, n)), lut, cfg=tail)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_us(ev)
+    span = max(e.time_range.end for e in ev) - min(
+        e.time_range.start for e in ev)
+    return dict(busy_us_per_scan=busy / window,
+                device_ops_per_scan=len(ev) / window,
+                idle_share=1.0 - busy / span)
+
+
+def timed_batched(cfg, states, batches, lut):
+    """One ``run_sequence_batched`` with host syncs made errors; returns
+    (out, seconds)."""
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, out = batched.run_sequence_batched(states, batches, lut, cfg=cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t
+
+
+def run_batched_path(scene, dev, bench_out, card: str):
+    """Phase 10b: ``parallel.batched.run_sequence_batched`` at
+    ``bench_config()`` on B = 1, 2, 4 replicas of the bench scene and on
+    B = 2 of {the scene, the scene at 64 beams}, each warmed up (its last
+    10 scans profiled) and timed with host syncs made errors. K1-K4 launch
+    once a scan whatever B is, K5 and K6 never; identical replicas are
+    bit-equal; every replica within 0.02 m of its JAX poses
+    (``bench_jax_poses.txt``, ``bench_beams64_jax_poses.txt``); B = 1
+    within 1e-4 m of phase 4. Aggregate scans/s from alternating timed
+    runs (B = 1, 2, 4, 4, 2, 1). Returns (launches by run, summary)."""
+    from ptudes_tpu_torch.ops.projection import reduce_active_beams_mask
+
+    sensor, scans, scan_ts, gt_mid, imu = scene
+    cfg = config.bench_config()
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    n = len(scans)
+    one = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel, imu.ts,
+                            device=dev)
+    beams64 = scans * reduce_active_beams_mask(scans.shape[1], 64)[
+        None, :, None]
+    low = lio.build_batches(cfg, beams64, scan_ts, imu.lacc, imu.avel,
+                            imu.ts, device=dev)
+    _, ref = ref_poses("bench")
+    _, ref64 = ref_poses("bench_beams64")
+    runs = {f"bench_x{b}": ([one] * b, [ref] * b) for b in REPLICAS}
+    runs["bench_mixed"] = ([one, low], [ref, ref64])
+    phase4 = bench_out.kiss_pose.double().cpu().numpy()
+    launches, summary, timed = {}, {}, {}
+    for tag, (bags, refs) in runs.items():
+        b = len(bags)
+        states = replay.stack_bags([lio.init_state(cfg, dev)] * b)
+        batches = replay.stack_bags(bags)
+        win = batched_window(cfg, states, batches, lut, min(10, n // 2))
+        kernels.reset_launches()
+        out, dt = timed_batched(cfg, states, batches, lut)
+        launches[tag] = launch_counts()
+        want = {k_: n for k_ in ("ekf_predict", "ekf_update", "gn_prep",
+                                 "icp_loop")}
+        check(all(c == want.get(k_, 0) for k_, c in launches[tag].items()),
+              f"10b {tag}: launches {launches[tag]}, want {want} at B = "
+              f"{b}")
+        kp = out.kiss_pose.double().cpu().numpy()
+        check(kp.shape == (b, n, 4, 4) and bool(np.isfinite(kp).all()),
+              f"10b {tag}: poses {kp.shape}")
+        check(bool(out.scan_valid.all()), f"10b {tag}: a scan was skipped")
+        errs = [float(np.linalg.norm(kp[i, :, :3, 3] - r_[:n, :, 3],
+                                     axis=1).max())
+                for i, r_ in enumerate(refs)]
+        check(max(errs) <= POSE_GATE_M,
+              f"10b {tag}: pose vs JAX {errs} m > {POSE_GATE_M} m")
+        if tag.startswith("bench_x"):
+            for i in range(1, b):
+                check(torch.equal(out.kiss_pose[i], out.kiss_pose[0])
+                      and torch.equal(out.ekf_pose[i], out.ekf_pose[0]),
+                      f"10b {tag}: replica {i} differs from replica 0")
+        vs4 = float(np.abs(kp[0] - phase4).max())
+        if tag == "bench_x1":
+            check(vs4 <= SELF_GATE_M,
+                  f"10b {tag}: {vs4:.3e} from phase 4 > {SELF_GATE_M}")
+        _, ate = metrics.calc_ate_rmse(kp[0], gt_mid[:n])
+        iters = out.aux.iterations.sum(1).tolist()
+        summary[tag] = dict(replicas=b, scans=n, max_pose_vs_jax_m=errs,
+                            max_pose_vs_phase4_m=vs4, ate_rmse_m=ate,
+                            gn_iterations=iters, first_scans_per_s=b * n
+                            / dt, **win)
+        timed[tag] = [dt]
+        say(f"  10b {tag}: B = {b}, {win['device_ops_per_scan']:.1f} device "
+            f"operations and {win['busy_us_per_scan'] / 1e3:.3f} ms busy a "
+            f"scan, idle {win['idle_share'] * 100:.1f} % (the last 10 "
+            f"scans); max |pose - JAX| {', '.join(f'{e:.4f}' for e in errs)}"
+            f" m (<= {POSE_GATE_M}); max |replica 0 - phase 4| {vs4:.3e} m"
+            + (f" (<= {SELF_GATE_M})" if tag == "bench_x1" else "")
+            + f"; identical replicas bit-equal; GN iterations {iters}; "
+            f"launches {launches[tag]}; no host sync")
+    for b in (*REPLICAS, *reversed(REPLICAS)):
+        tag = f"bench_x{b}"
+        states = replay.stack_bags([lio.init_state(cfg, dev)] * b)
+        _, dt = timed_batched(cfg, states, replay.stack_bags([one] * b),
+                              lut)
+        timed[tag].append(dt)
+    for tag, dts in timed.items():
+        b = summary[tag]["replicas"]
+        summary[tag]["aggregate_scans_per_s"] = [b * n / t for t in dts]
+    ops = {b: summary[f"bench_x{b}"]["device_ops_per_scan"]
+           for b in REPLICAS}
+    check(ops[4] <= 1.25 * ops[1],
+          f"10b: {ops[4]:.1f} device operations a scan at B = 4 against "
+          f"{ops[1]:.1f} at B = 1 (> 1.25x)")
+    say("  10b aggregate scans/s (alternating runs B = 1, 2, 4, 4, 2, 1; "
+        "the first of each B its checked run): " + "; ".join(
+            f"B = {summary[f'bench_x{b}']['replicas']}: "
+            + ", ".join(f"{x:.1f}" for x in
+                        summary[f"bench_x{b}"]["aggregate_scans_per_s"])
+            for b in REPLICAS) + f"; operations a scan at B = 4 / B = 1: "
+        f"{ops[4] / ops[1]:.3f} (<= 1.25); {card}")
+    return launches, summary
+
+
+def run_sweep_path(scene, dev, card: str):
+    """Phase 10c: ``ekf-bench sweep`` through the port's command line on
+    the bench scene written as phase 9's recording: ``--replicas 2`` over
+    the 50 scans (the two replicas bit-equal, each within 0.02 m of
+    ``tests/data/sweep_pcap_jax_poses.txt``, the printed ATE within the JAX
+    run's + 0.005 m), then ``--bacc-z -0.1,0,0.1`` and ``--beams 128,64``
+    on scans 0-20 (``beams=128`` and ``bacc_z=+0.000`` within 0.02 m of
+    the same poses; every variant finite). K5 once a GN iteration, K1-K4
+    and K6 never. Returns (launches by command, summary)."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import make_torch_fixture
+    from ptudes_tpu_torch.cli import main as cli
+
+    ref_path, ref = ref_poses("sweep_pcap")
+    jax_ate = reference_ate(ref_path)
+    tmp = tempfile.mkdtemp(prefix="ptudes_sweep_")
+    launches, summary = {}, {}
+    try:
+        rec, meta, gt = make_torch_fixture.bench(tmp, scene=scene)
+        for tag, flags, ok_rows in (
+                ("sweep_replicas", ["--replicas", "2"],
+                 ("replica 0", "replica 1")),
+                ("sweep_bacc_z", ["--bacc-z", "-0.1,0,0.1", "--end-scan",
+                                  "20"], ("bacc_z=+0.000",)),
+                ("sweep_beams", ["--beams", "128,64", "--end-scan", "20"],
+                 ("beams=128",))):
+            kernels.reset_launches()
+            icp.reset_refresh_counts()
+            t = time.monotonic()
+            res = cli.run(["ekf-bench", "sweep", rec, "-m", meta, "-g", gt,
+                           *flags])
+            wall = time.monotonic() - t
+            launches[tag] = launch_counts()
+            n = res["n_scans"]
+            iters = int(res["iterations"].sum()) + int(
+                res["iterations_first"].sum())     # the command's two runs
+            check(all(c == (iters if k_ == "gn_iter" else 0)
+                      for k_, c in launches[tag].items()),
+                  f"10c {tag}: launches {launches[tag]}, want gn_iter "
+                  f"{iters}")
+            ek = res["ekf_poses"]
+            check(bool(np.isfinite(ek).all()), f"10c {tag}: poses")
+            errs = {}
+            for i, v in enumerate(res["variants"]):
+                if v in ok_rows:
+                    errs[v] = float(np.linalg.norm(
+                        ek[i, :, :3, 3] - ref[:n, :, 3], axis=1).max())
+            check(max(errs.values()) <= POSE_GATE_M,
+                  f"10c {tag}: pose vs JAX {errs} > {POSE_GATE_M} m")
+            rows = res["rows"]
+            if tag == "sweep_replicas":
+                check(np.array_equal(ek[0], ek[1]),
+                      "10c: the two replicas differ")
+                # the JAX ATE is over the reference's scans: comparable
+                # when the run covers them all (not with --scans < 50)
+                for row in rows if n == len(ref) else ():
+                    check(row["ate_rmse"] <= jax_ate + CLI_ATE_SLACK_M,
+                          f"10c: ATE {row['ate_rmse']:.4f} m > JAX "
+                          f"{jax_ate:.4f} + {CLI_ATE_SLACK_M}")
+            summary[tag] = dict(
+                scans=n, variants=res["variants"], wall_s=wall,
+                first_s=res["first_s"], steady_s=res["steady_s"],
+                aggregate_scans_per_s=len(rows) * n / res["steady_s"],
+                rows=rows, max_pose_vs_jax_m=errs, gn_iterations=iters,
+                jax_ate_rmse_m=jax_ate, kernel_launches=launches[tag])
+            say(f"  10c {tag}: {len(rows)} x {n} scans, "
+                f"{summary[tag]['aggregate_scans_per_s']:.2f} scans/s "
+                f"aggregate steady; max |pose - JAX| {errs} m (<= "
+                f"{POSE_GATE_M}); rows "
+                + "; ".join(f"{r_['variant']}: drift {r_['drift']:.3f}, "
+                            f"ATE {r_['ate_rmse']:.4f}" for r_ in rows)
+                + f" (JAX {jax_ate:.4f}); K5 {iters} launches, no other")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, summary
+
+
+def run_phase10(scene, dev, bench_out, card: str, results):
+    """Phase 10: the replica-axis launches (a), the batched driver (b),
+    ``ekf-bench sweep`` (c); one JSON line of their figures (d). Returns
+    the launches by run."""
+    axis = check_replica_axis(dev, results)
+    launches, summary = run_batched_path(scene, dev, bench_out, card)
+    sweep_launches, sweep = run_sweep_path(scene, dev, card)
+    launches.update(sweep_launches)
+    say(json.dumps(dict(phase10=dict(replica_axis=axis, batched=summary,
+                                     sweep=sweep, card=card))))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scans", type=int, default=50,
                     help="scans of the bench scene to run (default 50)")
+    ap.add_argument("--phases", default="all",
+                    help="comma list of the phases to run after 1-2 "
+                    "(default all; 10 runs phase 4 first, whose run it "
+                    "compares with)")
     args = ap.parse_args()
+    want = set(range(3, 11)) if args.phases == "all" else {
+        int(x) for x in args.phases.split(",")}
+    if 10 in want:
+        want.add(4)
 
     say("phase 1: device")
     if not torch.cuda.is_available():
@@ -1955,8 +2379,24 @@ def main() -> int:
         str(k3_sass) if k3_sass is not None else "not measured (no "
         "cuobjdump)"))
 
-    say("phase 3: kernels against their twins")
     results: dict[str, dict] = {}
+    if want != set(range(3, 11)):
+        # a subset, for working on a phase: its own checks, no summary
+        if 3 in want:
+            say("phase 3: kernels against their twins")
+            check_ekf(dev, np.random.default_rng(0), results)
+            check_icp(dev, results)
+        if 4 in want:
+            say("phase 4: bench path")
+            _, scene, bench_out, _, _ = run_main_path(args.scans, dev)
+        if 10 in want:
+            say("phase 10: several sequences at once")
+            run_phase10(scene, dev, bench_out, card_line(), results)
+        say(f"phases {sorted(want)} passed (a subset: no kernel summary)")
+        say(card_line())
+        return 0
+
+    say("phase 3: kernels against their twins")
     rng = np.random.default_rng(0)
     check_ekf(dev, rng, results)
     check_icp(dev, results)
@@ -2010,6 +2450,9 @@ def main() -> int:
     by_path.update(run_phase8(scene, dev, bench_out, card))
     say("phase 9: the recording path through the command line")
     by_path.update(run_recording_path(scene, dev, card))
+    say("phase 10: several sequences at once (the batched driver, "
+        "ekf-bench sweep)")
+    by_path.update(run_phase10(scene, dev, bench_out, card, results))
 
     rows = []
     for name in (*kernels.KERNELS, *kernels.VARIANT_LAUNCHES):

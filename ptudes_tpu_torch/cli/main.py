@@ -4,6 +4,8 @@ path of ``ptudes_tpu.cli.main`` on one CUDA card.
     python -m ptudes_tpu_torch.cli.main stat REC.pcap -m META.json
     python -m ptudes_tpu_torch.cli.main ekf-bench ouster REC.pcap \\
         -m META.json --use-imu-prediction -g gt.csv
+    python -m ptudes_tpu_torch.cli.main ekf-bench sweep REC.pcap \
+        -m META.json -g gt.csv --bacc-z -0.1,0,0.1
     python -m ptudes_tpu_torch.cli.main ekf-bench {sim,nc,cmp} ...
 
 The commands, flags, defaults and printed lines are the JAX command's,
@@ -160,16 +162,6 @@ def cmd_stat(args):
 
 # --------------------------------------------------------------- ekf-bench
 
-def _stack(xs):
-    """Stack per-scan outputs (nested named tuples of tensors)."""
-    x0 = xs[0]
-    if x0 is None:
-        return None
-    if isinstance(x0, tuple):
-        return type(x0)(*(_stack(list(z)) for z in zip(*xs)))
-    return torch.stack(xs)
-
-
 def _run_online(cfg, lut, state, range_m, scans, imu, origin, prev_scan_ts,
                 rate):
     """Scan-by-scan replay through ``LioOnline`` with per-scan latency
@@ -178,6 +170,7 @@ def _run_online(cfg, lut, state, range_m, scans, imu, origin, prev_scan_ts,
     of one pose entry from the device, so it is the scan's true latency.
     Returns (final state, stacked outputs, latencies s)."""
     from ..models.online import LioOnline
+    from ..utils import replicas
 
     odo = LioOnline(cfg, lut, state=state, time_origin=origin,
                     prev_scan_ts=prev_scan_ts)
@@ -212,7 +205,7 @@ def _run_online(cfg, lut, state, range_m, scans, imu, origin, prev_scan_ts,
               f"max {lat.max():.2f} ms "
               f"(first scan incl. compile: {lats[0]:.2f} s)")
     print(f"  dropped IMU samples: {odo.n_dropped_imu}")
-    return odo.state, _stack(outs), lats
+    return odo.state, replicas.stack(outs), lats
 
 
 def build_config(args, info) -> PipelineConfig:
@@ -384,6 +377,128 @@ def cmd_ekf_ouster(args):
                 result[key] = dict(ate_rot=ate_rot, ate_trans=ate_trans,
                                    rmse_rot=rr, rmse_trans=rt)
     return result
+
+
+def sweep_config(args, info) -> PipelineConfig:
+    """``ekf-bench sweep``'s configuration (``ptudes_tpu/cli/main.py:
+    642-648``): the library defaults with the range flags, the EKF guess
+    and the loss; the ICP kernels on the card (K5 once a GN iteration on
+    its candidate-refresh loop), the associative predict and the op-chain
+    update as the JAX command runs them off the TPU."""
+    cfg = PipelineConfig(
+        kiss=KissConfig(max_range=args.kiss_max_range,
+                        min_range=args.kiss_min_range, deskew=True,
+                        loss=args.loss, icp_form="cuda"),
+        cap=Capacity(max_points=info.h * info.w),
+        ekf=EkfConfig(),
+        guess="ekf")
+    return _kernel_forms(cfg, torch.device(args.device))
+
+
+def cmd_ekf_sweep(args):
+    """Multi-variant LIO replay of one recording (reference ``ekf-bench
+    sweep``): one variant per ``--beams`` count (a low-resolution sensor)
+    or ``--bacc-z`` prior (the EKF's initial accelerometer bias z), or
+    ``--replicas`` identical runs, each through ``lio.run_sequence``
+    (``parallel.replay.replay_bags``), dealt over the cards when there are
+    as many as variants; prints aggregate scans/s and each variant's drift
+    and ATE."""
+    from ..io.poses import filter_nc_gt_by_close_ts, read_newer_college_gt
+    from ..models import lio
+    from ..ops.projection import reduce_active_beams_mask
+    from ..parallel import mesh as mesh_lib
+    from ..parallel import replay
+    from ..utils.metrics import calc_ate_rmse
+
+    chosen = [o for o in (args.beams, args.bacc_z, args.replicas) if o]
+    if len(chosen) != 1:
+        raise CliError("pick exactly one of --beams / --bacc-z / --replicas")
+    dev = _device(args)
+    info, scans, imu, _ = _load_source(args.file, args.meta)
+    scans = scans.window(args.start_scan, args.end_scan)
+    cfg = sweep_config(args, info)
+    lut = nav_frame_lut(info, dev)
+    range_m = scans.range_mm.astype(np.float32) * info.range_unit_m()
+
+    def batches_of(rm):
+        return lio.build_batches(cfg, rm, scans.ts, imu.lacc, imu.avel,
+                                 imu.ts, device=dev)
+
+    variants, batch_list, state_list = [], [], []
+    if args.beams:
+        for b in [int(x) for x in args.beams.split(",")]:
+            keep = reduce_active_beams_mask(info.h, b)
+            batch_list.append(batches_of(range_m * keep[None, :, None]))
+            state_list.append(lio.init_state(cfg, dev))
+            variants.append(f"beams={b}")
+    elif args.bacc_z:
+        base = batches_of(range_m)
+        for v in [float(x) for x in args.bacc_z.split(",")]:
+            batch_list.append(base)
+            state_list.append(lio.init_state(
+                cfg, dev, init_bacc=np.asarray([0.0, 0.0, v], np.float32)))
+            variants.append(f"bacc_z={v:+.3f}")
+    else:
+        base = batches_of(range_m)
+        for r in range(int(args.replicas)):
+            batch_list.append(base)
+            state_list.append(lio.init_state(cfg, dev))
+            variants.append(f"replica {r}")
+
+    nb = len(variants)
+    states = replay.stack_bags(state_list)
+    batches = replay.stack_bags(batch_list)
+    cards = mesh_lib.default_devices() if dev.type == "cuda" else []
+    ndev = max(len(cards), 1)
+    grid = (mesh_lib.make_mesh(n_bags=nb, devices=cards[:nb])
+            if len(cards) >= nb > 1 else None)
+    shape = {"bag": nb, "pt": 1} if grid is not None else "single device"
+    print(f"variants: {nb}, devices: {ndev}, mesh: {shape}")
+    devices = list(grid[:, 0]) if grid is not None else None
+
+    t0 = time.monotonic()
+    fin, out = replay.replay_bags(states, batches, lut, cfg, devices=devices)
+    float(out.kiss_pose[0, -1, 0, 0])
+    t_first = time.monotonic() - t0
+    iterations_first = _np(out.aux.iterations)
+    t0 = time.monotonic()
+    fin, out = replay.replay_bags(states, batches, lut, cfg, devices=devices)
+    float(out.kiss_pose[0, -1, 0, 0])
+    t_steady = time.monotonic() - t0
+    n = len(scans)
+    print(f"{nb} x {n} scans in {t_steady:.3f} s steady-state "
+          f"({nb * n / max(t_steady, 1e-9):.1f} scans/s aggregate; "
+          f"compile {t_first - t_steady:.1f} s)\n")
+
+    gts = read_newer_college_gt(args.gt_file) if args.gt_file else []
+    ekf_poses = _np(out.ekf_pose).astype(np.float64)
+    kiss_poses = _np(out.kiss_pose).astype(np.float64)
+    print(f"{'variant':>16s}  {'drift[m]':>9s}"
+          + ("  ate_rmse[m]  kiss_rmse[m]" if gts else ""))
+    gt2 = idx = None
+    if gts:
+        gts_m, res_t_m = filter_nc_gt_by_close_ts(gts, list(scans.ts))
+        if gts_m:
+            idx = np.searchsorted(scans.ts, res_t_m)
+            gt2 = np.asarray([g[1] for g in gts_m])
+    rows = []
+    for b in range(nb):
+        drift = float(np.linalg.norm(
+            ekf_poses[b, -1, :3, 3] - ekf_poses[b, 0, :3, 3]))
+        line = f"{variants[b]:>16s}  {drift:9.3f}"
+        row = dict(variant=variants[b], drift=drift)
+        if gt2 is not None:
+            _, rt = calc_ate_rmse(ekf_poses[b, idx], gt2)
+            _, rtk = calc_ate_rmse(kiss_poses[b, idx], gt2)
+            line += f"  {rt:11.4f}  {rtk:12.4f}"
+            row.update(ate_rmse=rt, kiss_rmse=rtk)
+        print(line)
+        rows.append(row)
+    return dict(cfg=cfg, variants=variants, n_scans=n, rows=rows,
+                ekf_poses=ekf_poses, kiss_poses=kiss_poses,
+                iterations=_np(out.aux.iterations),
+                iterations_first=iterations_first, first_s=t_first,
+                steady_s=t_steady, state=fin)
 
 
 def _filter_poses(log, rows=None) -> np.ndarray:
@@ -627,6 +742,31 @@ def build_parser() -> argparse.ArgumentParser:
     _device_flag(p)
     p.set_defaults(fn=cmd_ekf_ouster)
 
+    p = eb.add_parser("sweep", help="multi-variant LIO replay of one "
+                      "recording: beam counts, accel-bias priors or "
+                      "identical replicas")
+    p.add_argument("file")
+    p.add_argument("-m", "--meta", default=None)
+    p.add_argument("--start-scan", type=int, default=0)
+    p.add_argument("--end-scan", type=int, default=None)
+    p.add_argument("-g", "--gt-file", default=None)
+    p.add_argument("--kiss-min-range", type=float, default=1.0)
+    p.add_argument("--kiss-max-range", type=float, default=70.0)
+    p.add_argument("--loss", choices=["plane", "point"], default="plane")
+    p.add_argument("--beams", default=None,
+                   help="Comma list of active-beam counts, one LIO variant "
+                   "per entry (low-res sensor simulation), e.g. "
+                   "128,64,32,16")
+    p.add_argument("--bacc-z", default=None,
+                   help="Comma list of initial accel-bias-z hypotheses "
+                   "(m/s^2), one EKF variant per entry, e.g. "
+                   "-0.2,-0.1,0,0.1,0.2")
+    p.add_argument("--replicas", type=int, default=None,
+                   help="No parameter sweep: run N identical replicas "
+                   "(data-parallel throughput check)")
+    _device_flag(p)
+    p.set_defaults(fn=cmd_ekf_sweep)
+
     p = eb.add_parser("cmp", help="compare trajectories in Newer College "
                       "format")
     p.add_argument("gt_file")
@@ -649,7 +789,13 @@ def _check_files(args) -> None:
 def run(argv=None):
     """Parse ``argv`` and run its command; returns the command's results
     (the numbers it printed, its poses) for callers in Python."""
-    args = build_parser().parse_args(argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    for i in range(len(argv) - 1):
+        # a value list that starts with a minus ("--bacc-z -0.1,0,0.1",
+        # as the JAX command takes it) is the option's value
+        if argv[i] == "--bacc-z" and argv[i + 1].startswith("-"):
+            argv[i:i + 2] = [f"--bacc-z={argv[i + 1]}", ""]
+    args = build_parser().parse_args([a for a in argv if a != ""])
     _check_files(args)
     return args.fn(args)
 

@@ -52,6 +52,12 @@
 // the history has a constant null hist, so its stores and tests fold away
 // (its code is the size it had before the history; a test at run time cost
 // ~1 us a launch at K = 12-16).
+//
+// Replica axis (the batched driver, parallel/batched.py): one CTA a
+// replica, each on its own state, IMU block, covariance, outputs and
+// history rows at fixed strides, as pallas_call under jax.vmap gains a grid
+// axis. Nothing is shared across CTAs, so replica b's outputs are those of
+// a launch on replica b's inputs alone, bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -66,7 +72,7 @@ constexpr int kThreads = 32 + kCovThreads;   // warp 0: the nav
 constexpr int kFRows = 9;                    // F's rows POS, VEL, PHI
 constexpr int kTerms = 7;                    // most nonzeros in a row of F
 constexpr int kPad = 8;                      // a row's coefficients: 2 x 16 B
-constexpr int kScal = 22;
+constexpr int kScal = 22;                    // a replica's scal row (21 used)
 constexpr unsigned kFull = 0xffffffffu;
 // a history row: ts, pos[3], vel[3], quat[4], bias_gyr[3], bias_acc[3],
 // grav[3], the covariance diagonal after the step[18]
@@ -503,7 +509,15 @@ ekf_predict_kernel(const float* __restrict__ scal,
                    float* __restrict__ hist_rows, int k_steps,
                    float acc_bias_std, float gyr_bias_std, float acc_vrw,
                    float gyr_arw) {
-  float* const hist = kLog ? hist_rows : nullptr;
+  const int rep = blockIdx.x;  // the replica: its rows at fixed strides
+  scal += rep * kScal;
+  imu += static_cast<size_t>(rep) * 8 * k_steps;
+  cov_in += rep * SS;
+  out += rep * 32;
+  cov_out += rep * SS;
+  float* const hist =
+      kLog ? hist_rows + static_cast<size_t>(rep) * kHist * k_steps
+           : nullptr;
   __shared__ Smem sm;
   __shared__ Chain ch;
   __shared__ Attitudes at;
@@ -540,18 +554,21 @@ ekf_predict_kernel(const float* __restrict__ scal,
 
 }  // namespace
 
-// hist: [k_steps, 38] rows of the filter history, or null for none.
+// batch replicas, each: scal [22], imu [k_steps, 8], cov [18, 18], out
+// [32], cov_out [18, 18] and hist [k_steps, 38] rows of the filter history
+// (or null for none), replica b's at b times those sizes.
 extern "C" int ptudes_ekf_predict(const float* scal, const float* imu,
                                   const float* cov_in, float* out,
                                   float* cov_out, float* hist, int k_steps,
                                   float acc_bias_std, float gyr_bias_std,
-                                  float acc_vrw, float gyr_arw,
+                                  float acc_vrw, float gyr_arw, int batch,
                                   cudaStream_t stream) {
-  if (k_steps < 0 || k_steps > kMaxSteps) return cudaErrorInvalidValue;
+  if (k_steps < 0 || k_steps > kMaxSteps || batch < 1)
+    return cudaErrorInvalidValue;
   auto* kernel = hist != nullptr ? ekf_predict_kernel<true>
                                  : ekf_predict_kernel<false>;
-  kernel<<<1, kThreads, 0, stream>>>(scal, imu, cov_in, out, cov_out, hist,
-                                     k_steps, acc_bias_std, gyr_bias_std,
-                                     acc_vrw, gyr_arw);
+  kernel<<<batch, kThreads, 0, stream>>>(scal, imu, cov_in, out, cov_out,
+                                         hist, k_steps, acc_bias_std,
+                                         gyr_bias_std, acc_vrw, gyr_arw);
   return static_cast<int>(cudaGetLastError());
 }

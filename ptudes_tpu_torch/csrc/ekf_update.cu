@@ -35,6 +35,10 @@
 //   K_ja, one 6-term dot; after another, the symmetrised entries go out,
 //   while warp 10 projects the attitude block G P_phi G^T, one element a
 //   lane (matmul3's sums, shuffled between the lanes).
+//
+// Replica axis (the batched driver): one CTA a replica, its scal, P and
+// outputs at fixed strides; replica b's result is a single launch's on its
+// inputs, bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -48,6 +52,7 @@ constexpr int kThreads = kCovThreads + 32;      // warp 11: the injection
 constexpr int kProjWarp = 10;                   // the attitude projection
 constexpr int kTri = 21;                        // S's lower triangle
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kScal = 67;                       // a replica's scal row
 
 // scal input: pos[3] vel[3] quat[4] bg[3] ba[3] grav[3]
 //             measured pose 3x4 row-major[12] meas_cov[36]        (67)
@@ -198,6 +203,11 @@ __global__ void __launch_bounds__(kThreads)
 ekf_update_kernel(const float* __restrict__ scal,
                   const float* __restrict__ cov_in, float* __restrict__ out,
                   float* __restrict__ cov_out, int joseph) {
+  const int rep = blockIdx.x;
+  scal += rep * kScal;
+  cov_in += rep * SS;
+  out += rep * 32;
+  cov_out += rep * SS;
   __shared__ Smem sm;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int e = tid; e < SS; e += kThreads) sm.P[e] = cov_in[e];
@@ -247,10 +257,13 @@ ekf_update_kernel(const float* __restrict__ scal,
 
 }  // namespace
 
+// batch replicas, each: scal [67], cov [18, 18], out [32], cov_out
+// [18, 18], replica b's at b times those sizes.
 extern "C" int ptudes_ekf_update(const float* scal, const float* cov_in,
                                  float* out, float* cov_out, int joseph,
-                                 cudaStream_t stream) {
-  ekf_update_kernel<<<1, kThreads, 0, stream>>>(scal, cov_in, out, cov_out,
-                                                joseph);
+                                 int batch, cudaStream_t stream) {
+  if (batch < 1) return cudaErrorInvalidValue;
+  ekf_update_kernel<<<batch, kThreads, 0, stream>>>(scal, cov_in, out,
+                                                    cov_out, joseph);
   return static_cast<int>(cudaGetLastError());
 }

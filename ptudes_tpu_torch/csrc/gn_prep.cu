@@ -50,6 +50,11 @@
 // on the fit: the point instance drops the moments and the finish, lane i of
 // warp 0 writing point i's constant feat column, so the lane-major rows keep
 // their one launch; the plane instance is the code above.
+//
+// Replica axis (the batched driver): the replica is grid axis y; replica b
+// reads its own pts, valid, q_w and mask and writes its own feat and
+// lane-major rows (out_stride floats after replica b - 1's), so its result
+// is a single launch's on its inputs, bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -83,7 +88,21 @@ gn_prep_kernel(const float* __restrict__ pts,
                const unsigned char* __restrict__ mask,
                float* __restrict__ feat, float* __restrict__ cx,
                float* __restrict__ cy, float* __restrict__ cz,
-               float* __restrict__ inf, int n, int c, float r2) {
+               float* __restrict__ inf, int n, int c, float r2,
+               int out_stride) {
+  {  // this replica's rows
+    const size_t rep = blockIdx.y;
+    pts += rep * n * 3 * c;
+    valid += rep * n * c;
+    q_w += rep * n * 3;
+    mask += rep * n;
+    const size_t o = rep * out_stride;
+    feat += o;
+    cx += o;
+    cy += o;
+    cz += o;
+    inf += o;
+  }
   extern __shared__ float tile[];  // [4][C][kWarps]: x, y, z, inf
   // each point's summed moments (PatchMoments, ten floats) and query
   __shared__ float mom_raw[kWarps][sizeof(ptudes::PatchMoments) / 4];
@@ -170,19 +189,23 @@ gn_prep_kernel(const float* __restrict__ pts,
 
 }  // namespace
 
+// batch replicas: the inputs at n * (3c, c, 3, 1) elements a replica, the
+// outputs out_stride floats apart.
 extern "C" int ptudes_gn_prep(const float* pts, const unsigned char* valid,
                               const float* q_w, const unsigned char* mask,
                               float* feat, float* cx, float* cy, float* cz,
                               float* inf, int n, int c, float r2, int fit,
+                              int batch, int out_stride,
                               cudaStream_t stream) {
-  if (n <= 0 || c <= 0 || tile_bytes(c) > kMaxSmem)
+  if (n <= 0 || c <= 0 || tile_bytes(c) > kMaxSmem || batch < 1
+      || batch > 65535)
     return cudaErrorInvalidValue;
-  const int blocks = (n + kWarps - 1) / kWarps;
+  const dim3 grid((n + kWarps - 1) / kWarps, batch);
   if (fit)
-    gn_prep_kernel<true><<<blocks, kThreads, tile_bytes(c), stream>>>(
-        pts, valid, q_w, mask, feat, cx, cy, cz, inf, n, c, r2);
+    gn_prep_kernel<true><<<grid, kThreads, tile_bytes(c), stream>>>(
+        pts, valid, q_w, mask, feat, cx, cy, cz, inf, n, c, r2, out_stride);
   else
-    gn_prep_kernel<false><<<blocks, kThreads, tile_bytes(c), stream>>>(
-        pts, valid, q_w, mask, feat, cx, cy, cz, inf, n, c, r2);
+    gn_prep_kernel<false><<<grid, kThreads, tile_bytes(c), stream>>>(
+        pts, valid, q_w, mask, feat, cx, cy, cz, inf, n, c, r2, out_stride);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,6 +42,11 @@
 // The tensor cores do not apply: each point has its own candidate set (no
 // shared operand), and the 45 moment sums are rank-1 updates of short
 // vectors, so this stays on the CUDA cores.
+//
+// Replica axis (the batched driver): B clusters, replica b's on grid row
+// y = b, each with its own source, prepped rows, guess, kernel width,
+// max_d2, iteration count and convergence; clusters share nothing, so
+// replica b's result is a single launch's on its inputs, bit for bit.
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -204,7 +209,18 @@ __global__ void __launch_bounds__(kPass * loop_groups(kStaged))
 icp_loop_kernel(Inputs in, const float* __restrict__ scal,
                 float* __restrict__ out, int n, int c, int ppc,
                 float plane_q, float conv2, float prior_rot,
-                float prior_trans, int max_iterations) {
+                float prior_trans, int max_iterations, int prep_stride) {
+  {  // this replica's rows
+    const size_t rep = blockIdx.y, o = rep * prep_stride;
+    in.src += rep * 3 * n;
+    in.feat += o;
+    in.cx += o;
+    in.cy += o;
+    in.cz += o;
+    in.inf += o;
+    scal += rep * 14;
+    out += rep * 20;
+  }
   constexpr int kGroups = loop_groups(kStaged);
   // staged: cx, cy, cz, inf [c][ppc], feat [8][ppc], source [3][ppc]
   extern __shared__ __align__(16) float stage[];
@@ -372,7 +388,8 @@ template <bool kStaged>
 cudaError_t launch_loop(const Inputs& in, const float* scal, float* out,
                         int n, int c, int ppc, int cluster, float plane_q,
                         float conv2, float prior_rot, float prior_trans,
-                        int max_iterations, cudaStream_t stream) {
+                        int max_iterations, int batch, int prep_stride,
+                        cudaStream_t stream) {
   auto kernel = icp_loop_kernel<kStaged>;
   const size_t smem =
       kStaged ? static_cast<size_t>(4 * c + kSideRows) * ppc * 4 : 0;
@@ -386,40 +403,45 @@ cudaError_t launch_loop(const Inputs& in, const float* scal, float* out,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
+  cfg.gridDim = dim3(cluster, batch);
   cfg.blockDim = dim3(kPass * loop_groups(kStaged));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, in, scal, out, n, c, ppc, plane_q,
-                            conv2, prior_rot, prior_trans, max_iterations);
+                            conv2, prior_rot, prior_trans, max_iterations,
+                            prep_stride);
 }
 
 }  // namespace
 
 // The launch plan (ops/cuda_icp.py:loop_plan): `cluster` CTAs, CTA r
 // owning points [r * ppc, (r + 1) * ppc); staged != 0 copies each CTA's
-// slice into (4c + 11) * ppc * 4 bytes of dynamic shared memory.
+// slice into (4c + 11) * ppc * 4 bytes of dynamic shared memory. batch
+// replicas, each a cluster: src [3, n] and scal [14] and out [20] a replica
+// apart, feat and the candidate rows prep_stride floats apart.
 extern "C" int ptudes_icp_loop(const float* src, const float* feat,
                                const float* cx, const float* cy,
                                const float* cz, const float* inf,
                                const float* scal, float* out, int n, int c,
                                float plane_q, float conv2, float prior_rot,
                                float prior_trans, int max_iterations,
-                               int cluster, int ppc, int staged,
-                               cudaStream_t stream) {
+                               int cluster, int ppc, int staged, int batch,
+                               int prep_stride, cudaStream_t stream) {
   if (n <= 0 || c <= 0 || cluster < 1 || cluster > kMaxCluster
-      || ppc <= 0 || static_cast<long long>(ppc) * cluster < n)
+      || ppc <= 0 || static_cast<long long>(ppc) * cluster < n
+      || batch < 1 || batch > 65535)
     return cudaErrorInvalidValue;
   const Inputs in{src, feat, cx, cy, cz, inf};
   const cudaError_t err =
       staged ? launch_loop<true>(in, scal, out, n, c, ppc, cluster, plane_q,
                                  conv2, prior_rot, prior_trans,
-                                 max_iterations, stream)
+                                 max_iterations, batch, prep_stride, stream)
              : launch_loop<false>(in, scal, out, n, c, ppc, cluster, plane_q,
                                   conv2, prior_rot, prior_trans,
-                                  max_iterations, stream);
+                                  max_iterations, batch, prep_stride,
+                                  stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,11 @@ route through the kernel wrappers instead; ``predict_batch="assoc"`` runs
 the covariance chain as a log-depth scan of batched products (plain torch
 ops: the JAX package's form of it is XLA glue, no kernel). ``FilterLog``
 and :func:`run_filter` are the IMU-rate filter history and run.
+
+:func:`process_imu_batch`, :func:`process_pose` and :func:`masked_update`
+also take a leading replica axis (every leaf stacked [B, ...], the batched
+driver's state): the kernels run all replicas in one launch, the plain
+forms replica by replica.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from .. import GRAV
 from ..config import EkfConfig
 from ..geom import se3, so3
 from ..geom.linalg import solve_spd6
+from ..utils.replicas import per_replica
 
 STATE_RANK = 18
 POS, VEL, PHI, BG, BA, G = 0, 3, 6, 9, 12, 15
@@ -117,8 +123,14 @@ def pose_mat(s: EkfState) -> torch.Tensor:
 
 def masked_update(old: EkfState, new: EkfState,
                   apply: torch.Tensor) -> EkfState:
-    """``new`` where ``apply`` else ``old``, leaf by leaf."""
-    return EkfState(*[torch.where(apply, b, a) for a, b in zip(old, new)])
+    """``new`` where ``apply`` else ``old``, leaf by leaf (``apply`` [B]
+    selects per replica)."""
+    def sel(a, b):
+        return torch.where(
+            apply.reshape(apply.shape + (1,) * (b.dim() - apply.dim())),
+            b, a)
+
+    return EkfState(*[sel(a, b) for a, b in zip(old, new)])
 
 
 def _set_blk(m: torch.Tensor, i: int, j: int, b: torch.Tensor) -> None:
@@ -184,6 +196,9 @@ def process_imu_batch(s: EkfState, imus: Imu, valid: torch.Tensor, *,
                                       want_twist=want_twist, log=log)
     if cfg.predict_batch not in ("unroll", "assoc"):
         raise ValueError(f"unknown predict_batch {cfg.predict_batch!r}")
+    if valid.dim() == 2:
+        return per_replica(process_imu_batch, valid.shape[0], s, imus,
+                           valid, cfg=cfg, want_twist=want_twist, log=log)
     if cfg.predict_batch == "unroll" or log:
         out, steps = s, []
         for k in range(valid.shape[0]):
@@ -298,6 +313,9 @@ def process_pose(s: EkfState, pose_meas: torch.Tensor, *, cfg: EkfConfig,
                                     joseph=cfg.joseph_form)
     if cfg.update_form != "xla":
         raise ValueError(f"unknown update_form {cfg.update_form!r}")
+    if pose_meas.dim() == 3:
+        return per_replica(process_pose, pose_meas.shape[0], s, pose_meas,
+                           cfg=cfg, meas_cov=meas_cov)
 
     r_k = so3.quat_to_mat(s.quat)
     resid = torch.cat([se3.trans(pose_meas) - s.pos,

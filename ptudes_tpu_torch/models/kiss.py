@@ -10,6 +10,11 @@ statistics -> map insert with fused eviction (none on a frozen map). Every
 stage has a static shape; the step synchronises with the host only in the
 ICP's candidate-refresh loop and in the every-iteration query loop (one
 read per GN iteration, ``icp.read_flags``), never with frozen candidates.
+
+:func:`register_scan_batched` registers B replicas' scans in the launches
+of one: the front end with a leading replica axis, one candidate gather of
+all replicas' points from the flat B-map table, K3 and K4 with a replica
+axis; the map insert is left to the caller (:class:`DeferredInsert`).
 """
 from __future__ import annotations
 
@@ -31,6 +36,15 @@ class KissState(NamedTuple):
     model_sse: torch.Tensor    # [] f32
     num_samples: torch.Tensor  # [] int32
     num_scans: torch.Tensor    # [] int32
+
+
+class DeferredInsert(NamedTuple):
+    """The map update ``register_scan(defer_insert=True)`` leaves to its
+    caller (the batched driver runs it once for all replicas)."""
+    frame_w: torch.Tensor   # [F, 3] world-frame insert candidates
+    mask: torch.Tensor      # [F] bool, already gated by update_ok
+    origin: torch.Tensor    # [3] eviction centre: the new pose's origin
+    evict_r2: torch.Tensor  # [] squared eviction radius (inf when gated)
 
 
 class KissAux(NamedTuple):
@@ -83,7 +97,10 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
                   use_guess: bool = False,
                   deskew_twist: torch.Tensor | None = None,
                   insert_overflow: bool | str = True,
-                  map_frozen: bool = False
+                  map_frozen: bool = False,
+                  defer_insert: bool = False,
+                  map_slot_base: torch.Tensor | None = None,
+                  map_logical_capacity: int | None = None
                   ) -> tuple[KissState, torch.Tensor, KissAux]:
     """Register one scan; returns (new state, pose, diagnostics). The
     guess is ``initial_guess`` with ``use_guess``, else the constant-
@@ -96,8 +113,23 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
     insert's inputs (empty mask, infinite eviction radius) and selects on
     the small leaves. ``map_frozen``: localisation on a prior map, which
     is left as it is; the pose, the threshold statistics and the
-    diagnostics update as usual."""
+    diagnostics update as usual.
+
+    ``defer_insert``: the map is left as it is and the insert comes back as
+    a fourth result, a :class:`DeferredInsert`. ``map_slot_base`` /
+    ``map_logical_capacity`` (with ``defer_insert`` and cached candidates):
+    ``state.local_map`` is a flat B-map table and this scan's candidates
+    come from its replica's slots (``icp.gather_candidates``)."""
     vs = cfg.resolved_voxel_size
+    if map_frozen and defer_insert:
+        raise ValueError(
+            "map_frozen with defer_insert: a frozen map has no insert to "
+            "defer (run frozen-map sequences through lio.run_sequence)")
+    if map_slot_base is not None and not (
+            defer_insert and cfg.nn_mode == "cached"
+            and map_logical_capacity is not None):
+        raise ValueError("a flat-map slot base needs defer_insert, cached "
+                         "candidates and map_logical_capacity")
     if cfg.deskew:
         if deskew_twist is not None:
             pts = deskew_ops.deskew_by_twist(pts, ts01 - 0.5, deskew_twist)
@@ -139,7 +171,9 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
             sigma / 3.0, n_voxels=cfg.nn_voxels,
             plane_radius=cfg.plane_fit_radius,
             refresh_drift=cfg.nn_refresh_drift,
-            fused_gather=cfg.fused_gather, form=cfg.icp_form, **common)
+            fused_gather=cfg.fused_gather, form=cfg.icp_form,
+            slot_base=map_slot_base, logical_capacity=map_logical_capacity,
+            **common)
     else:
         res = icp.register_frame(
             source, source_mask, state.local_map, guess, 3.0 * sigma,
@@ -153,11 +187,12 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
 
     ok = (torch.ones((), dtype=torch.bool, device=pts.device)
           if update_ok is None else update_ok.to(torch.bool))
-    if map_frozen:
-        local_map = state.local_map
-    else:
+    if not map_frozen:
         evict_r2 = torch.where(
             ok, torch.full_like(sigma, cfg.max_range ** 2), math.inf)
+    if map_frozen or defer_insert:
+        local_map = state.local_map
+    else:
         local_map = hashmap.insert_deduped(
             state.local_map, se3.transform(new_pose, frame_ds),
             frame_mask & ok, voxel_size=vs, max_probes=cap.max_probes,
@@ -181,7 +216,86 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
         num_corr=res.num_corr, iterations=res.iterations,
         source_count=source_mask.to(torch.int32).sum(),
         map_points=hashmap.num_points(local_map))
+    if defer_insert:
+        return new_state, new_pose, aux, DeferredInsert(
+            se3.transform(new_pose, frame_ds), frame_mask & ok,
+            se3.trans(new_pose), evict_r2)
     return new_state, new_pose, aux
+
+
+def register_scan_batched(state: KissState, pts: torch.Tensor,
+                          mask: torch.Tensor, ts01: torch.Tensor, *,
+                          cfg: KissConfig, cap: Capacity,
+                          grid_hw: tuple[int, int],
+                          initial_guess: torch.Tensor,
+                          update_ok: torch.Tensor,
+                          slot_base: torch.Tensor, logical_capacity: int,
+                          deskew_twist: torch.Tensor | None = None
+                          ) -> tuple[KissState, torch.Tensor, KissAux,
+                                     DeferredInsert]:
+    """:func:`register_scan` of B replicas at once, with the guess given,
+    the grid front end, frozen cached candidates and ``defer_insert``:
+    ``state``'s leaves [B, ...] (its ``local_map`` the flat B-map table,
+    replica b at ``slot_base[b]``), ``pts`` [B, N, 3], ``mask`` and
+    ``ts01`` [B, N], guesses [B, 4, 4], ``update_ok`` [B], the deskew
+    twists [B, 6] (or none). Every stage runs once for all replicas; the
+    results carry the leading [B]. The deferred insert's ``frame_w`` is
+    [B, F, 3], ready for ``hashmap.insert_deduped_batched``."""
+    vs = cfg.resolved_voxel_size
+    b = mask.shape[0]
+    if cfg.deskew and deskew_twist is not None:
+        pts = deskew_ops.deskew_by_twist(pts, ts01 - 0.5, deskew_twist)
+    mask = voxel.range_clip_mask(pts, mask, cfg.min_range, cfg.max_range)
+    pre = voxel.window_prededup_mask(pts, mask, vs * 0.5, grid_hw)
+    pre_pts, pre_mask = voxel.compact(pts, pre, cap.max_frame)
+    frame_ds, frame_mask = voxel.first_in_voxel_sorted(
+        pre_pts, pre_mask, vs * 0.5, cap.max_frame)
+    src_pts, src_keep = voxel.first_in_voxel_sorted(
+        frame_ds, frame_mask, vs * 1.5, cap.max_frame)
+    source, source_mask = voxel.compact(src_pts, src_keep, cap.max_source,
+                                        decimate_overflow=True)
+
+    sigma = get_adaptive_threshold(state, cfg)
+    res = icp.register_frames_cached_batched(
+        source, source_mask, state.local_map, initial_guess, 3.0 * sigma,
+        sigma / 3.0, slot_base=slot_base, logical_capacity=logical_capacity,
+        voxel_size=vs, max_probes=cap.max_probes,
+        max_iterations=cfg.max_iterations,
+        convergence=cfg.convergence_criterion, loss=cfg.loss,
+        plane_min_quality=cfg.plane_min_quality,
+        prior_rot_weight=cfg.prior_rot_weight,
+        prior_trans_weight=cfg.prior_trans_weight,
+        neighborhood=cfg.nn_neighborhood, n_voxels=cfg.nn_voxels,
+        plane_radius=cfg.plane_fit_radius, form=cfg.icp_form)
+    new_pose = res.pose
+
+    err = model_error(res.dev_t, res.dev_r, cfg.max_range)
+    accum = err > cfg.min_motion_th
+    model_sse = state.model_sse + torch.where(accum, err * err, 0.0)
+    num_samples = state.num_samples + accum.to(torch.int32)
+    ok = update_ok.to(torch.bool)
+    evict_r2 = torch.where(
+        ok, torch.full_like(sigma, cfg.max_range ** 2), math.inf)
+
+    def gate(new, old):
+        return torch.where(ok.reshape((b,) + (1,) * (new.dim() - 1)), new,
+                           old)
+
+    new_state = KissState(
+        local_map=state.local_map,
+        pose=gate(new_pose, state.pose),
+        pose_prev=gate(state.pose, state.pose_prev),
+        model_sse=gate(model_sse, state.model_sse),
+        num_samples=gate(num_samples, state.num_samples),
+        num_scans=gate(state.num_scans + 1, state.num_scans))
+    aux = KissAux(
+        sigma=sigma, err_dt=res.dev_t, err_drot=res.dev_r,
+        num_corr=res.num_corr, iterations=res.iterations,
+        source_count=source_mask.to(torch.int32).sum(-1),
+        map_points=hashmap.replica_points(state.local_map, b))
+    return new_state, new_pose, aux, DeferredInsert(
+        se3.transform(new_pose, frame_ds), frame_mask & ok[:, None],
+        se3.trans(new_pose), evict_r2)
 
 
 def velocity(state: KissState, dt: torch.Tensor) -> torch.Tensor:

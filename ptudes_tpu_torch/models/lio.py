@@ -64,13 +64,16 @@ _PK_VEL, _PK_BG, _PK_BA, _PK_GRAV, _PK_COV, _PK_AUX = 33, 36, 39, 42, 45, 63
 
 
 def _pack_out(out: LioOut) -> torch.Tensor:
+    """The packed row [70] of one scan's outputs, [B, 70] for B replicas."""
     a = out.aux
-    f = lambda x: x.to(torch.float32).reshape(-1)  # noqa: E731
+    lead = out.scan_valid.shape
+    f = lambda x: x.to(torch.float32).reshape(lead + (-1,))  # noqa: E731
     return torch.cat([
         f(out.kiss_pose), f(out.ekf_pose), f(out.scan_valid), f(out.ekf_vel),
         f(out.ekf_bias_gyr), f(out.ekf_bias_acc), f(out.ekf_grav),
         f(out.ekf_cov_diag), f(a.sigma), f(a.err_dt), f(a.err_drot),
-        f(a.num_corr), f(a.iterations), f(a.source_count), f(a.map_points)])
+        f(a.num_corr), f(a.iterations), f(a.source_count), f(a.map_points)],
+        -1)
 
 
 def unpack_out(p: torch.Tensor) -> LioOut:
@@ -121,14 +124,16 @@ def init_state(cfg: PipelineConfig, device="cuda", *, init_grav=None,
 def _fold_knot(flog: FilterLog, valid: torch.Tensor, has_imu: torch.Tensor,
                ekf: EkfState) -> FilterLog:
     """The scan's history with the post-update state in its last valid
-    slot (the knot, ``updated`` there); on the device, no host read."""
-    k = valid.shape[0]
-    last = valid.to(torch.int32).sum() - 1
-    knot = (torch.arange(k, device=valid.device) == last) & has_imu
+    slot (the knot, ``updated`` there); on the device, no host read. With
+    a leading replica axis (``valid`` [B, K]) each replica's own."""
+    k, lead = valid.shape[-1], valid.shape[:-1]
+    last = valid.to(torch.int32).sum(-1, keepdim=True) - 1
+    knot = (torch.arange(k, device=valid.device) == last) \
+        & has_imu[..., None]
 
     def put(seq, post):
-        m = knot.reshape((k,) + (1,) * (seq.dim() - 1))
-        return torch.where(m, post[None], seq)
+        m = knot.reshape(lead + (k,) + (1,) * (seq.dim() - valid.dim()))
+        return torch.where(m, post.unsqueeze(len(lead)), seq)
 
     return FilterLog(
         ts=flog.ts, pos=put(flog.pos, ekf.pos), vel=put(flog.vel, ekf.vel),
@@ -136,11 +141,14 @@ def _fold_knot(flog: FilterLog, valid: torch.Tensor, has_imu: torch.Tensor,
         bias_gyr=put(flog.bias_gyr, ekf.bias_gyr),
         bias_acc=put(flog.bias_acc, ekf.bias_acc),
         grav=put(flog.grav, ekf.grav),
-        cov_diag=put(flog.cov_diag, torch.diagonal(ekf.cov)), updated=knot)
+        cov_diag=put(flog.cov_diag, torch.diagonal(ekf.cov, 0, -2, -1)),
+        updated=knot)
 
 
 def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
-                   insert_overflow: bool | str = True, log: bool = False):
+                   insert_overflow: bool | str = True, log: bool = False,
+                   defer_insert: bool = False,
+                   map_logical_capacity: int | None = None):
     """The scan step closure over the projection LUT: (state, one scan of
     the batch) -> (state, packed output row), and with ``log`` the scan's
     :class:`FilterLog` as a third element. ``insert_overflow=True`` is the
@@ -152,13 +160,25 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
     is the EKF's over the sweep with ``deskew_mode="ekf"``. The range image
     is decimated by ``cfg.col_decimation`` columns before the front end
     (its grid then H x W/d); with ``cfg.map_frozen`` the map is left as it
-    is."""
+    is.
+
+    ``defer_insert``: the map is left as it is and the step also returns
+    the scan's ``kiss.DeferredInsert`` last. ``map_logical_capacity``
+    (with ``defer_insert``): the state's map is a flat B-map table and the
+    step takes the replica's slot base as a third argument
+    (``ptudes_tpu.models.lio.make_scan_step``'s flat-map mode; the
+    batched driver, ``parallel.batched``, runs all replicas in one step of
+    its own instead)."""
+    if map_logical_capacity is not None and not defer_insert:
+        raise ValueError("a flat map (map_logical_capacity) needs "
+                         "defer_insert")
     check_supported(cfg)
     h, w = lut.direction.shape[:2]
     d = cfg.col_decimation
     need_twist = cfg.deskew_mode == "ekf" and cfg.kiss.deskew
 
-    def scan_step(state: LioState, batch: ScanBatch):
+    def scan_step(state: LioState, batch: ScanBatch,
+                  map_slot_base: torch.Tensor | None = None):
         res = esekf.process_imu_batch(
             state.ekf, batch.imu, batch.imu_valid, cfg=cfg.ekf,
             want_twist=need_twist, log=log)
@@ -172,11 +192,13 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
             guess = esekf.pose_mat(ekf1)
         elif cfg.guess == "gt":
             guess = batch.guess_pose
-        kiss1, pose, aux = kiss.register_scan(
+        kiss1, pose, aux, *deferred = kiss.register_scan(
             state.kiss, pts, mask, ts01, cfg=cfg.kiss, cap=cfg.cap,
             initial_guess=guess, use_guess=guess is not None,
             deskew_twist=twist, update_ok=has_imu, grid_hw=(h, w // d),
-            insert_overflow=insert_overflow, map_frozen=cfg.map_frozen)
+            insert_overflow=insert_overflow, map_frozen=cfg.map_frozen,
+            defer_insert=defer_insert, map_slot_base=map_slot_base,
+            map_logical_capacity=map_logical_capacity)
         ekf2 = esekf.process_pose(ekf1, pose, cfg=cfg.ekf)
         ekf_out = esekf.masked_update(ekf1, ekf2, has_imu)
         out = LioOut(
@@ -187,9 +209,9 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
             ekf_cov_diag=torch.diagonal(ekf_out.cov), aux=aux)
         new_state = LioState(kiss=kiss1, ekf=ekf_out)
         if log:
-            return new_state, _pack_out(out), _fold_knot(
-                res[-1], batch.imu_valid, has_imu, ekf_out)
-        return new_state, _pack_out(out)
+            return (new_state, _pack_out(out), _fold_knot(
+                res[-1], batch.imu_valid, has_imu, ekf_out), *deferred)
+        return (new_state, _pack_out(out), *deferred)
 
     return scan_step
 

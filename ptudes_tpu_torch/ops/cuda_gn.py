@@ -14,6 +14,10 @@ K4 and K5 read: on the frozen path by K3 itself, which also writes the feat
 rows (normal, centroid, quality, source mask); on the refresh path and in
 K3's twin by :func:`lane_major`, the refresh path's feat rows coming from
 the gather's own plane fit (:func:`prep_candidates`).
+
+K3 also takes a leading replica axis (the batched driver's B
+registrations): one launch writes every replica's feat and lane-major rows
+into one [B, 8 + 4C, N] buffer, the layout K4's replica axis reads.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 from .. import kernels
 from .icp import CandidateSet, gn_from_candidates
 from .plane import smallest_eigvec_sym3
+from ..utils.replicas import per_replica
 
 _F32 = torch.float32
 GN_TILE = 32     # points per CTA of K5 (csrc/gn_iter.cu:kTile)
@@ -128,7 +133,11 @@ def prep_with_plane_torch(cand, source_mask: torch.Tensor,
                           q_w: torch.Tensor, radius: float, *,
                           loss: str = "plane") -> PreppedCandidates:
     """K3's plain twin: :func:`plane_feat_torch` on the lane-major
-    candidates, or with ``loss="point"`` :func:`point_feat_torch`."""
+    candidates, or with ``loss="point"`` :func:`point_feat_torch`; with a
+    leading replica axis, replica by replica."""
+    if source_mask.dim() == 2:
+        return per_replica(prep_with_plane_torch, source_mask.shape[0],
+                           cand, source_mask, q_w, radius=radius, loss=loss)
     cx, cy, cz, inf = lane_major(cand)
     feat = (plane_feat_torch(q_w, source_mask, cx, cy, cz, inf,
                              _radius2(radius)) if loss == "plane"
@@ -144,27 +153,33 @@ def prep_with_plane(cand, source_mask: torch.Tensor, q_w: torch.Tensor,
     with ``q_w`` [N, 3] f32 and ``source_mask`` [N] bool, all contiguous,
     and writes feat and the lane-major candidates in one launch; anything
     else raises. ``loss="point"`` runs the kernel's instance without the
-    plane fit (feat as :func:`point_feat_torch`). CPU tensors take the
-    twin."""
+    plane fit (feat as :func:`point_feat_torch`). A leading replica axis
+    on all four ([B, N, C, 3] ...) runs all replicas in the one launch,
+    its outputs [B, 8, N] and [B, C, N] views of one buffer. CPU tensors
+    take the twin."""
     if loss not in ("plane", "point"):
         raise ValueError(f"gn_prep: loss {loss!r}")
     if kernels.device_kind(q_w, "gn_prep") == "cpu":
         return prep_with_plane_torch(cand, source_mask, q_w, radius,
                                      loss=loss)
-    n, c = cand.valid.shape
-    if cand.pts.shape != (n, c, 3) or q_w.shape != (n, 3) \
-            or source_mask.shape != (n,):
+    lead, (n, c) = cand.valid.shape[:-2], cand.valid.shape[-2:]
+    if cand.pts.shape != lead + (n, c, 3) or q_w.shape != lead + (n, 3) \
+            or source_mask.shape != lead + (n,) or len(lead) > 1:
         raise ValueError(
-            f"gn_prep: pts {tuple(cand.pts.shape)}, valid {(n, c)}, q_w "
-            f"{tuple(q_w.shape)}, source_mask {tuple(source_mask.shape)}")
-    out = torch.empty((8 + 4 * c, n), dtype=_F32, device=q_w.device)
-    prepped = PreppedCandidates(out[:8], *out[8:].split(c))
+            f"gn_prep: pts {tuple(cand.pts.shape)}, valid "
+            f"{tuple(cand.valid.shape)}, q_w {tuple(q_w.shape)}, "
+            f"source_mask {tuple(source_mask.shape)}")
+    out = torch.empty(lead + (8 + 4 * c, n), dtype=_F32, device=q_w.device)
+    prepped = PreppedCandidates(out[..., :8, :],
+                                *out[..., 8:, :].split(c, -2))
     kernels.launch(
         "gn_prep", kernels.ptr(cand.pts, "pts"),
         kernels.ptr(cand.valid, "valid", torch.bool), kernels.ptr(q_w, "q_w"),
         kernels.ptr(source_mask, "source_mask", torch.bool),
-        *(kernels.ptr(x, name) for x, name in zip(prepped, prepped._fields)),
-        n, c, _radius2(radius), int(loss == "plane"))
+        *(kernels.ptr(out, "out") + 4 * n * r0
+          for r0 in (0, 8, 8 + c, 8 + 2 * c, 8 + 3 * c)),
+        n, c, _radius2(radius), int(loss == "plane"),
+        int(lead[0]) if lead else 1, (8 + 4 * c) * n)
     return prepped
 
 

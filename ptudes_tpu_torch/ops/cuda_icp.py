@@ -12,6 +12,11 @@ points; :func:`loop_plan` picks its shape from ``(n, c)`` alone: the
 staged variant when a CTA's slice of the candidate, feat and source rows
 fits in shared memory, the streamed one (rows read from device memory
 every iteration) otherwise. Both are the same hand-written kernel.
+
+With a leading replica axis (the batched driver's B registrations: source
+[B, N, 3], prepped rows [B, ., N], guesses [B, 4, 4], kernel widths and
+max_d2 [B]) one launch runs B clusters, one a replica, each with its own
+iteration count and exit; the twin runs replica by replica.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from .. import kernels
 from ..geom import se3, so3
 from .cuda_gn import PreppedCandidates, candidates_from_prepped
 from .icp import gn_from_candidates, gn_twist
+from ..utils.replicas import per_replica
 
 _F32 = torch.float32
 CLUSTER = 8           # CTAs a registration runs on (the portable maximum)
@@ -71,6 +77,13 @@ def icp_loop_torch(source: torch.Tensor, prepped: PreppedCandidates,
                    prior_rot_weight: float, prior_trans_weight: float):
     """K4's plain twin: ``max_iterations`` GN steps, each masked once
     converged, so the step count never depends on data (no host sync)."""
+    if source.dim() == 3:
+        return per_replica(
+            icp_loop_torch, source.shape[0], source, prepped, guess, kernel,
+            max_d2, convergence=convergence,
+            plane_min_quality=plane_min_quality,
+            max_iterations=max_iterations, prior_rot_weight=prior_rot_weight,
+            prior_trans_weight=prior_trans_weight)
     dev = source.device
     cand, mask = candidates_from_prepped(prepped)
     ginv = se3.inv(guess)
@@ -110,25 +123,49 @@ def icp_loop(source: torch.Tensor, prepped: PreppedCandidates,
             max_iterations=max_iterations,
             prior_rot_weight=prior_rot_weight,
             prior_trans_weight=prior_trans_weight)
-    c, n = prepped.cx.shape
-    if source.shape != (n, 3) or prepped.feat.shape != (8, n) or any(
-            x.shape != (c, n) for x in prepped[2:]):
+    lead, (c, n) = source.shape[:-2], prepped.cx.shape[-2:]
+    if source.shape != lead + (n, 3) or len(lead) > 1 \
+            or prepped.feat.shape != lead + (8, n) \
+            or any(x.shape != lead + (c, n) for x in prepped[2:]):
         raise ValueError(
             f"icp_loop: source {tuple(source.shape)}, feat "
             f"{tuple(prepped.feat.shape)}, candidates {c} x {n}")
     plan = loop_plan(n, c)
-    src = source.to(_F32).T.contiguous()                       # [3, N]
-    scal = torch.cat([kernel.reshape(1), max_d2.reshape(1),
-                      guess[:3].reshape(12)]).to(_F32)
-    out = torch.empty(20, dtype=_F32, device=source.device)
+    src = source.to(_F32).transpose(-1, -2).contiguous()       # [..., 3, N]
+    scal = torch.cat([kernel.reshape(lead + (1,)),
+                      max_d2.reshape(lead + (1,)),
+                      guess[..., :3, :].reshape(lead + (12,))], -1) \
+        .to(_F32).contiguous()
+    out = torch.empty(lead + (20,), dtype=_F32, device=source.device)
+    rows, stride = _prepped_rows(prepped, lead)
     conv = np.float32(convergence)
     kernels.launch(
-        "icp_loop", kernels.ptr(src, "src"),
-        kernels.ptr(prepped.feat, "feat"), kernels.ptr(prepped.cx, "cx"),
-        kernels.ptr(prepped.cy, "cy"), kernels.ptr(prepped.cz, "cz"),
-        kernels.ptr(prepped.inf, "inf"), kernels.ptr(scal, "scal"),
-        kernels.ptr(out, "out"), n, c, plane_min_quality,
-        float(conv * conv), prior_rot_weight, prior_trans_weight,
-        max_iterations, plan.cluster, plan.points_per_cta, int(plan.staged))
-    return (out[:16].reshape(4, 4), out[16].to(torch.int32),
-            out[17].to(torch.int32), out[18], out[19])
+        "icp_loop", kernels.ptr(src, "src"), *rows,
+        kernels.ptr(scal, "scal"), kernels.ptr(out, "out"), n, c,
+        plane_min_quality, float(conv * conv), prior_rot_weight,
+        prior_trans_weight, max_iterations, plan.cluster,
+        plan.points_per_cta, int(plan.staged), int(lead[0]) if lead else 1,
+        stride)
+    return (out[..., :16].reshape(lead + (4, 4)),
+            out[..., 16].to(torch.int32), out[..., 17].to(torch.int32),
+            out[..., 18], out[..., 19])
+
+
+def _prepped_rows(prepped: PreppedCandidates, lead: tuple
+                  ) -> tuple[list[int], int]:
+    """K4's pointers to replica 0's feat, cx, cy, cz, inf rows and the
+    floats between replicas: one stride for all five (K3's replica-axis
+    buffer has it; other layouts are packed into one [B, 8 + 4C, N]
+    buffer first)."""
+    if not lead:
+        return [kernels.ptr(x, name) for x, name in
+                zip(prepped, prepped._fields)], 0
+    stride = prepped.feat.stride(0)
+    if not all(x.stride(0) == stride and x[0].is_contiguous()
+               for x in prepped):
+        buf = torch.cat([x.to(_F32) for x in prepped], -2).contiguous()
+        prepped = PreppedCandidates(buf[:, :8], *buf[:, 8:].split(
+            prepped.cx.shape[-2], -2))
+        stride = buf.stride(0)
+    return [kernels.ptr(x[0], name) for x, name in
+            zip(prepped, prepped._fields)], stride

@@ -12,6 +12,13 @@ row appended to each column for the duration of the insert; its
 scatter-min (``scatter_reduce(..., "amin")``), so the winner of a contested
 slot does not depend on scatter order. The map is updated out of place, as
 in JAX.
+
+The flat B-map table (:func:`create_batched`) holds B independent maps in
+disjoint slot ranges ``[b * C, (b + 1) * C)`` of one table: a key hashes
+with the logical capacity C and every probe adds its replica's slot base
+``b * C``, so :func:`insert_deduped_batched` and :func:`remove_far_batched`
+update all replicas in the launches of one insert, and the tables match B
+separate maps bit for bit.
 """
 from __future__ import annotations
 
@@ -67,6 +74,19 @@ def _fingerprint_and_slot(coords: torch.Tensor, capacity: int
     return to_i32(fp), slot
 
 
+def create_batched(batch: int, capacity: int, max_points_per_voxel: int,
+                   device) -> VoxelHashMap:
+    """B empty maps of ``capacity`` slots in one flat table of B x
+    ``capacity`` rows; replica b's view is rows [b * capacity, (b + 1) *
+    capacity)."""
+    assert capacity & (capacity - 1) == 0, "capacity must be a power of two"
+    return VoxelHashMap(
+        meta=torch.zeros((batch * capacity, META_W), dtype=torch.int32,
+                         device=device),
+        points=torch.zeros((batch * capacity, max_points_per_voxel),
+                           dtype=torch.int32, device=device))
+
+
 def neighbor_offsets(n: int, device) -> torch.Tensor:
     """The first ``n`` voxel neighbour offsets ordered by L1 norm (centre,
     6 faces, 12 edges, 8 corners; ``ptudes_tpu.ops.hashmap``'s order),
@@ -87,13 +107,16 @@ def gather_rows(table: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def probe(m: VoxelHashMap, keys: torch.Tensor, max_probes: int,
-          miss_slot: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                   torch.Tensor]:
+          miss_slot: int, slot_base: torch.Tensor | None = None,
+          logical_capacity: int | None = None
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The first fingerprint match of each voxel key [..., 3] within
     ``max_probes`` linear probes from its home slot: (slot, count,
     representative point [..., 3], found). A miss has slot ``miss_slot``,
-    count 0 and representative 0."""
-    cap = m.meta.shape[0]
+    count 0 and representative 0. In a flat B-map table the keys hash with
+    ``logical_capacity`` and each probe adds ``slot_base`` (broadcast
+    against the keys' [...] shape); the slots returned are the table's."""
+    cap = m.meta.shape[0] if logical_capacity is None else logical_capacity
     fp, h0 = _fingerprint_and_slot(keys, cap)
     slot = torch.full_like(fp, miss_slot)
     cnt = torch.zeros_like(fp)
@@ -101,6 +124,8 @@ def probe(m: VoxelHashMap, keys: torch.Tensor, max_probes: int,
     rep = torch.zeros(fp.shape + (3,), dtype=torch.float32, device=fp.device)
     for r in range(max_probes):
         s = (h0 + r) & (cap - 1)
+        if slot_base is not None:
+            s = s + slot_base
         rows = m.meta[s.long()]
         match = (rows[..., 0] == fp) & ~found
         slot = torch.where(match, s, slot)
@@ -181,10 +206,12 @@ def _popcount_below(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def _insert_chunk(state, pts: torch.Tensor, payload: torch.Tensor,
                   chunk: torch.Tensor, *, voxel_size: float, max_probes: int,
-                  new_capacity: int):
+                  new_capacity: int, logical_capacity: int):
     """Claim + write one compacted chunk of new points into ``state``, the
     (fps, counts, occupancy, reps, points) columns with their spare rows.
-    A chunk with an empty mask writes only to the spare rows."""
+    A chunk with an empty mask writes only to the spare rows. ``payload``
+    is (slot, found) per point, and the slot base as a third column in a
+    flat B-map table (keys hashed with ``logical_capacity``)."""
     fps, counts, occ_col, reps, points = state
     cap = fps.shape[0] - 1
     ppv = points.shape[1]
@@ -197,13 +224,16 @@ def _insert_chunk(state, pts: torch.Tensor, payload: torch.Tensor,
     csub = voxel_coords(cpts, 0.5 * voxel_size) - 2 * ccoords
     csub_id = torch.where(cmask, csub[:, 0] + 2 * csub[:, 1] + 4 * csub[:, 2],
                           0)
-    cfp, ch0 = _fingerprint_and_slot(ccoords, cap)
+    cfp, ch0 = _fingerprint_and_slot(ccoords, logical_capacity)
     cidx = torch.arange(new_capacity, dtype=torch.int32, device=dev)
 
     # claim rounds for points whose voxel does not exist yet
     resolved = ~cmask | cfound
     for r in range(max_probes):
-        s = ((ch0 + r) & (cap - 1)).long()
+        s = (ch0 + r) & (logical_capacity - 1)
+        if payload.shape[1] > 2:
+            s = s + cpay[:, 2]
+        s = s.long()
         want = ~resolved & (fps[s] == 0)
         claim = torch.full((cap,), INT_MAX, dtype=torch.int32, device=dev)
         claim = claim.scatter_reduce(
@@ -301,6 +331,9 @@ def insert(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor, *,
 def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
                    *, voxel_size: float, max_probes: int = 2,
                    new_capacity: int = 8192, overflow: bool | str = True,
+                   slot_base: torch.Tensor | None = None,
+                   logical_capacity: int | None = None,
+                   batch_rows: int | None = None,
                    evict_origin: torch.Tensor | None = None,
                    evict_r2: torch.Tensor | None = None) -> VoxelHashMap:
     """Occupancy-deduped insert of points unique at voxel_size/2, with the
@@ -318,10 +351,18 @@ def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
     to its slice of the new points, so the step never reads the count on
     the host; a chunk with no points writes only to the spare rows, so the
     tables are the same, and ``True`` and ``"cond"`` are one path.
+
+    Flat B-map table (``slot_base`` [N] int32, ``logical_capacity``,
+    ``batch_rows`` = B; see :func:`insert_deduped_batched`): the points are
+    B replicas' rows laid end to end, each probe adds the point's slot
+    base, and the chunk budget (``new_capacity / B`` a replica), the
+    decimation of ``overflow=False`` and chunk membership are counted per
+    replica, so each chunk holds what each replica's own chunk would.
     """
-    cap, ppv = m.meta.shape[0], m.points.shape[1]
+    cap_total, ppv = m.meta.shape[0], m.points.shape[1]
+    cap = cap_total if logical_capacity is None else logical_capacity
     n = pts.shape[0]
-    assert ppv >= 8 and cap & (cap - 1) == 0
+    assert ppv >= 8 and cap & (cap - 1) == 0 and cap_total % cap == 0
     n_chunks = -(-n // new_capacity)
     dev = pts.device
 
@@ -331,12 +372,14 @@ def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
     fp, h0 = _fingerprint_and_slot(coords, cap)
 
     # phase A: one meta-row gather per probe -> fingerprint + occupancy
-    slot = torch.full((n,), cap, dtype=torch.int32, device=dev)
+    slot = torch.full((n,), cap_total, dtype=torch.int32, device=dev)
     occ = torch.zeros((n,), dtype=torch.int32, device=dev)
     found = torch.zeros((n,), dtype=torch.bool, device=dev)
     free_seen = torch.zeros((n,), dtype=torch.bool, device=dev)
     for r in range(max_probes):
         s = (h0 + r) & (cap - 1)
+        if slot_base is not None:
+            s = s + slot_base
         rows = m.meta[s.long()]
         match = (rows[:, 0] == fp) & ~found
         slot = torch.where(match, s, slot)
@@ -346,30 +389,48 @@ def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
     # storable-new points: a free octant of an existing voxel, or a free
     # slot to claim somewhere in the probe chain
     is_new = mask & torch.where(found, ((occ >> sub_id) & 1) == 0, free_seen)
-    new_pos = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
-    if overflow is not False or n_chunks == 1:
-        first = is_new & (new_pos < new_capacity)
+    per_row = batch_rows is not None and batch_rows > 1
+    if per_row:
+        # positions, decimation and chunks counted in each replica's row
+        per = new_capacity // batch_rows
+        nb = is_new.reshape(batch_rows, -1)
+        pos_b = torch.cumsum(nb.to(torch.int32), 1, dtype=torch.int32) - 1
+        if overflow is False:
+            assert nb.shape[1] * per < 2 ** 31
+            n_b = torch.clamp(pos_b[:, -1:] + 1, min=1)
+            nb = nb & (torch.remainder(pos_b * per, n_b) < per)
+            is_new = nb.reshape(-1)
+            pos_b = torch.cumsum(nb.to(torch.int32), 1,
+                                 dtype=torch.int32) - 1
+        new_pos, chunk_den = pos_b.reshape(-1), per
+    else:
+        new_pos = torch.cumsum(is_new.to(torch.int32), 0,
+                               dtype=torch.int32) - 1
+        chunk_den = new_capacity
+    if overflow is not False or n_chunks == 1 or per_row:
+        first = is_new & (new_pos < chunk_den)
     else:
         assert n * new_capacity < 2 ** 31
         n_new = torch.clamp(is_new.to(torch.int32).sum(), min=1)
         first = is_new & (torch.remainder(new_pos * new_capacity, n_new)
                           < new_capacity)
 
-    payload = torch.stack([slot, found.to(torch.int32)], 1)
+    payload = torch.stack([slot, found.to(torch.int32)]
+                          + ([] if slot_base is None else [slot_base]), 1)
     state = (_spare(m.meta[:, 0]), _spare(m.meta[:, 1]),
              _spare(m.meta[:, 5]), _spare(m.meta[:, 2:5]), _spare(m.points))
     kw = dict(voxel_size=voxel_size, max_probes=max_probes,
-              new_capacity=new_capacity)
+              new_capacity=new_capacity, logical_capacity=cap)
     state = _insert_chunk(state, pts, payload, first, **kw)
     if overflow is not False:
         for c in range(1, n_chunks):
-            lo = c * new_capacity
+            lo = c * chunk_den
             state = _insert_chunk(
                 state, pts, payload,
-                is_new & (new_pos >= lo) & (new_pos < lo + new_capacity),
+                is_new & (new_pos >= lo) & (new_pos < lo + chunk_den),
                 **kw)
 
-    fps, counts, occ_col, reps, points = (x[:cap] for x in state)
+    fps, counts, occ_col, reps, points = (x[:cap_total] for x in state)
     if evict_origin is not None:
         d2 = torch.sum((reps.view(torch.float32) - evict_origin) ** 2, -1)
         evict = (counts > 0) & (d2 > evict_r2)
@@ -379,6 +440,49 @@ def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
     meta = torch.cat([fps[:, None], counts[:, None], reps, occ_col[:, None],
                       m.meta[:, 6:]], 1)
     return VoxelHashMap(meta=meta, points=points)
+
+
+def insert_deduped_batched(m: VoxelHashMap, pts: torch.Tensor,
+                           mask: torch.Tensor, *, voxel_size: float,
+                           max_probes: int = 2, new_capacity: int = 8192,
+                           overflow: bool | str = True,
+                           logical_capacity: int) -> VoxelHashMap:
+    """Insert B replicas' frames (``pts`` [B, N, 3], each row unique at
+    voxel_size/2, ``mask`` [B, N]) into the flat B-map table in one
+    insert: replica b's points hash into slots [b * C, (b + 1) * C) (C =
+    ``logical_capacity``), with a budget of ``new_capacity`` new points a
+    replica, so the table matches B separate :func:`insert_deduped` calls
+    (``ptudes_tpu.ops.hashmap.insert_deduped_batched``)."""
+    b, n, _ = pts.shape
+    base = (torch.arange(b * n, dtype=torch.int32, device=pts.device)
+            // n) * logical_capacity
+    return insert_deduped(
+        m, pts.reshape(b * n, 3), mask.reshape(b * n),
+        voxel_size=voxel_size, max_probes=max_probes,
+        new_capacity=b * new_capacity, overflow=overflow, slot_base=base,
+        logical_capacity=logical_capacity, batch_rows=b)
+
+
+def remove_far_batched(m: VoxelHashMap, origins: torch.Tensor,
+                       max_range2: torch.Tensor, *,
+                       logical_capacity: int) -> VoxelHashMap:
+    """:func:`remove_far` of each replica of the flat B-map table around
+    its own ``origins`` [B, 3] and ``max_range2`` [B], elementwise over
+    the [B, C] view."""
+    b = origins.shape[0]
+    meta = m.meta.reshape(b, logical_capacity, META_W)
+    rep = meta[..., 2:5].contiguous().view(torch.float32)
+    d2 = torch.sum((rep - origins[:, None, :]) ** 2, -1)
+    evict = (meta[..., 1] > 0) & (d2 > max_range2[:, None])
+    col = torch.arange(META_W, device=m.meta.device)
+    dead = (col <= 1) | (col == 5)
+    meta = torch.where(evict[..., None] & dead, 0, meta)
+    return VoxelHashMap(meta=meta.reshape(m.meta.shape), points=m.points)
+
+
+def replica_points(m: VoxelHashMap, batch: int) -> torch.Tensor:
+    """Stored points of each replica of a flat B-map table, [B]."""
+    return m.meta[:, 1].reshape(batch, -1).sum(1)
 
 
 class QueryResult(NamedTuple):

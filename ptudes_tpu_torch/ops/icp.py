@@ -59,13 +59,20 @@ def gather_candidates(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor, *,
                       voxel_size: float, max_probes: int = 2,
                       neighborhood: int = 27, n_voxels: int = 4,
                       fit_planes: bool = True,
-                      plane_radius: float | None = None) -> CandidateSet:
+                      plane_radius: float | None = None,
+                      slot_base: torch.Tensor | None = None,
+                      logical_capacity: int | None = None) -> CandidateSet:
     """The ``n_voxels`` nearest neighbour voxels' decoded point lists per
     query point, ranked by representative-point distance; with
     ``fit_planes`` also the per-point patch plane fit within
     ``plane_radius`` (default 1.5 * voxel_size). ``neighborhood`` 7 or 27
     is the centre and faces or the cube; 4 is octant-directed, the centre
-    and the three face neighbours on the query's side of its voxel."""
+    and the three face neighbours on the query's side of its voxel.
+
+    ``slot_base`` / ``logical_capacity``: a flat B-map table
+    (``hashmap.create_batched``): keys hash with the logical capacity and
+    every probe adds the slot base, a scalar or one per query point [M]
+    (the batched driver gathers all replicas' points in one call)."""
     cap = vmap_.meta.shape[0]
     ppv = vmap_.points.shape[1]
     mnum = pts_w.shape[0]
@@ -82,8 +89,11 @@ def gather_candidates(vmap_: hashmap.VoxelHashMap, pts_w: torch.Tensor, *,
         keys = qc[:, None, :] + neighbor_offsets(neighborhood, dev)[None]
     else:
         raise ValueError(f"neighborhood {neighborhood} (4, 7 or 27)")
-    found_slot, cnt, rep, found = hashmap.probe(vmap_, keys, max_probes,
-                                                miss_slot=cap)
+    if slot_base is not None and slot_base.dim() == 1:
+        slot_base = slot_base[:, None]
+    found_slot, cnt, rep, found = hashmap.probe(
+        vmap_, keys, max_probes, miss_slot=cap, slot_base=slot_base,
+        logical_capacity=logical_capacity)
 
     d = torch.where(found, torch.sum((rep - pts_w[:, None, :]) ** 2, -1),
                     torch.inf)
@@ -250,7 +260,9 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
                           plane_radius: float | None = None,
                           refresh_drift: float = 0.0,
                           fused_gather: bool = False,
-                          form: str = "torch") -> IcpResult:
+                          form: str = "torch",
+                          slot_base: torch.Tensor | None = None,
+                          logical_capacity: int | None = None) -> IcpResult:
     """Cached-candidate robust GN ICP, ``loss`` "plane" or "point".
 
     ``refresh_drift == 0``: the candidates gathered at the guess stay
@@ -265,7 +277,13 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
     With ``loss="point"`` K3 and K6 skip the patch fit.
     ``refresh_drift > 0``: :func:`_register_refresh`, which always gathers
     with :func:`gather_candidates` (``fused_gather`` has no effect there,
-    as in the JAX package)."""
+    as in the JAX package).
+
+    ``slot_base`` / ``logical_capacity``: ``vmap_`` is a flat B-map table
+    and the candidates come from this replica's slots
+    (:func:`gather_candidates`). K6 probes the whole table, so with a slot
+    base ``fused_gather`` takes the gather and K3 instead
+    (``ptudes_tpu/ops/icp.py:406-408``)."""
     from . import cuda_gather, cuda_gn, cuda_icp
     if form not in ("cuda", "torch"):
         raise ValueError(f"unknown icp form {form!r}")
@@ -282,9 +300,10 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
             prior_trans_weight=prior_trans_weight,
             neighborhood=neighborhood, n_voxels=n_voxels,
             plane_radius=plane_radius, refresh_drift=refresh_drift,
-            form=form)
+            form=form, slot_base=slot_base,
+            logical_capacity=logical_capacity)
     r = 1.5 * voxel_size if plane_radius is None else plane_radius
-    if fused_gather and neighborhood in (7, 27):
+    if fused_gather and neighborhood in (7, 27) and slot_base is None:
         fused = (cuda_gather.gather_prep_fused if form == "cuda"
                  else cuda_gather.gather_prep_fused_torch)
         prepped = fused(vmap_, source, source_mask, guess,
@@ -295,7 +314,8 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
         q_w = se3.transform(guess, source)
         cand = gather_candidates(
             vmap_, q_w, voxel_size=voxel_size, max_probes=max_probes,
-            neighborhood=neighborhood, n_voxels=n_voxels, fit_planes=False)
+            neighborhood=neighborhood, n_voxels=n_voxels, fit_planes=False,
+            slot_base=slot_base, logical_capacity=logical_capacity)
         prep = (cuda_gn.prep_with_plane if form == "cuda"
                 else cuda_gn.prep_with_plane_torch)
         prepped = prep(cand, source_mask, q_w, r, loss=loss)
@@ -308,11 +328,54 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
     return IcpResult(pose, n_corr, iters, dev_t, dev_r)
 
 
+def register_frames_cached_batched(
+        source: torch.Tensor, source_mask: torch.Tensor,
+        vmap_: hashmap.VoxelHashMap, initial_guess: torch.Tensor,
+        max_distance: torch.Tensor, kernel: torch.Tensor, *,
+        slot_base: torch.Tensor, logical_capacity: int, voxel_size: float,
+        max_probes: int, max_iterations: int, convergence: float,
+        loss: str, plane_min_quality: float, prior_rot_weight: float,
+        prior_trans_weight: float, neighborhood: int, n_voxels: int,
+        plane_radius: float | None, form: str) -> IcpResult:
+    """B registrations with frozen candidates in the launches of one:
+    ``source`` [B, M, 3], ``source_mask`` [B, M], guesses [B, 4, 4],
+    ``max_distance`` and ``kernel`` [B], against replica b's slots
+    (``slot_base`` [B]) of the flat B-map table ``vmap_``. One gather of
+    all B x M points, then K3 and K4 each with a replica axis (one launch
+    each for all replicas), or their twins with ``form="torch"``. The
+    result's leaves carry the leading [B]."""
+    from . import cuda_gn, cuda_icp
+    if form not in ("cuda", "torch"):
+        raise ValueError(f"unknown icp form {form!r}")
+    if loss not in ("plane", "point"):
+        raise ValueError(f"unknown loss {loss!r}")
+    b, m = source_mask.shape
+    guess = initial_guess.to(torch.float32)
+    q_w = se3.transform(guess, source)
+    cand = gather_candidates(
+        vmap_, q_w.reshape(b * m, 3), voxel_size=voxel_size,
+        max_probes=max_probes, neighborhood=neighborhood, n_voxels=n_voxels,
+        fit_planes=False, slot_base=slot_base[:, None].expand(b, m).reshape(
+            b * m), logical_capacity=logical_capacity)
+    cand = CandidateSet(*(x.reshape((b, m) + x.shape[1:]) for x in cand))
+    r = 1.5 * voxel_size if plane_radius is None else plane_radius
+    prep = (cuda_gn.prep_with_plane if form == "cuda"
+            else cuda_gn.prep_with_plane_torch)
+    prepped = prep(cand, source_mask, q_w, r, loss=loss)
+    loop = cuda_icp.icp_loop if form == "cuda" else cuda_icp.icp_loop_torch
+    return IcpResult(*loop(
+        source, prepped, guess, kernel, max_distance * max_distance,
+        convergence, plane_min_quality=plane_min_quality,
+        max_iterations=max_iterations, prior_rot_weight=prior_rot_weight,
+        prior_trans_weight=prior_trans_weight))
+
+
 def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
                       voxel_size, max_probes, max_iterations, convergence,
                       loss, plane_min_quality, prior_rot_weight,
                       prior_trans_weight, neighborhood, n_voxels,
-                      plane_radius, refresh_drift, form) -> IcpResult:
+                      plane_radius, refresh_drift, form, slot_base=None,
+                      logical_capacity=None) -> IcpResult:
     """The refresh loop (``ptudes_tpu.ops.icp.register_frame_cached`` with
     ``refresh_drift > 0``). Per iteration: stale check; re-gather at the
     current pose if stale; one GN build (K5 or its twin); prior, Tikhonov
@@ -332,7 +395,8 @@ def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
             vmap_, se3.transform(t_at, source), voxel_size=voxel_size,
             max_probes=max_probes, neighborhood=neighborhood,
             n_voxels=n_voxels, fit_planes=loss == "plane",
-            plane_radius=plane_radius)
+            plane_radius=plane_radius, slot_base=slot_base,
+            logical_capacity=logical_capacity)
         return cuda_gn.prep_candidates(cand, source_mask, loss=loss)
 
     guess_inv = se3.inv(guess)

@@ -5,6 +5,11 @@ are uint32 wraparound multiplies with logical shifts; PyTorch's int32
 ``>>`` is arithmetic, so they run in int64 masked to 32 bits. The stable
 multi-key ``lax.sort`` becomes one stable ``torch.sort`` on a combined
 int64 key. Nothing here synchronises with the host: every shape is static.
+
+The grid front end (:func:`range_clip_mask`, :func:`window_prededup_mask`,
+:func:`compact`, :func:`first_in_voxel_sorted`) also takes a leading
+replica axis ([B, N, 3] points, [B, N] masks): each replica's row is
+sorted and compacted on its own, in the same launches for all of them.
 """
 from __future__ import annotations
 
@@ -77,20 +82,22 @@ def window_prededup_mask(pts: torch.Tensor, mask: torch.Tensor,
     """Drop points whose voxel id also appears at a causally earlier pixel
     within a (rows x +-cols) range-image window. Columns wrap, rows do not."""
     h, w = grid_hw
-    ids = spatial_hash(voxel_coords(pts, voxel_size), 1 << 31).reshape(h, w)
-    m = mask.reshape(h, w)
+    lead = mask.shape[:-1]
+    ids = spatial_hash(voxel_coords(pts, voxel_size), 1 << 31).reshape(
+        lead + (h, w))
+    m = mask.reshape(lead + (h, w))
     keep = m
     row = torch.arange(h, device=pts.device)
     for dr in range(0, -rows, -1):
         for dc in range(-cols, cols + 1):
             if dr == 0 and dc >= 0:
                 continue
-            sh_ids = torch.roll(ids, (-dr, -dc), dims=(0, 1))
-            sh_m = torch.roll(m, (-dr, -dc), dims=(0, 1))
+            sh_ids = torch.roll(ids, (-dr, -dc), dims=(-2, -1))
+            sh_m = torch.roll(m, (-dr, -dc), dims=(-2, -1))
             if dr != 0:
                 sh_m = sh_m & (row >= -dr)[:, None]
             keep = keep & ~((sh_ids == ids) & sh_m)
-    return keep.reshape(h * w)
+    return keep.reshape(lead + (h * w,))
 
 
 def first_in_voxel_mask(pts: torch.Tensor, mask: torch.Tensor,
@@ -121,17 +128,25 @@ def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor,
 
 
 def _take_pad(col: torch.Tensor, capacity: int) -> torch.Tensor:
-    """First ``capacity`` entries, zero-padded if short."""
-    if col.shape[0] >= capacity:
-        return col[:capacity]
-    pad = torch.zeros((capacity - col.shape[0],) + col.shape[1:],
+    """First ``capacity`` entries of the last axis, zero-padded if short."""
+    if col.shape[-1] >= capacity:
+        return col[..., :capacity]
+    pad = torch.zeros(col.shape[:-1] + (capacity - col.shape[-1],),
                       dtype=col.dtype, device=col.device)
-    return torch.cat([col, pad])
+    return torch.cat([col, pad], -1)
 
 
 def _stable_order(key: torch.Tensor) -> torch.Tensor:
-    """Permutation of a stable ascending sort of ``key``."""
+    """Permutation of a stable ascending sort of ``key`` (last axis)."""
     return torch.sort(key, stable=True).indices
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` of each replica: rows [..., N, K] picked by [..., M]."""
+    if idx.dim() == 1:
+        return x[idx]
+    return torch.gather(x, -2, idx[..., None].expand(
+        idx.shape + x.shape[-1:]))
 
 
 def compact(pts: torch.Tensor, mask: torch.Tensor, capacity: int,
@@ -143,15 +158,16 @@ def compact(pts: torch.Tensor, mask: torch.Tensor, capacity: int,
     keep position p iff ``(p * capacity) % n_keep < capacity`` — evenly
     spread survivors instead of a truncated tail."""
     if decimate_overflow:
-        assert pts.shape[0] * capacity < 2 ** 31
-        pos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
-        n_keep = torch.clamp(pos[-1] + 1, min=1)
+        assert pts.shape[-2] * capacity < 2 ** 31
+        pos = torch.cumsum(mask.to(torch.int32), -1, dtype=torch.int32) - 1
+        n_keep = torch.clamp(pos[..., -1:] + 1, min=1)
         mask = mask & (torch.remainder(pos * capacity, n_keep) < capacity)
     head = _take_pad(_stable_order((~mask).to(torch.int32)), capacity)
-    out = pts[head]
-    count = torch.clamp(mask.to(torch.int32).sum(), max=capacity)
+    out = _rows(pts, head)
+    count = torch.clamp(mask.to(torch.int32).sum(-1, keepdim=True),
+                        max=capacity)
     out_mask = torch.arange(capacity, device=pts.device) < count
-    return torch.where(out_mask[:, None], out, 0.0), out_mask
+    return torch.where(out_mask[..., None], out, 0.0), out_mask
 
 
 def compact_with_payload(pts: torch.Tensor, payload: torch.Tensor,
@@ -172,29 +188,30 @@ def first_in_voxel_sorted(pts: torch.Tensor, mask: torch.Tensor,
     """First point per voxel (scan order) via one stable sort by
     (dropped, 31-bit voxel hash); returns the reordered points and their
     keep mask at ``capacity`` width."""
-    n = pts.shape[0]
+    n = pts.shape[-2]
     h = spatial_hash(voxel_coords(pts, voxel_size), 1 << 31).to(torch.int64)
     drop = (~mask).to(torch.int64)
     sd, perm = torch.sort((drop << 31) | h, stable=True)
     d, hh = sd >> 31, sd & ((1 << 31) - 1)
-    n_valid = mask.to(torch.int32).sum()
+    n_valid = mask.to(torch.int32).sum(-1, keepdim=True)
     if n <= capacity:
         d, hh = _take_pad(d, capacity), _take_pad(hh, capacity)
-        out = pts[_take_pad(perm, capacity)]
+        out = _rows(pts, _take_pad(perm, capacity))
         first = torch.ones_like(d, dtype=torch.bool)
-        first[1:] = hh[1:] != hh[:-1]
+        first[..., 1:] = hh[..., 1:] != hh[..., :-1]
         in_range = torch.arange(capacity, device=pts.device) < n_valid
         keep = (d == 0) & first & in_range
-        return torch.where(keep[:, None], out, 0.0), keep
+        return torch.where(keep[..., None], out, 0.0), keep
     first = torch.ones_like(d, dtype=torch.bool)
-    first[1:] = hh[1:] != hh[:-1]
+    first[..., 1:] = hh[..., 1:] != hh[..., :-1]
     in_range = torch.arange(n, device=pts.device) < n_valid
     keep_full = (d == 0) & first & in_range
     head = _take_pad(_stable_order((~keep_full).to(torch.int32)), capacity)
-    out = pts[perm[head]]
-    count = torch.clamp(keep_full.to(torch.int32).sum(), max=capacity)
+    out = _rows(pts, torch.gather(perm, -1, head))
+    count = torch.clamp(keep_full.to(torch.int32).sum(-1, keepdim=True),
+                        max=capacity)
     out_mask = torch.arange(capacity, device=pts.device) < count
-    return torch.where(out_mask[:, None], out, 0.0), out_mask
+    return torch.where(out_mask[..., None], out, 0.0), out_mask
 
 
 def range_clip_mask(pts: torch.Tensor, mask: torch.Tensor,

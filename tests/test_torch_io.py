@@ -420,7 +420,8 @@ def test_make_torch_fixture_bytes(recording, tmp_path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """With ``jax`` and ``ptudes_tpu`` blocked, every module of the port
-    imports and the command line's ``--help`` runs."""
+    imports (``parallel`` among them) and the command line's ``--help``
+    runs, ``ekf-bench ouster``'s and ``ekf-bench sweep``'s too."""
     code = """
 import pkgutil, runpy, sys
 sys.modules["jax"] = None
@@ -433,7 +434,9 @@ for name in names:
     __import__(name)
 need = {"ptudes_tpu_torch.io.sources", "ptudes_tpu_torch.native",
         "ptudes_tpu_torch.cli.main", "ptudes_tpu_torch.models.online",
-        "ptudes_tpu_torch.io.rosbag2", "ptudes_tpu_torch.utils.stats"}
+        "ptudes_tpu_torch.io.rosbag2", "ptudes_tpu_torch.utils.stats",
+        "ptudes_tpu_torch.parallel", "ptudes_tpu_torch.parallel.batched",
+        "ptudes_tpu_torch.parallel.replay", "ptudes_tpu_torch.parallel.mesh"}
 assert need <= set(names), need - set(names)
 assert not any(m == "jax" or m.startswith(("jax.", "ptudes_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -451,3 +454,8 @@ runpy.run_module("ptudes_tpu_torch.cli.main", run_name="__main__")
         capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "--use-imu-prediction" in r.stdout and "--online" in r.stdout
+    r = subprocess.run([sys.executable, "-c", code.replace(
+        '"--help"', '"ekf-bench", "sweep", "--help"')], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "--bacc-z" in r.stdout and "--replicas" in r.stdout

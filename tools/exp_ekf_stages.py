@@ -66,15 +66,14 @@ def main() -> None:
         sys.exit("exp_ekf_stages: no CUDA device")
     import chip_smoke as cs
     from ptudes_tpu_torch import config
+    from ptudes_tpu_torch.ops import cuda_ekf
 
     dev = torch.device("cuda", 0)
     print(cs.card_line(), flush=True)
     cfg = config.bench_config().ekf
     rng = np.random.default_rng(0)
     s = cs.generic_ekf_state(cfg, dev, rng)
-    scal = torch.cat([s.pos, s.vel, s.quat, s.bias_gyr, s.bias_acc, s.grav,
-                      s.imu_ts.reshape(1),
-                      s.initialized.reshape(1).float()]).float()
+    scal = cuda_ekf.predict_scal(s)
     cov = s.cov.float().contiguous()
     out = torch.empty(32, device=dev)
     cov_out = torch.empty((18, 18), device=dev)
@@ -94,7 +93,7 @@ def main() -> None:
                     if fn(scal.data_ptr(), imu.data_ptr(), cov.data_ptr(),
                           out.data_ptr(), cov_out.data_ptr(), None, k,
                           cfg.acc_bias_std, cfg.gyr_bias_std, cfg.acc_vrw,
-                          cfg.gyr_arw, stream) != 0:
+                          cfg.gyr_arw, 1, stream) != 0:
                         raise SystemExit("ekf_predict launch failed")
                 us[(v, k)] = device_us(k1)
                 print(f"K1 K={k} {v}: {us[(v, k)]:.2f} us", flush=True)

@@ -144,7 +144,7 @@ def main() -> None:
 
             def k4():
                 if fn(*args, n4, c4, 0.2, 0.0, 0.01, 0.01, iters,
-                      plan.cluster, plan.points_per_cta, int(staged),
+                      plan.cluster, plan.points_per_cta, int(staged), 1, 0,
                       stream) != 0:
                     raise SystemExit("icp_loop launch failed")
             kind = "staged" if staged else "streamed"

@@ -60,6 +60,18 @@ Each ``--config`` NAME is written to ``tests/data/<NAME>_jax_poses.txt``
   command picks ``predict_batch="assoc"``. The poses are the command's
   saved EKF poses, and the header's ATE RMSE is the one it prints for them
   against the ground-truth file.
+- ``bench_beams64``: ``bench`` on the scene with 64 of its 128 beams
+  (``ptudes_tpu.ops.projection.reduce_active_beams_mask``: every other
+  row of each range image zeroed), the second bag of the batched driver's
+  mixed run in ``chip_smoke.py`` phase 10 (``ekf-bench sweep --beams``'s
+  low-resolution variant at the bench configuration).
+- ``sweep_pcap``: the JAX command ``ekf-bench sweep --replicas 1`` on the
+  CPU on ``cli_pcap``'s recording: ``lio.run_sequence`` (vmapped over the
+  one bag) at the sweep's configuration (``ptudes_tpu/cli/main.py:642-
+  648``: the library defaults with a 1-70 m range, the EKF guess, and the
+  associative predict off the TPU). The poses are its EKF poses, captured
+  from the command's ``parallel.replay.replay_bags`` call, and the
+  header's ATE RMSE is the one the command prints for them.
 """
 from __future__ import annotations
 
@@ -80,7 +92,7 @@ KISS_EVERY_SCANS = 13  # scans of the kiss_every reference (see above)
 FROZEN_SPLIT = 25  # bench_frozen: scans mapped before the checkpoint
 CONFIGS = ("bench", "bench_fused", "cli", "cli_kiss", "cli_point",
            "bench_point", "bench_dec2", "bench_nn4", "bench_frozen",
-           "kiss_every", "cli_pcap")
+           "kiss_every", "cli_pcap", "bench_beams64", "sweep_pcap")
 WHERE = {
     "bench": "bench.py:bench_config",
     "bench_fused": "bench.py:bench_config with fused_gather=True",
@@ -93,6 +105,8 @@ WHERE = {
     "bench_point": "bench.py:bench_config with loss='point'",
     "bench_dec2": "bench.py:bench_config with col_decimation=2",
     "bench_nn4": "bench.py:bench_config with nn_neighborhood=4",
+    "bench_beams64": "bench.py:bench_config on the scene with 64 of its "
+                     "128 beams (reduce_active_beams_mask)",
     "bench_frozen": f"bench.py:bench_config on scans 0-{FROZEN_SPLIT - 1}, "
                     "save_state / load_state, then map_frozen=True on "
                     f"scans {FROZEN_SPLIT}-49 (ekf-bench ouster "
@@ -143,6 +157,10 @@ def run_lio(which: str, scene, lut):
     sensor, scans, scan_ts, gt_mid, imu = scene
     cfg = jax_config(which)
     n = KISS_SCANS if which == "cli_kiss" else len(scans)
+    if which == "bench_beams64":
+        from ptudes_tpu.ops.projection import reduce_active_beams_mask
+        scans = scans * reduce_active_beams_mask(scans.shape[1], 64)[
+            None, :, None]
     if which != "bench_frozen":
         batches = lio.build_batches(cfg, scans[:n], scan_ts[:n], imu.lacc,
                                     imu.avel, imu.ts)
@@ -243,6 +261,63 @@ def write_cli_pcap(path: str, scene) -> None:
           f"{time.monotonic() - t0:.0f} s", flush=True)
 
 
+def write_sweep_pcap(path: str, scene) -> None:
+    """``sweep_pcap`` (see the module docstring)."""
+    import re
+    import types
+
+    from click.testing import CliRunner
+
+    import make_torch_fixture
+    from ptudes_tpu.cli.main import ptudes_cli
+    from ptudes_tpu.io import metadata, packets, pcap, poses
+    from ptudes_tpu.parallel import replay
+
+    t0 = time.monotonic()
+    jax_io = types.SimpleNamespace(metadata=metadata, packets=packets,
+                                   pcap=pcap, poses=poses)
+    runs = []
+    real = replay.replay_bags
+
+    def capture(*a, **kw):
+        res = real(*a, **kw)
+        runs.append(res)
+        return res
+
+    replay.replay_bags = capture
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rec, meta, gt = make_torch_fixture.bench(tmp, io=jax_io,
+                                                     scene=scene)
+            r = CliRunner().invoke(
+                ptudes_cli, ["ekf-bench", "sweep", rec, "-m", meta, "-g",
+                             gt, "--replicas", "1"],
+                catch_exceptions=False)
+    finally:
+        replay.replay_bags = real
+    if r.exit_code:
+        raise RuntimeError(r.output)
+    ekf = np.asarray(runs[-1][1].ekf_pose[0], np.float64)
+    line = re.findall(r"replica 0\s+(\S+)\s+(\S+)\s+(\S+)", r.output)
+    drift, ate, kiss_ate = line[0]
+    header = "\n".join([
+        "JAX reference poses of the bench scene (ptudes_tpu_torch.models."
+        "sim.bench_scene: 50 scans, 128x1024, bench.py:make_data) written "
+        "as an Ouster recording (tools/make_torch_fixture.py bench over "
+        "ptudes_tpu.io: LEGACY pcap, 1024x10, ranges in mm)",
+        "ptudes_tpu ekf-bench sweep REC.pcap -m REC.json -g gt.csv "
+        "--replicas 1 on the CPU (ptudes_tpu/cli/main.py:642-648: "
+        "predict_batch='assoc', update_form='xla')",
+        f"JAX ATE RMSE vs gt.csv: {ate} m (the command's ate_rmse column; "
+        f"drift {drift} m, kiss_rmse {kiss_ate} m)",
+        "one row per scan: the 3x4 top of the replica's EKF pose, "
+        "row-major (KITTI)"])
+    np.savetxt(path, ekf[:, :3, :].reshape(len(ekf), 12), fmt="%.9g",
+               header=header)
+    print(f"wrote {path}: {len(ekf)} poses, JAX ATE RMSE {ate} m, "
+          f"{time.monotonic() - t0:.0f} s", flush=True)
+
+
 def main(which: str, path: str, scene) -> None:
     import jax
     import jax.numpy as jnp
@@ -252,6 +327,8 @@ def main(which: str, path: str, scene) -> None:
 
     if which == "cli_pcap":
         return write_cli_pcap(path, scene)
+    if which == "sweep_pcap":
+        return write_sweep_pcap(path, scene)
     sensor, scans, scan_ts, gt_mid, imu = scene
     lut = XyzLut(jnp.asarray(sensor.lut.direction),
                  jnp.asarray(sensor.lut.offset))
