@@ -96,25 +96,40 @@ Phases, each reported on its own line:
      m; ``stat`` on the file; one JSON line of the decode times, scans/s
      and latencies with the card's name and power limit;
  10. several sequences at once: (a) K1 (both instances), K2, K3 (both
-     modes) and K4 launched once with a replica axis at B = 4 on four
+     modes), K4 and K5 launched once with a replica axis at B = 4 on four
      distinct inputs, each replica bit-equal to its own single launch, and
-     their device times at B = 1, 2, 4; (b) ``parallel.batched.
-     run_sequence_batched`` at ``bench_config()`` on B = 1, 2, 4 replicas
-     of the scene and on B = 2 of {the scene, the scene at 64 beams}, each
-     warmed up (its last 10 scans profiled: device operations, busy ms and
-     idle share a scan) and timed with host syncs made errors: K1-K4 once
-     a scan whatever B is, K5 and K6 never, identical replicas bit-equal,
-     every replica within 0.02 m of ``tests/data/bench_jax_poses.txt`` or
+     their device times at B = 1, 2, 4; K5 also with one replica inactive
+     (its output row untouched, the others bit-equal, every ticket back at
+     0); (b) ``parallel.batched.run_sequence_batched`` at
+     ``bench_config()`` on B = 1, 2, 4 replicas of the scene and on B = 2
+     of {the scene, the scene at 64 beams}, each warmed up (its last 10
+     scans profiled: device operations, busy ms and idle share a scan)
+     and timed with host syncs made errors: K1-K4 once a scan whatever B
+     is, K5 and K6 never, identical replicas bit-equal, every replica
+     within 0.02 m of ``tests/data/bench_jax_poses.txt`` or
      ``bench_beams64_jax_poses.txt``, B = 1 within 1e-4 m of phase 4,
      device operations a scan at B = 4 at most 1.25x those at B = 1,
-     aggregate scans/s from alternating runs; (c) ``ekf-bench sweep`` on
-     the scene written as phase 9's pcap: ``--replicas 2`` over the 50
-     scans (replicas bit-equal, within 0.02 m of
-     ``tests/data/sweep_pcap_jax_poses.txt``, the printed ATE within the
-     JAX run's + 0.005 m), ``--bacc-z -0.1,0,0.1`` and ``--beams 128,64``
-     on scans 0-20; K5 once a GN iteration, no other kernel; (d) one JSON
-     line of phase 10's figures with the card's name and power limit.
-     ``--phases 10`` (or ``3,10``) runs phases 1, 2, 4 and 10 alone.
+     aggregate scans/s from alternating runs; (d) the same driver at
+     ``cli_config(128, 1024)`` (the candidate-refresh loop; K1 and K5) on
+     B = 1, 2, 4 replicas over the 50 scans, profiled and timed the same
+     way but for the refresh loop's counted reads: K1 once a scan, K5 once
+     a GN iteration for all replicas (each scan's largest iteration count,
+     summed), no other kernel, host reads at most that many, every replica
+     within 0.02 m of ``cli_jax_poses.txt``, identical replicas bit-equal,
+     B = 1 within 1e-4 m of phase 5, aggregate scans/s from alternating
+     runs; (e) B = 2 at phase 7b's cell (the constant-velocity guess, the
+     associative predict, 15 scans): K5 alone, within 0.02 m of
+     ``cli_kiss_jax_poses.txt`` and 1e-4 m of phase 7b; (c) ``ekf-bench
+     sweep`` on the scene written as phase 9's pcap, its variants as one
+     batched program: ``--replicas 2`` over the 50 scans (replicas
+     bit-equal, within 0.02 m of ``tests/data/sweep_pcap_jax_poses.txt``,
+     the printed ATE within the JAX run's + 0.005 m), ``--bacc-z
+     -0.1,0,0.1`` and ``--beams 128,64`` on scans 0-20, every variant
+     within 0.02 m of its JAX poses (``sweep_bacc_z_jax_poses.txt``,
+     ``sweep_beams_jax_poses.txt``); K5 once a GN iteration for all
+     variants, no other kernel; then one JSON line of phase 10's figures
+     with the card's name and power limit. ``--phases 10`` runs phases 1,
+     2, 4, 5, 7a-b and 10 alone.
 Phase 3 also holds K3's point mode (``loss="point"``: the instance without
 the fit) bit for bit against its twin, K4 on its point rows and K5 on
 point rows at the CLI shapes; phase 2 prints the SASS instruction count of
@@ -213,9 +228,11 @@ def kernel_us(fn, name: str, reps: int = 20) -> float:
     """Mean device time (us) of the kernel ``<name>_kernel`` over ``reps``
     calls of ``fn``, from ``torch.profiler``'s device timestamps (the
     wrapper's glue ops excluded). The profiler can drop kernel records (it
-    kept 34 of 50 once, with every launch checked), so a short count is
-    profiled again up to twice, then the mean of what it kept is used and
-    the count printed; no record, or more than one a call, fails."""
+    kept 34 of 50 once, with every launch checked, and none of 20 once), so
+    a short count is profiled again up to twice, then the mean of what it
+    kept is used and the count printed; more than one record a call fails,
+    and with no record at all the time comes from :func:`event_us` (the
+    wrapper's glue launches included), which is printed."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -231,10 +248,32 @@ def kernel_us(fn, name: str, reps: int = 20) -> float:
               and f"{name}_kernel" in e.name]
         if len(ds) == reps:
             break
-    check(0 < len(ds) <= reps, f"{name}: {len(ds)} kernels in {reps} calls")
+    check(len(ds) <= reps, f"{name}: {len(ds)} kernels in {reps} calls")
+    if not ds:
+        us = event_us(fn, reps)
+        say(f"  {name}: the profiler kept no kernel record in 3 x {reps} "
+            f"calls; CUDA events instead: {us:.2f} us a call with its glue")
+        return us
     if len(ds) < reps:
         say(f"  {name}: the profiler kept {len(ds)} of {reps} kernel records")
     return float(np.mean(ds))
+
+
+def event_us(fn, reps: int) -> float:
+    """Device us a call of ``fn`` from CUDA events around ``reps`` calls
+    queued behind a sleep kernel, so the card runs them back to back and
+    the host's launch time is not counted (any glue ``fn`` launches is)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)      # ~10 ms of the card's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) * 1e3 / reps
 
 
 def sass_sizes(lib_path: str, kernel: str) -> dict[str, int] | None:
@@ -1586,6 +1625,36 @@ def run_option_path(scene, dev, cfg, tag: str, ref_name: str, want, *,
     return launches, out, summary
 
 
+def run_cli_path(scene, dev, card: str):
+    """Phase 5: ``cli_config(128, 1024)`` through :func:`run_option_path`,
+    with the twins; returns (launches, output)."""
+    h, w = scene[1].shape[1:]
+    cli = config.cli_config(h, w)
+    launches, out, _ = run_option_path(
+        scene, dev, cli, "5 cli", "cli", cli_want(cli), card=card,
+        ate_slack=CLI_ATE_SLACK_M, twins=True)
+    return launches, out
+
+
+def run_kiss_paths(scene, dev, card: str):
+    """Phases 7a and 7b: ``cli_config(128, 1024, guess="kiss")`` (with the
+    twins) and the same with ``predict_batch="assoc"``, each on the 15
+    scans of ``cli_kiss_jax_poses.txt``; returns (launches by cell, 7b's
+    output)."""
+    h, w = scene[1].shape[1:]
+    kiss_cfg = config.cli_config(h, w, guess="kiss")
+    launches = {}
+    launches["cli_kiss"], _, _ = run_option_path(
+        scene, dev, kiss_cfg, "7a cli kiss", "cli_kiss", cli_want(kiss_cfg),
+        card=card, ate_slack=CLI_ATE_SLACK_M, twins=True)
+    assoc = dataclasses.replace(kiss_cfg, ekf=dataclasses.replace(
+        kiss_cfg.ekf, predict_batch="assoc"))
+    launches["cli_kiss_assoc"], out, _ = run_option_path(
+        scene, dev, assoc, "7b cli kiss assoc", "cli_kiss", cli_want(assoc),
+        card=card, ate_slack=CLI_ATE_SLACK_M)
+    return launches, out
+
+
 def cli_want(cfg):
     """``want`` of the refresh-loop paths: K1 once a scan (none with the
     associative predict), K5 once a GN iteration."""
@@ -2098,6 +2167,7 @@ def check_replica_axis(dev, results):
         lambda b: (src[:b], tuple(x[:b] for x in prepped), guess[:b]),
         loop_b, lambda i: iters[i] * n * (8 * c + 120))
     say(f"  10a icp_loop: each cluster its own exit: iterations {iters}")
+    out["gn_iter"] = check_gn_iter_replica_axis(dev)
     for name, r_ in out.items():
         if name == "gn_prep_point":
             results.setdefault("gn_prep", {}).setdefault(
@@ -2105,6 +2175,97 @@ def check_replica_axis(dev, results):
         else:
             results.setdefault(name, {})["replica_axis"] = r_
     return out
+
+
+def check_gn_iter_replica_axis(dev) -> dict:
+    """Phase 10a for K5: one launch with a replica axis at B = 4 on four
+    distinct inputs at the CLI shapes (:func:`cli_map_scene`'s map; four
+    sources, masks, poses, kernel widths and max_d2), the prepped rows of
+    all four in one [4, 8 + 4C, N] buffer (``cuda_gn.prep_candidates``).
+    With every replica active each one is bit-equal to its own single
+    launch; with replica 2 inactive its output row keeps what it held and
+    the others are bit-equal again; every replica's ticket is back at 0;
+    a B = 4 launch repeats bit for bit. Returns the device us at B = 1, 2,
+    4 and the bounds at B = 2, 4."""
+    m, src0, _, t0 = cli_map_scene(dev)
+    rng = np.random.default_rng(12)
+    srcs, masks, poses, cands, singles = [], [], [], [], []
+    for i in range(4):
+        src = src0 + torch.tensor(rng.normal(0, 0.01, src0.shape),
+                                  dtype=torch.float32, device=dev)
+        mask = torch.as_tensor(rng.uniform(size=len(src)) < 0.9 - 0.1 * i,
+                               device=dev)
+        t = t0 @ se3.exp_twist(torch.tensor(
+            rng.normal(0, 0.002, 6), dtype=torch.float32, device=dev))
+        cand = icp.gather_candidates(
+            m, se3.transform(t, src), voxel_size=0.7, max_probes=2,
+            neighborhood=27, n_voxels=4, fit_planes=True)
+        srcs.append(src)
+        masks.append(mask)
+        poses.append(t)
+        cands.append(cand)
+        singles.append(cuda_gn.prep_candidates(cand, mask))
+    src, t = torch.stack(srcs), torch.stack(poses)
+    prepped = cuda_gn.prep_candidates(replicas.stack(cands),
+                                      torch.stack(masks))
+    kern = torch.tensor([0.1667, 0.15, 0.2, 0.12], device=dev)
+    max_d2 = torch.tensor([2.25, 2.0, 2.5, 1.8], device=dev)
+    q = 0.2
+
+    def many(b, active=None, out=None):
+        return cuda_gn.gn_prepped(
+            t[:b], src[:b], cuda_gn.PreppedCandidates(
+                *(x[:b] for x in prepped)), kern[:b], max_d2[:b],
+            plane_min_quality=q, active=active, out=out)
+
+    ones = [cuda_gn.gn_prepped(poses[i], srcs[i], singles[i], kern[i],
+                               max_d2[i], plane_min_quality=q)
+            for i in range(4)]
+    kernels.reset_launches()
+    got = many(4)
+    check(kernels.LAUNCHES["gn_iter"] == 1,
+          f"10a gn_iter: {kernels.LAUNCHES['gn_iter']} launches for B = 4")
+    check(same_bits(got, many(4)), "10a gn_iter: B = 4 does not repeat")
+    for i in range(4):
+        check(same_bits(replicas.take(got, i), ones[i]),
+              f"10a gn_iter: replica {i} of the B = 4 launch differs from "
+              "its single launch")
+        check(int(ones[i][2]) > 1000, f"10a gn_iter: replica {i} n_corr "
+              f"{int(ones[i][2])}")
+    active = torch.tensor([True, True, False, True], device=dev)
+    out = torch.full((4, cuda_gn.GN_OUT), 7.0, device=dev)
+    got = many(4, active, out)
+    check(bool((out[2] == 7.0).all()),
+          "10a gn_iter: the inactive replica's row changed")
+    for i in (0, 1, 3):
+        check(same_bits(replicas.take(got, i), ones[i]),
+              f"10a gn_iter: active replica {i} differs from its single "
+              "launch")
+    torch.cuda.synchronize()
+    check(int(cuda_gn._ticket(dev, 4).abs().sum()) == 0,
+          "10a gn_iter: a ticket is not back at 0")
+    c, n = prepped.cx.shape[-2:]
+    r = {f"device_us_b{b}": kernel_us(lambda b=b: many(b), "gn_iter")
+         for b in REPLICAS}
+    r["device_us_b4_one_inactive"] = kernel_us(
+        lambda: many(4, active, out), "gn_iter")
+    for b in (2, 4):
+        # each replica: its source, feat and candidates once, its pose and
+        # output row; ~8 operations per candidate and ~120 per point
+        bd = bound(nbytes(src[:b], tuple(x[:b] for x in prepped), t[:b],
+                          out[:b]), b * n * (8 * c + 120))
+        r[f"bound_ms_b{b}"], r[f"bound_by_b{b}"] = bd["bound_ms"], \
+            bd["bound_by"]
+    say(f"  10a gn_iter (N={n}, C={c}): each replica of one B = 4 launch "
+        "equals its own single launch bit for bit, repeats bit for bit; "
+        "with replica 2 inactive its row is untouched and the others equal "
+        "their single launches; every ticket back at 0; device "
+        f"{r['device_us_b1']:.2f} / {r['device_us_b2']:.2f} / "
+        f"{r['device_us_b4']:.2f} us at B = 1 / 2 / 4, "
+        f"{r['device_us_b4_one_inactive']:.2f} us at B = 4 with one "
+        f"inactive (bound {r['bound_ms_b2'] * 1e3:.3f} / "
+        f"{r['bound_ms_b4'] * 1e3:.3f} us at B = 2 / 4)")
+    return r
 
 
 def batched_window(cfg, states, batches, lut, window: int) -> dict:
@@ -2246,32 +2407,189 @@ def run_batched_path(scene, dev, bench_out, card: str):
     return launches, summary
 
 
+def refresh_launches(iterations: torch.Tensor) -> int:
+    """K5 launches of a batched refresh-loop run with GN iteration counts
+    ``iterations`` [B, N]: each scan's largest count among the replicas
+    (one launch an iteration for all replicas), summed over the scans."""
+    return int(iterations.max(0).values.sum())
+
+
+def run_batched_refresh_cell(tag, cfg, bags, refs, lut, single, *,
+                             self_gate: bool, window: int = 10):
+    """One cell of phases 10d/10e: ``run_sequence_batched`` of ``cfg`` on
+    the stacked ``bags``, warmed up (its last ``window`` scans profiled:
+    device operations, busy and idle share a scan), then timed with host
+    syncs made errors (but the refresh loop's counted reads). Gates: K1
+    once a scan (none with the associative predict), K5 once a GN
+    iteration for all replicas (:func:`refresh_launches`), no other
+    kernel; host reads at most the GN iterations so counted; every pose
+    finite and within 0.02 m of its JAX poses ``refs``; identical
+    replicas bit-equal; with ``self_gate`` replica 0 within 1e-4 m of
+    ``single`` (the single run of the same cell; the difference and the
+    first scan where it passes 1e-6 m are printed in any case). Returns
+    (launches, out, summary, seconds)."""
+    b, n = bags.range_m.shape[:2]
+    states = replay.stack_bags([lio.init_state(cfg, lut.direction.device)]
+                               * b)
+    win = batched_window(cfg, states, bags, lut, min(window, n // 2))
+    kernels.reset_launches()
+    icp.reset_refresh_counts()
+    out, dt = timed_batched(cfg, states, bags, lut)
+    launches, counts = launch_counts(), dict(icp.REFRESH_COUNTS)
+    k5 = refresh_launches(out.aux.iterations)
+    k1 = n if cfg.ekf.predict_batch == "cuda" else 0
+    want = {"ekf_predict": k1, "gn_iter": k5}
+    check(all(c == want.get(k_, 0) for k_, c in launches.items()),
+          f"{tag}: launches {launches}, want {want} (K5: each scan's "
+          f"largest iteration count, summed)")
+    check(counts["host_reads"] <= k5,
+          f"{tag}: {counts['host_reads']} host reads > {k5}")
+    kp = out.kiss_pose.double().cpu().numpy()
+    check(kp.shape == (b, n, 4, 4) and bool(np.isfinite(kp).all()),
+          f"{tag}: poses {kp.shape}")
+    check(bool(out.scan_valid.all()), f"{tag}: a scan was skipped")
+    errs = [float(np.linalg.norm(kp[i, :, :3, 3] - r_[:n, :, 3],
+                                 axis=1).max()) for i, r_ in enumerate(refs)]
+    check(max(errs) <= POSE_GATE_M,
+          f"{tag}: pose vs JAX {errs} m > {POSE_GATE_M} m")
+    for i in range(1, b):
+        check(torch.equal(out.kiss_pose[i], out.kiss_pose[0])
+              and torch.equal(out.ekf_pose[i], out.ekf_pose[0]),
+              f"{tag}: replica {i} differs from replica 0")
+    d1 = np.linalg.norm(
+        kp[0, :, :3, 3] - single.kiss_pose.double().cpu().numpy()[:, :3, 3],
+        axis=1)
+    vs1 = float(d1.max())
+    parts = np.nonzero(d1 > 1e-6)[0]
+    first = int(parts[0]) if len(parts) else None
+    if self_gate:
+        check(vs1 <= SELF_GATE_M,
+              f"{tag}: replica 0 {vs1:.3e} m from the single run > "
+              f"{SELF_GATE_M} (first above 1e-6 m at scan {first})")
+    iters = out.aux.iterations.sum(1).tolist()
+    summary = dict(replicas=b, scans=n, max_pose_vs_jax_m=errs,
+                   max_pose_vs_single_m=vs1, first_scan_above_1e6_m=first,
+                   gn_iterations=iters,
+                   k5_launches=launches["gn_iter"], k5_want=k5,
+                   host_reads=counts["host_reads"],
+                   regathers=counts["regathers"],
+                   first_scans_per_s=b * n / dt, **win)
+    say(f"  {tag}: B = {b}, {n} scans, {win['device_ops_per_scan']:.1f} "
+        f"device operations and {win['busy_us_per_scan'] / 1e3:.3f} ms busy"
+        f" a scan, idle {win['idle_share'] * 100:.1f} % (the last "
+        f"{min(window, n // 2)} scans); K5 {launches['gn_iter']} launches = "
+        f"{k5} (each scan's largest iteration count, summed; GN iterations "
+        f"by replica {iters}), K1 {launches['ekf_predict']}; "
+        f"{counts['host_reads']} host reads (<= {k5}), "
+        f"{counts['regathers']} re-gathers, no other host sync; max |pose - "
+        f"JAX| {', '.join(f'{e:.4f}' for e in errs)} m (<= {POSE_GATE_M});"
+        f" max |replica 0 - single run| {vs1:.3e} m"
+        + (f" (<= {SELF_GATE_M})" if self_gate else "")
+        + f", above 1e-6 m from scan {first}; identical replicas bit-equal")
+    return launches, out, summary, dt
+
+
+def run_batched_refresh_path(scene, dev, cli_out, assoc_out, card: str):
+    """Phases 10d and 10e. 10d: ``run_sequence_batched`` at
+    ``cli_config(128, 1024)`` (the EKF guess; K1 and K5) on B = 1, 2, 4
+    replicas of the bench scene over its 50 scans, B = 1 against phase 5's
+    run; aggregate scans/s from alternating timed runs (B = 1, 2, 4, 4, 2,
+    1). 10e: B = 2 at cli_kiss_assoc (the constant-velocity guess, the
+    associative predict, the refresh loop; the 15 scans of
+    ``cli_kiss_jax_poses.txt``) against phase 7b's single run. Returns
+    (launches by run, summary)."""
+    sensor, scans, scan_ts, gt_mid, imu = scene
+    h, w = scans.shape[1:]
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    launches, summary, timed = {}, {}, {}
+    cli = config.cli_config(h, w)
+    _, ref = ref_poses("cli")
+    n = min(len(scans), len(ref))
+    one = lio.scan_at(lio.build_batches(
+        cli, scans, scan_ts, imu.lacc, imu.avel, imu.ts, device=dev),
+        slice(0, n))
+    for b in REPLICAS:
+        tag = f"cli_x{b}"
+        launches[tag], _, summary[tag], dt = run_batched_refresh_cell(
+            f"10d {tag}", cli, replay.stack_bags([one] * b), [ref] * b, lut,
+            cli_out, self_gate=b == 1)
+        timed[tag] = [dt]
+    for b in (*REPLICAS, *reversed(REPLICAS)):
+        states = replay.stack_bags([lio.init_state(cli, dev)] * b)
+        _, dt = timed_batched(cli, states, replay.stack_bags([one] * b), lut)
+        timed[f"cli_x{b}"].append(dt)
+    for tag, dts in timed.items():
+        b = summary[tag]["replicas"]
+        summary[tag]["aggregate_scans_per_s"] = [b * n / t for t in dts]
+    say("  10d aggregate scans/s (alternating runs B = 1, 2, 4, 4, 2, 1; "
+        "the first of each B its checked run): " + "; ".join(
+            f"B = {b}: " + ", ".join(
+                f"{x:.2f}" for x in summary[f"cli_x{b}"][
+                    "aggregate_scans_per_s"]) for b in REPLICAS)
+        + f"; {card}")
+
+    kiss_cfg = config.cli_config(h, w, guess="kiss")
+    assoc = dataclasses.replace(kiss_cfg, ekf=dataclasses.replace(
+        kiss_cfg.ekf, predict_batch="assoc"))
+    _, kref = ref_poses("cli_kiss")
+    k = min(len(scans), len(kref))
+    kone = lio.scan_at(lio.build_batches(
+        assoc, scans, scan_ts, imu.lacc, imu.avel, imu.ts, device=dev),
+        slice(0, k))
+    tag = "cli_kiss_assoc_x2"
+    launches[tag], _, summary[tag], dt = run_batched_refresh_cell(
+        f"10e {tag}", assoc, replay.stack_bags([kone] * 2), [kref] * 2, lut,
+        assoc_out, self_gate=True, window=5)
+    summary[tag]["aggregate_scans_per_s"] = [2 * k / dt]
+    return launches, summary
+
+
+def sweep_refs(name: str) -> dict[str, np.ndarray]:
+    """{variant: [N, 3, 4]} of a multi-variant sweep reference
+    (``tests/data/<name>_jax_poses.txt``: rows variant after variant, the
+    variants named in its header)."""
+    path, rows = ref_poses(name)
+    with open(path) as f:
+        head = [line for line in f if line.startswith("# variants")]
+    names = head[0].split(":", 1)[1].strip().split(", ")
+    per = rows.reshape(len(names), -1, 3, 4)
+    return dict(zip(names, per))
+
+
 def run_sweep_path(scene, dev, card: str):
     """Phase 10c: ``ekf-bench sweep`` through the port's command line on
-    the bench scene written as phase 9's recording: ``--replicas 2`` over
+    the bench scene written as phase 9's recording, its variants on one
+    card as one program (``run_sequence_batched``): ``--replicas 2`` over
     the 50 scans (the two replicas bit-equal, each within 0.02 m of
     ``tests/data/sweep_pcap_jax_poses.txt``, the printed ATE within the JAX
     run's + 0.005 m), then ``--bacc-z -0.1,0,0.1`` and ``--beams 128,64``
-    on scans 0-20 (``beams=128`` and ``bacc_z=+0.000`` within 0.02 m of
-    the same poses; every variant finite). K5 once a GN iteration, K1-K4
-    and K6 never. Returns (launches by command, summary)."""
+    on scans 0-20, every variant within 0.02 m of its JAX poses
+    (``sweep_bacc_z_jax_poses.txt``, ``sweep_beams_jax_poses.txt``). K5
+    once a GN iteration for all variants (each scan's largest iteration
+    count, summed over the command's two runs), K1-K4 and K6 never.
+    Returns (launches by command, summary)."""
     sys.path.insert(0, os.path.join(HERE, "tools"))
     import make_torch_fixture
     from ptudes_tpu_torch.cli import main as cli
 
-    ref_path, ref = ref_poses("sweep_pcap")
+    ref_path, base_ref = ref_poses("sweep_pcap")
     jax_ate = reference_ate(ref_path)
+    refs = {"sweep_replicas": {f"replica {i}": base_ref for i in range(2)},
+            "sweep_bacc_z": sweep_refs("sweep_bacc_z"),
+            "sweep_beams": sweep_refs("sweep_beams")}
+    # the same commands with the bags run one after another through
+    # lio.run_sequence, two earlier runs on an H100 80GB HBM3 at 700 W
+    serial = {"sweep_replicas": "7.35 / 8.41",
+              "sweep_bacc_z": "4.62 / 9.11", "sweep_beams": "4.53 / 8.03"}
     tmp = tempfile.mkdtemp(prefix="ptudes_sweep_")
     launches, summary = {}, {}
     try:
         rec, meta, gt = make_torch_fixture.bench(tmp, scene=scene)
-        for tag, flags, ok_rows in (
-                ("sweep_replicas", ["--replicas", "2"],
-                 ("replica 0", "replica 1")),
+        for tag, flags in (
+                ("sweep_replicas", ["--replicas", "2"]),
                 ("sweep_bacc_z", ["--bacc-z", "-0.1,0,0.1", "--end-scan",
-                                  "20"], ("bacc_z=+0.000",)),
-                ("sweep_beams", ["--beams", "128,64", "--end-scan", "20"],
-                 ("beams=128",))):
+                                  "20"]),
+                ("sweep_beams", ["--beams", "128,64", "--end-scan", "20"])):
             kernels.reset_launches()
             icp.reset_refresh_counts()
             t = time.monotonic()
@@ -2280,19 +2598,21 @@ def run_sweep_path(scene, dev, card: str):
             wall = time.monotonic() - t
             launches[tag] = launch_counts()
             n = res["n_scans"]
-            iters = int(res["iterations"].sum()) + int(
-                res["iterations_first"].sum())     # the command's two runs
-            check(all(c == (iters if k_ == "gn_iter" else 0)
+            k5 = refresh_launches(torch.as_tensor(res["iterations"])) \
+                + refresh_launches(torch.as_tensor(res["iterations_first"]))
+            check(all(c == (k5 if k_ == "gn_iter" else 0)
                       for k_, c in launches[tag].items()),
-                  f"10c {tag}: launches {launches[tag]}, want gn_iter "
-                  f"{iters}")
+                  f"10c {tag}: launches {launches[tag]}, want gn_iter {k5} "
+                  "(each scan's largest iteration count, summed over the "
+                  "two runs)")
             ek = res["ekf_poses"]
             check(bool(np.isfinite(ek).all()), f"10c {tag}: poses")
-            errs = {}
-            for i, v in enumerate(res["variants"]):
-                if v in ok_rows:
-                    errs[v] = float(np.linalg.norm(
-                        ek[i, :, :3, 3] - ref[:n, :, 3], axis=1).max())
+            check(list(refs[tag]) == res["variants"],
+                  f"10c {tag}: variants {res['variants']}, references "
+                  f"{list(refs[tag])}")
+            errs = {v: float(np.linalg.norm(
+                ek[i, :, :3, 3] - refs[tag][v][:n, :, 3], axis=1).max())
+                for i, v in enumerate(res["variants"])}
             check(max(errs.values()) <= POSE_GATE_M,
                   f"10c {tag}: pose vs JAX {errs} > {POSE_GATE_M} m")
             rows = res["rows"]
@@ -2301,38 +2621,52 @@ def run_sweep_path(scene, dev, card: str):
                       "10c: the two replicas differ")
                 # the JAX ATE is over the reference's scans: comparable
                 # when the run covers them all (not with --scans < 50)
-                for row in rows if n == len(ref) else ():
+                for row in rows if n == len(base_ref) else ():
                     check(row["ate_rmse"] <= jax_ate + CLI_ATE_SLACK_M,
                           f"10c: ATE {row['ate_rmse']:.4f} m > JAX "
                           f"{jax_ate:.4f} + {CLI_ATE_SLACK_M}")
+            rate = len(rows) * n / res["steady_s"]
             summary[tag] = dict(
                 scans=n, variants=res["variants"], wall_s=wall,
                 first_s=res["first_s"], steady_s=res["steady_s"],
-                aggregate_scans_per_s=len(rows) * n / res["steady_s"],
-                rows=rows, max_pose_vs_jax_m=errs, gn_iterations=iters,
+                aggregate_scans_per_s=rate, rows=rows,
+                max_pose_vs_jax_m=errs, k5_launches=k5,
+                gn_iterations=int(res["iterations"].sum()) + int(
+                    res["iterations_first"].sum()),
+                host_reads=icp.REFRESH_COUNTS["host_reads"],
                 jax_ate_rmse_m=jax_ate, kernel_launches=launches[tag])
-            say(f"  10c {tag}: {len(rows)} x {n} scans, "
-                f"{summary[tag]['aggregate_scans_per_s']:.2f} scans/s "
-                f"aggregate steady; max |pose - JAX| {errs} m (<= "
-                f"{POSE_GATE_M}); rows "
+            say(f"  10c {tag}: {len(rows)} x {n} scans as one batched "
+                f"program, {rate:.2f} scans/s aggregate steady (the bags "
+                f"one after another: {serial[tag]}); max |pose - JAX| "
+                + ", ".join(f"{v} {e:.5f}" for v, e in errs.items())
+                + f" m (<= {POSE_GATE_M}); rows "
                 + "; ".join(f"{r_['variant']}: drift {r_['drift']:.3f}, "
                             f"ATE {r_['ate_rmse']:.4f}" for r_ in rows)
-                + f" (JAX {jax_ate:.4f}); K5 {iters} launches, no other")
+                + f" (JAX {jax_ate:.4f}); K5 {k5} launches for "
+                f"{summary[tag]['gn_iterations']} replica GN iterations, no "
+                f"other kernel; {card}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches, summary
 
 
-def run_phase10(scene, dev, bench_out, card: str, results):
-    """Phase 10: the replica-axis launches (a), the batched driver (b),
-    ``ekf-bench sweep`` (c); one JSON line of their figures (d). Returns
-    the launches by run."""
+def run_phase10(scene, dev, bench_out, cli_out, assoc_out, card: str,
+                results):
+    """Phase 10: the replica-axis launches (a), the batched driver at the
+    bench configuration (b) and with the refresh loop (d, e), ``ekf-bench
+    sweep`` (c); one JSON line of their figures. ``cli_out`` and
+    ``assoc_out``: phase 5's and phase 7b's runs. Returns the launches by
+    run."""
     axis = check_replica_axis(dev, results)
     launches, summary = run_batched_path(scene, dev, bench_out, card)
+    refresh_launch, refresh = run_batched_refresh_path(
+        scene, dev, cli_out, assoc_out, card)
+    launches.update(refresh_launch)
     sweep_launches, sweep = run_sweep_path(scene, dev, card)
     launches.update(sweep_launches)
     say(json.dumps(dict(phase10=dict(replica_axis=axis, batched=summary,
-                                     sweep=sweep, card=card))))
+                                     batched_refresh=refresh, sweep=sweep,
+                                     card=card))))
     return launches
 
 
@@ -2342,12 +2676,14 @@ def main() -> int:
                     help="scans of the bench scene to run (default 50)")
     ap.add_argument("--phases", default="all",
                     help="comma list of the phases to run after 1-2 "
-                    "(default all; 10 runs phase 4 first, whose run it "
-                    "compares with)")
+                    "(default all; 10 runs phases 4, 5 and 7a-b first, "
+                    "whose runs it compares with)")
     args = ap.parse_args()
     want = set(range(3, 11)) if args.phases == "all" else {
         int(x) for x in args.phases.split(",")}
     if 10 in want:
+        want |= {5, 7}
+    if want & {5, 7}:
         want.add(4)
 
     say("phase 1: device")
@@ -2389,9 +2725,17 @@ def main() -> int:
         if 4 in want:
             say("phase 4: bench path")
             _, scene, bench_out, _, _ = run_main_path(args.scans, dev)
+        card = card_line()
+        if 5 in want:
+            say("phase 5: CLI path")
+            _, cli_out = run_cli_path(scene, dev, card)
+        if 7 in want:
+            say("phase 7: the CLI's EKF-facing paths (a, b)")
+            _, assoc_out = run_kiss_paths(scene, dev, card)
         if 10 in want:
             say("phase 10: several sequences at once")
-            run_phase10(scene, dev, bench_out, card_line(), results)
+            run_phase10(scene, dev, bench_out, cli_out, assoc_out, card,
+                        results)
         say(f"phases {sorted(want)} passed (a subset: no kernel summary)")
         say(card_line())
         return 0
@@ -2412,14 +2756,10 @@ def main() -> int:
     say("phase 4: bench path")
     bench_launches, scene, bench_out, bench_rate, repeat = run_main_path(
         args.scans, dev)
-    h, w = scene[1].shape[1:]
     bench = config.bench_config()
     card = card_line()
     say("phase 5: CLI path")
-    cli = config.cli_config(h, w)
-    cli_launches, _, _ = run_option_path(
-        scene, dev, cli, "5 cli", "cli", cli_want(cli), card=card,
-        ate_slack=CLI_ATE_SLACK_M, twins=True)
+    cli_launches, cli_out = run_cli_path(scene, dev, card)
     say("phase 6: fused bench path")
     fused = dataclasses.replace(bench, kiss=dataclasses.replace(
         bench.kiss, fused_gather=True))
@@ -2434,15 +2774,8 @@ def main() -> int:
     by_path = {"bench": bench_launches, "cli": cli_launches,
                "bench_fused": fused_launches}
     say("phase 7: the CLI's EKF-facing paths")
-    kiss_cfg = config.cli_config(h, w, guess="kiss")
-    by_path["cli_kiss"], _, _ = run_option_path(
-        scene, dev, kiss_cfg, "7a cli kiss", "cli_kiss", cli_want(kiss_cfg),
-        card=card, ate_slack=CLI_ATE_SLACK_M, twins=True)
-    assoc = dataclasses.replace(kiss_cfg, ekf=dataclasses.replace(
-        kiss_cfg.ekf, predict_batch="assoc"))
-    by_path["cli_kiss_assoc"], _, _ = run_option_path(
-        scene, dev, assoc, "7b cli kiss assoc", "cli_kiss", cli_want(assoc),
-        card=card, ate_slack=CLI_ATE_SLACK_M)
+    kiss_launches, assoc_out = run_kiss_paths(scene, dev, card)
+    by_path.update(kiss_launches)
     by_path["bench_log"] = run_log_path(scene, args.scans, dev, bench_out,
                                         bench_rate, repeat)
     by_path["sim_filter"] = run_filter_path(dev)
@@ -2452,7 +2785,8 @@ def main() -> int:
     by_path.update(run_recording_path(scene, dev, card))
     say("phase 10: several sequences at once (the batched driver, "
         "ekf-bench sweep)")
-    by_path.update(run_phase10(scene, dev, bench_out, card, results))
+    by_path.update(run_phase10(scene, dev, bench_out, cli_out, assoc_out,
+                               card, results))
 
     rows = []
     for name in (*kernels.KERNELS, *kernels.VARIANT_LAUNCHES):

@@ -399,15 +399,17 @@ def cmd_ekf_sweep(args):
     """Multi-variant LIO replay of one recording (reference ``ekf-bench
     sweep``): one variant per ``--beams`` count (a low-resolution sensor)
     or ``--bacc-z`` prior (the EKF's initial accelerometer bias z), or
-    ``--replicas`` identical runs, each through ``lio.run_sequence``
-    (``parallel.replay.replay_bags``), dealt over the cards when there are
-    as many as variants; prints aggregate scans/s and each variant's drift
-    and ATE."""
+    ``--replicas`` identical runs. On one card (or the CPU) the variants
+    run as one program through ``parallel.batched.run_sequence_batched``,
+    the counterpart of the JAX command's vmapped ``replay_bags``; with as
+    many cards as variants each runs through ``lio.run_sequence`` on its
+    own card (``parallel.replay.replay_bags``). Prints aggregate scans/s
+    and each variant's drift and ATE."""
     from ..io.poses import filter_nc_gt_by_close_ts, read_newer_college_gt
     from ..models import lio
     from ..ops.projection import reduce_active_beams_mask
+    from ..parallel import batched, replay
     from ..parallel import mesh as mesh_lib
-    from ..parallel import replay
     from ..utils.metrics import calc_ate_rmse
 
     chosen = [o for o in (args.beams, args.bacc_z, args.replicas) if o]
@@ -454,15 +456,20 @@ def cmd_ekf_sweep(args):
             if len(cards) >= nb > 1 else None)
     shape = {"bag": nb, "pt": 1} if grid is not None else "single device"
     print(f"variants: {nb}, devices: {ndev}, mesh: {shape}")
-    devices = list(grid[:, 0]) if grid is not None else None
+
+    def replay_all():
+        if grid is not None:
+            return replay.replay_bags(states, batches, lut, cfg,
+                                      devices=list(grid[:, 0]))
+        return batched.run_sequence_batched(states, batches, lut, cfg=cfg)
 
     t0 = time.monotonic()
-    fin, out = replay.replay_bags(states, batches, lut, cfg, devices=devices)
+    fin, out = replay_all()
     float(out.kiss_pose[0, -1, 0, 0])
     t_first = time.monotonic() - t0
     iterations_first = _np(out.aux.iterations)
     t0 = time.monotonic()
-    fin, out = replay.replay_bags(states, batches, lut, cfg, devices=devices)
+    fin, out = replay_all()
     float(out.kiss_pose[0, -1, 0, 0])
     t_steady = time.monotonic() - t0
     n = len(scans)

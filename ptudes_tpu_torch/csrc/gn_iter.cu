@@ -30,6 +30,15 @@
 // One launch per build; the ticket is the only atomic,
 // so the float sums repeat bit for bit. The per-point body is
 // K4's (common.cuh: gn_nearest, gn_add_moments).
+//
+// Replica axis (the batched driver's refresh loop, as gn_prepped_pallas
+// gains a grid axis under jax.vmap): replica b's CTAs are grid row y = b,
+// each replica with its own source, prepped rows (prep_stride floats
+// apart), scal row, partial columns, ticket and out row, so replica b's
+// output is a single launch's on its inputs, bit for bit. active[b] == 0
+// (a replica that has converged or hit the cap) makes its CTAs return
+// before any load: no ticket drawn, its out row left as it was. A single
+// build passes one replica and no mask.
 #include "common.cuh"
 
 namespace {
@@ -40,10 +49,12 @@ constexpr int kThreads = kTile * kGroups;  // ops/cuda_gn.py:GN_THREADS
 constexpr int kAcc = ptudes::kGnAcc;
 constexpr int kRowsPerWarp = (kAcc + kGroups - 1) / kGroups;  // last CTA
 
+// Per replica:
 // scal: kern, max_d2, pose 3x4 row-major (12)                       (14)
 // partial: [45, blocks] moment sums, CTA b's in column b
 // ticket: one int, 0 between launches
 // out: jtj 6x6 row-major (36), jtr (6), n_corr, total_w             (44)
+constexpr int kScal = 14, kOut = 44;
 
 __global__ void __launch_bounds__(kThreads)
 gn_iter_kernel(const float* __restrict__ src,   // [N, 3]
@@ -52,8 +63,21 @@ gn_iter_kernel(const float* __restrict__ src,   // [N, 3]
                const float* __restrict__ cz,
                const float* __restrict__ inf,   // [C, N]
                const float* __restrict__ scal, float* __restrict__ partial,
-               unsigned* __restrict__ ticket, float* __restrict__ out, int n,
-               int c, float plane_q) {
+               unsigned* __restrict__ ticket, float* __restrict__ out,
+               const unsigned char* __restrict__ active, int n, int c,
+               float plane_q, int prep_stride) {
+  const size_t rep = blockIdx.y, o = rep * prep_stride;
+  if (active != nullptr && !active[rep]) return;  // the whole CTA at once
+  src += rep * 3 * n;
+  feat += o;
+  cx += o;
+  cy += o;
+  cz += o;
+  inf += o;
+  scal += rep * kScal;
+  partial += rep * kAcc * gridDim.x;
+  ticket += rep;
+  out += rep * kOut;
   __shared__ float4 xchg[kGroups - 1][kTile];
   __shared__ float sums[kAcc];
   __shared__ int last;
@@ -138,15 +162,22 @@ gn_iter_kernel(const float* __restrict__ src,   // [N, 3]
 
 }  // namespace
 
+// replicas: grid rows; src [n, 3] a replica apart, the prepped rows
+// prep_stride floats apart, scal [14], partial [45, blocks], one ticket
+// and out [44] a replica apart; active: one byte a replica, or null (all)
 extern "C" int ptudes_gn_iter(const float* src, const float* feat,
                               const float* cx, const float* cy,
                               const float* cz, const float* inf,
                               const float* scal, float* partial,
-                              unsigned* ticket, float* out, int n, int c,
-                              float plane_q, cudaStream_t stream) {
-  if (n <= 0 || c <= 0) return cudaErrorInvalidValue;
-  const int blocks = (n + kTile - 1) / kTile;
-  gn_iter_kernel<<<blocks, kThreads, 0, stream>>>(
-      src, feat, cx, cy, cz, inf, scal, partial, ticket, out, n, c, plane_q);
+                              unsigned* ticket, float* out,
+                              const unsigned char* active, int n, int c,
+                              float plane_q, int replicas, int prep_stride,
+                              cudaStream_t stream) {
+  if (n <= 0 || c <= 0 || replicas <= 0 || replicas > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((n + kTile - 1) / kTile, replicas);
+  gn_iter_kernel<<<grid, kThreads, 0, stream>>>(
+      src, feat, cx, cy, cz, inf, scal, partial, ticket, out, active, n, c,
+      plane_q, prep_stride);
   return static_cast<int>(cudaGetLastError());
 }

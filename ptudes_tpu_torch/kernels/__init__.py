@@ -13,8 +13,8 @@ plain PyTorch twins run only where a wrapper is given CPU tensors.
 
 ``LAUNCHES`` counts, per kernel, the launches :func:`launch` made since the
 last :func:`reset_launches`; a run shows it went through the kernels by
-reading them. A launch with a replica axis (K1-K4 on the batched driver's
-path: all replicas in one grid) counts once. A launch of a kernel's variant also counts in
+reading them. A launch with a replica axis (K1-K5 on the batched driver's
+paths: all replicas in one grid) counts once. A launch of a kernel's variant also counts in
 ``VARIANT_LAUNCHES`` (``ekf_predict_history``: K1 writing the filter
 history).
 """
@@ -40,13 +40,14 @@ NVCC_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types, the stream last
-# (K1-K4 take a replica count, and K3 and K4 a replica stride, last)
+# (K1-K5 take a replica count, and K3-K5 a replica stride, last; K5 also
+# a replica mask before its sizes)
 _SIGNATURES = {
     "ptudes_ekf_predict": [_P] * 6 + [_I] + [_F] * 4 + [_I, _P],
     "ptudes_ekf_update": [_P] * 4 + [_I, _I, _P],
     "ptudes_gn_prep": [_P] * 9 + [_I, _I, _F, _I, _I, _I, _P],
     "ptudes_icp_loop": [_P] * 8 + [_I, _I] + [_F] * 4 + [_I] * 6 + [_P],
-    "ptudes_gn_iter": [_P] * 10 + [_I, _I, _F, _P],
+    "ptudes_gn_iter": [_P] * 11 + [_I, _I, _F, _I, _I, _P],
     "ptudes_gather_fused": [_P] * 10 + [_I] * 6 + [_F] * 3 + [_I, _P],
     "ptudes_plane_moments": [_P] * 6 + [_I, _I, _F, _P],
 }

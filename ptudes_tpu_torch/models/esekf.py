@@ -189,6 +189,9 @@ def process_imu_batch(s: EkfState, imus: Imu, valid: torch.Tensor, *,
     Logging does not touch the carried state: it is the one ``log=False``
     returns, bit for bit. Under ``"assoc"`` the history is the unrolled
     chain's (as in the JAX package); under ``"cuda"`` the kernel writes it.
+    A leading replica axis ([B, K, ...] samples, [B, ...] state) runs K1
+    or the associative form once for all replicas; the unrolled chain and
+    the history run replica by replica.
     """
     if cfg.predict_batch == "cuda":
         from ..ops import cuda_ekf
@@ -196,7 +199,7 @@ def process_imu_batch(s: EkfState, imus: Imu, valid: torch.Tensor, *,
                                       want_twist=want_twist, log=log)
     if cfg.predict_batch not in ("unroll", "assoc"):
         raise ValueError(f"unknown predict_batch {cfg.predict_batch!r}")
-    if valid.dim() == 2:
+    if valid.dim() == 2 and (cfg.predict_batch == "unroll" or log):
         return per_replica(process_imu_batch, valid.shape[0], s, imus,
                            valid, cfg=cfg, want_twist=want_twist, log=log)
     if cfg.predict_batch == "unroll" or log:
@@ -217,13 +220,20 @@ def process_imu_batch(s: EkfState, imus: Imu, valid: torch.Tensor, *,
 
 
 def suffix_products(f: torch.Tensor) -> torch.Tensor:
-    """G_k = F_{K-1} @ ... @ F_k for [K, n, n] ``f``: a log-depth scan, each
-    level one batched product of the later partial onto the earlier."""
-    g, d, k = f, 1, f.shape[0]
+    """G_k = F_{K-1} @ ... @ F_k for [..., K, n, n] ``f``: a log-depth
+    scan, each level one batched product of the later partial onto the
+    earlier."""
+    g, d, k = f, 1, f.shape[-3]
     while d < k:
-        g = torch.cat([g[d:] @ g[:k - d], g[k - d:]])
+        g = torch.cat([g[..., d:, :, :] @ g[..., :k - d, :, :],
+                       g[..., k - d:, :, :]], -3)
         d *= 2
     return g
+
+
+def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[..., n, n] @ [..., n] -> [..., n]."""
+    return (m @ v[..., None])[..., 0]
 
 
 def _process_imu_batch_assoc(s: EkfState, imus: Imu, valid: torch.Tensor,
@@ -235,8 +245,10 @@ def _process_imu_batch_assoc(s: EkfState, imus: Imu, valid: torch.Tensor,
 
     symmetrised once (the unrolled chain does so every step; the two differ
     by f32 reassociation). A padded or latching sample has dt = 0, so F = I
-    and W = 0."""
-    k = valid.shape[0]
+    and W = 0. A leading replica axis (state leaves [B, ...], samples
+    [B, K, ...], ``valid`` [B, K]) runs every replica's block in the same
+    ops."""
+    k = valid.shape[-1]
     if k == 0:
         return s
     pos, vel, quat, ts, init = (s.pos, s.vel, s.quat, s.imu_ts,
@@ -244,17 +256,19 @@ def _process_imu_batch_assoc(s: EkfState, imus: Imu, valid: torch.Tensor,
     zero = torch.zeros_like(ts)
     r_prev, acc_body, rot_d, dts = [], [], [], []
     for i in range(k):
-        ok = valid[i]
-        t = imus.ts[i]
+        ok = valid[..., i]
+        t = imus.ts[..., i]
         eff = ok & init
         dt = torch.where(eff, torch.clamp(t - ts, min=0.0), zero)
+        dtv = dt[..., None]
         r = so3.quat_to_mat(quat)
-        ab = imus.lacc[i] - s.bias_acc
-        rd = so3.exp_rotvec((imus.avel[i] - s.bias_gyr) * dt)
-        acc_total = r @ ab + s.grav
-        pos = pos + vel * dt + 0.5 * acc_total * dt * dt
-        vel = vel + acc_total * dt
-        quat = torch.where(eff, so3.quat_mul(quat, so3.mat_to_quat(rd)), quat)
+        ab = imus.lacc[..., i, :] - s.bias_acc
+        rd = so3.exp_rotvec((imus.avel[..., i, :] - s.bias_gyr) * dtv)
+        acc_total = _mv(r, ab) + s.grav
+        pos = pos + vel * dtv + 0.5 * acc_total * dtv * dtv
+        vel = vel + acc_total * dtv
+        quat = torch.where(eff[..., None],
+                           so3.quat_mul(quat, so3.mat_to_quat(rd)), quat)
         # a fresh filter's first valid sample latches ts (no max)
         ts = torch.where(ok, torch.where(init, torch.maximum(t, ts), t), ts)
         init = init | ok
@@ -262,30 +276,35 @@ def _process_imu_batch_assoc(s: EkfState, imus: Imu, valid: torch.Tensor,
         acc_body.append(ab)
         rot_d.append(rd)
         dts.append(dt)
-    r_prev, acc_body, rot_d, dt = (torch.stack(x) for x in (
+    lead = valid.shape[:-1]
+    r_prev, acc_body, rot_d, dt = (torch.stack(x, len(lead)) for x in (
         r_prev, acc_body, rot_d, dts))
 
     dev = s.cov.device
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     eye = torch.eye(STATE_RANK, dtype=torch.float32, device=dev)
-    dtm = dt[:, None, None]
-    fx = eye.repeat(k, 1, 1)
-    fx[:, POS:POS + 3, VEL:VEL + 3] = dtm * eye3
-    fx[:, VEL:VEL + 3, PHI:PHI + 3] = -dtm * (r_prev @ so3.hat(acc_body))
-    fx[:, VEL:VEL + 3, BA:BA + 3] = -dtm * r_prev
-    fx[:, PHI:PHI + 3, PHI:PHI + 3] = rot_d.transpose(1, 2)
-    fx[:, PHI:PHI + 3, BG:BG + 3] = -dtm * eye3
-    wdiag = torch.zeros((k, STATE_RANK), dtype=torch.float32, device=dev)
-    wdiag[:, VEL:VEL + 3] = ((dt * cfg.acc_bias_std) ** 2)[:, None]
-    wdiag[:, PHI:PHI + 3] = ((dt * cfg.gyr_bias_std) ** 2)[:, None]
-    wdiag[:, BA:BA + 3] = (dt * cfg.acc_vrw ** 2)[:, None]
-    wdiag[:, BG:BG + 3] = (dt * cfg.gyr_arw ** 2)[:, None]
+    dtm = dt[..., None, None]
+    fx = eye.repeat(lead + (k, 1, 1))
+    fx[..., POS:POS + 3, VEL:VEL + 3] = dtm * eye3
+    fx[..., VEL:VEL + 3, PHI:PHI + 3] = -dtm * (r_prev @ so3.hat(acc_body))
+    fx[..., VEL:VEL + 3, BA:BA + 3] = -dtm * r_prev
+    fx[..., PHI:PHI + 3, PHI:PHI + 3] = rot_d.transpose(-1, -2)
+    fx[..., PHI:PHI + 3, BG:BG + 3] = -dtm * eye3
+    wdiag = torch.zeros(lead + (k, STATE_RANK), dtype=torch.float32,
+                        device=dev)
+    wdiag[..., VEL:VEL + 3] = ((dt * cfg.acc_bias_std) ** 2)[..., None]
+    wdiag[..., PHI:PHI + 3] = ((dt * cfg.gyr_bias_std) ** 2)[..., None]
+    wdiag[..., BA:BA + 3] = (dt * cfg.acc_vrw ** 2)[..., None]
+    wdiag[..., BG:BG + 3] = (dt * cfg.gyr_arw ** 2)[..., None]
 
     gs = suffix_products(fx)
-    g1, gnext = gs[0], torch.cat([gs[1:], eye[None]])
-    cov = g1 @ s.cov @ g1.T + torch.einsum("kij,kj,klj->il", gnext, wdiag,
-                                           gnext)
-    cov = 0.5 * (cov + cov.T)
+    g1 = gs[..., 0, :, :]
+    gnext = torch.cat([gs[..., 1:, :, :], eye.expand(lead + (1, STATE_RANK,
+                                                             STATE_RANK))],
+                      -3)
+    cov = g1 @ s.cov @ g1.transpose(-1, -2) + torch.einsum(
+        "...kij,...kj,...klj->...il", gnext, wdiag, gnext)
+    cov = 0.5 * (cov + cov.transpose(-1, -2))
     return EkfState(pos, vel, quat, s.bias_gyr, s.bias_acc, s.grav, cov, ts,
                     init)
 

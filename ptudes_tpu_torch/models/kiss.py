@@ -13,8 +13,9 @@ read per GN iteration, ``icp.read_flags``), never with frozen candidates.
 
 :func:`register_scan_batched` registers B replicas' scans in the launches
 of one: the front end with a leading replica axis, one candidate gather of
-all replicas' points from the flat B-map table, K3 and K4 with a replica
-axis; the map insert is left to the caller (:class:`DeferredInsert`).
+all replicas' points from the flat B-map table, K3 and K4 (frozen
+candidates) or K5 (the refresh loop) with a replica axis; the map insert
+is left to the caller (:class:`DeferredInsert`).
 """
 from __future__ import annotations
 
@@ -227,24 +228,39 @@ def register_scan_batched(state: KissState, pts: torch.Tensor,
                           mask: torch.Tensor, ts01: torch.Tensor, *,
                           cfg: KissConfig, cap: Capacity,
                           grid_hw: tuple[int, int],
-                          initial_guess: torch.Tensor,
                           update_ok: torch.Tensor,
                           slot_base: torch.Tensor, logical_capacity: int,
+                          initial_guess: torch.Tensor | None = None,
+                          use_guess: bool = False,
                           deskew_twist: torch.Tensor | None = None
                           ) -> tuple[KissState, torch.Tensor, KissAux,
                                      DeferredInsert]:
-    """:func:`register_scan` of B replicas at once, with the guess given,
-    the grid front end, frozen cached candidates and ``defer_insert``:
-    ``state``'s leaves [B, ...] (its ``local_map`` the flat B-map table,
-    replica b at ``slot_base[b]``), ``pts`` [B, N, 3], ``mask`` and
-    ``ts01`` [B, N], guesses [B, 4, 4], ``update_ok`` [B], the deskew
-    twists [B, 6] (or none). Every stage runs once for all replicas; the
-    results carry the leading [B]. The deferred insert's ``frame_w`` is
-    [B, F, 3], ready for ``hashmap.insert_deduped_batched``."""
+    """:func:`register_scan` of B replicas at once, with the grid front
+    end, cached candidates and ``defer_insert``: ``state``'s leaves [B,
+    ...] (its ``local_map`` the flat B-map table, replica b at
+    ``slot_base[b]``), ``pts`` [B, N, 3], ``mask`` and ``ts01`` [B, N],
+    ``update_ok`` [B]. The guess and the deskew follow
+    :func:`register_scan`'s rules: guesses [B, 4, 4] with ``use_guess``,
+    else each replica's constant-velocity prediction; with ``cfg.deskew``
+    the twists [B, 6] when given, else KISS's constant-velocity deskew,
+    on for a replica from its third scan. Frozen candidates run K3 and K4
+    with a replica axis (:func:`icp.register_frames_cached_batched`); the
+    candidate-refresh loop (``cfg.nn_refresh_drift > 0``) runs K5 with a
+    replica axis (:func:`icp.register_frames_refresh_batched`). Every stage
+    runs once for all replicas; the results carry the leading [B]. The
+    deferred insert's ``frame_w`` is [B, F, 3], ready for
+    ``hashmap.insert_deduped_batched``."""
+    if cfg.nn_mode != "cached":
+        raise ValueError("register_scan_batched runs cached candidates "
+                         f"only, not nn_mode={cfg.nn_mode!r}")
     vs = cfg.resolved_voxel_size
     b = mask.shape[0]
-    if cfg.deskew and deskew_twist is not None:
-        pts = deskew_ops.deskew_by_twist(pts, ts01 - 0.5, deskew_twist)
+    if cfg.deskew:
+        if deskew_twist is not None:
+            pts = deskew_ops.deskew_by_twist(pts, ts01 - 0.5, deskew_twist)
+        else:
+            pts = deskew_ops.deskew_scan(pts, ts01, state.pose_prev,
+                                         state.pose, state.num_scans >= 2)
     mask = voxel.range_clip_mask(pts, mask, cfg.min_range, cfg.max_range)
     pre = voxel.window_prededup_mask(pts, mask, vs * 0.5, grid_hw)
     pre_pts, pre_mask = voxel.compact(pts, pre, cap.max_frame)
@@ -256,9 +272,12 @@ def register_scan_batched(state: KissState, pts: torch.Tensor,
                                         decimate_overflow=True)
 
     sigma = get_adaptive_threshold(state, cfg)
-    res = icp.register_frames_cached_batched(
-        source, source_mask, state.local_map, initial_guess, 3.0 * sigma,
-        sigma / 3.0, slot_base=slot_base, logical_capacity=logical_capacity,
+    if use_guess:
+        guess = initial_guess.to(torch.float32)
+    else:
+        guess = state.pose @ prediction_model(state)
+    common = dict(
+        slot_base=slot_base, logical_capacity=logical_capacity,
         voxel_size=vs, max_probes=cap.max_probes,
         max_iterations=cfg.max_iterations,
         convergence=cfg.convergence_criterion, loss=cfg.loss,
@@ -267,6 +286,14 @@ def register_scan_batched(state: KissState, pts: torch.Tensor,
         prior_trans_weight=cfg.prior_trans_weight,
         neighborhood=cfg.nn_neighborhood, n_voxels=cfg.nn_voxels,
         plane_radius=cfg.plane_fit_radius, form=cfg.icp_form)
+    if cfg.nn_refresh_drift > 0.0:
+        res = icp.register_frames_refresh_batched(
+            source, source_mask, state.local_map, guess, 3.0 * sigma,
+            sigma / 3.0, refresh_drift=cfg.nn_refresh_drift, **common)
+    else:
+        res = icp.register_frames_cached_batched(
+            source, source_mask, state.local_map, guess, 3.0 * sigma,
+            sigma / 3.0, **common)
     new_pose = res.pose
 
     err = model_error(res.dev_t, res.dev_r, cfg.max_range)

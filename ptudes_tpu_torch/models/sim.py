@@ -1,8 +1,9 @@
 """Synthetic lidar + IMU data, made with numpy (a copy of the numpy subset
 of ``ptudes_tpu.models.sim``): the analytic raycast world, the sensor LUT,
 range-image rendering with a true rotosweep, the speed-ramped circle
-trajectory and its exact IMU, and the seeded IMU streams of ``ekf-bench
-sim`` (:func:`sim_imu_arrays`, the only one that returns tensors). The
+trajectory and its exact IMU, the seeded IMU streams of ``ekf-bench
+sim`` (:func:`sim_imu_arrays`, the only one that returns tensors) and the
+point-cloud world of :func:`make_world`. The
 rest returns numpy, so the card's machine (which has no JAX) can make the
 same scenes as the JAX package; ``utils.convert.lut_from_numpy`` moves a
 sensor's LUT to a device.
@@ -80,6 +81,43 @@ def sim_imu_arrays(seed: int, n: int, *, freq: float = 100.0,
     noisy = Imu(lacc=f32(acc + acc_noise + acc_bias),
                 avel=f32(gyr + gyr_noise + gyr_bias), ts=f32(ts))
     return ideal, noisy
+
+
+def make_world(seed: int = 0, n: int = 60000,
+               extent: float = 40.0) -> np.ndarray:
+    """Structured static world point cloud: ground + perimeter walls +
+    random boxes (``ptudes_tpu.models.sim.make_world``, the same draws in
+    the same order). Non-degenerate for point-to-point ICP."""
+    rng = np.random.default_rng(seed)
+    e = extent
+    n_ground = n // 3
+    ground = np.stack(
+        [rng.uniform(-e, e, n_ground), rng.uniform(-e, e, n_ground),
+         rng.normal(0, 0.02, n_ground)], -1)
+
+    n_wall = n // 6
+    walls = []
+    for axis, sign in [(0, 1), (0, -1), (1, 1), (1, -1)]:
+        w = np.zeros((n_wall, 3))
+        w[:, axis] = sign * e + rng.normal(0, 0.02, n_wall)
+        w[:, 1 - axis] = rng.uniform(-e, e, n_wall)
+        w[:, 2] = rng.uniform(0, 8, n_wall)
+        walls.append(w)
+
+    n_box = n - n_ground - 4 * n_wall
+    centers = rng.uniform(-e * 0.7, e * 0.7, (12, 3))
+    centers[:, 2] = rng.uniform(0.5, 3, 12)
+    sizes = rng.uniform(0.5, 3.0, (12, 3))
+    which = rng.integers(0, 12, n_box)
+    face = rng.integers(0, 3, n_box)
+    u = rng.uniform(-1, 1, (n_box, 3))
+    pts = centers[which] + u * sizes[which]
+    # snap one coordinate to a face
+    snap = np.sign(rng.uniform(-1, 1, n_box))
+    pts[np.arange(n_box), face] = (
+        centers[which, face] + snap * sizes[which, face])
+
+    return np.vstack([ground, *walls, pts]).astype(np.float32)
 
 
 def make_sim_world(seed: int = 0, extent: float = 40.0, n_boxes: int = 14,

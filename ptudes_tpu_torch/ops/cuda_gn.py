@@ -11,13 +11,16 @@
 
 The candidates are laid out ONCE per gather in the lane-major [C, N] rows
 K4 and K5 read: on the frozen path by K3 itself, which also writes the feat
-rows (normal, centroid, quality, source mask); on the refresh path and in
-K3's twin by :func:`lane_major`, the refresh path's feat rows coming from
-the gather's own plane fit (:func:`prep_candidates`).
+rows (normal, centroid, quality, source mask); in K3's twin by
+:func:`lane_major`; on the refresh path by :func:`prep_candidates`, its
+feat rows coming from the gather's own plane fit.
 
 K3 also takes a leading replica axis (the batched driver's B
 registrations): one launch writes every replica's feat and lane-major rows
-into one [B, 8 + 4C, N] buffer, the layout K4's replica axis reads.
+into one [B, 8 + 4C, N] buffer, the layout K4's replica axis reads. So do
+:func:`prep_candidates` for the batched refresh loop and K5, whose replica
+axis builds all replicas' systems in one launch and skips the replicas an
+``active`` mask on the card leaves out.
 """
 from __future__ import annotations
 
@@ -60,14 +63,16 @@ def gn_plan(n: int, c: int) -> GnPlan:
 _TICKETS: dict[int, torch.Tensor] = {}
 
 
-def _ticket(device: torch.device) -> torch.Tensor:
-    """K5's last-CTA counter on ``device``: one int32, zero between
-    launches (the last CTA resets it), allocated once. Launches that share
-    it must run in one stream's order."""
+def _ticket(device: torch.device, replicas: int = 1) -> torch.Tensor:
+    """K5's last-CTA counters on ``device``: one int32 a replica, zero
+    between launches (each replica's last CTA resets its own), allocated
+    once and grown to the largest replica count asked for. Launches that
+    share them must run in one stream's order."""
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
-    if idx not in _TICKETS:
-        _TICKETS[idx] = torch.zeros(1, dtype=torch.int32, device=device)
+    if idx not in _TICKETS or _TICKETS[idx].numel() < replicas:
+        _TICKETS[idx] = torch.zeros(replicas, dtype=torch.int32,
+                                    device=device)
     return _TICKETS[idx]
 
 
@@ -187,13 +192,56 @@ def prep_candidates(cand, source_mask: torch.Tensor, *,
                     loss: str = "plane") -> PreppedCandidates:
     """The lane-major candidates with the feat rows taken from ``cand``'s
     own patch plane fit (``pallas_gn.prep_candidates``); ``loss="point"``
-    sets quality -1, so no correspondence takes the plane row."""
+    sets quality -1, so no correspondence takes the plane row. The five
+    fields are views of one [8 + 4C, N] buffer (:func:`lane_major_rows`);
+    with a leading replica axis (``cand`` [B, N, ...], ``source_mask``
+    [B, N]) of one [B, 8 + 4C, N] buffer, the layout K4 and K5 take with a
+    replica stride, each replica's values its own call's."""
+    return split_rows(lane_major_rows(cand, source_mask, loss=loss),
+                      cand.valid.shape[-1])
+
+
+def lane_major_rows(cand, source_mask: torch.Tensor, *,
+                    loss: str = "plane") -> torch.Tensor:
+    """:func:`prep_candidates`' buffer [..., 8 + 4C, N] of candidates
+    ``cand`` [..., N, ...]: the feat rows, then the cx, cy, cz and inf
+    rows."""
+    mask = source_mask.to(_F32)[..., None]
     if loss != "plane":
-        return PreppedCandidates(point_feat_torch(source_mask),
-                                 *lane_major(cand))
-    feat = torch.cat([cand.normal, cand.centroid, cand.quality[:, None],
-                      source_mask.to(_F32)[:, None]], 1).T.contiguous()
-    return PreppedCandidates(feat, *lane_major(cand))
+        feat = torch.cat([torch.zeros(mask.shape[:-1] + (6,), dtype=_F32,
+                                      device=mask.device),
+                          torch.full_like(mask, -1.0), mask], -1)
+    else:
+        feat = torch.cat([cand.normal, cand.centroid,
+                          cand.quality[..., None], mask], -1)
+    inf = torch.where(cand.valid, 0.0, 1e30).to(_F32)
+    return torch.cat([feat, cand.pts[..., 0], cand.pts[..., 1],
+                      cand.pts[..., 2], inf], -1).transpose(-1, -2) \
+        .contiguous()
+
+
+def split_rows(buf: torch.Tensor, c: int) -> PreppedCandidates:
+    """The feat, cx, cy, cz and inf views of a [..., 8 + 4C, N] buffer."""
+    return PreppedCandidates(buf[..., :8, :], *buf[..., 8:, :].split(c, -2))
+
+
+def prepped_rows(prepped: PreppedCandidates, lead: tuple
+                 ) -> tuple[list[int], int]:
+    """K4's and K5's pointers to replica 0's feat, cx, cy, cz, inf rows
+    and the floats between replicas: one stride for all five (K3's and
+    :func:`prep_candidates`' replica-axis buffers have it; other layouts
+    are packed into one [B, 8 + 4C, N] buffer first)."""
+    if not lead:
+        return [kernels.ptr(x, name) for x, name in
+                zip(prepped, prepped._fields)], 0
+    stride = prepped.feat.stride(0)
+    if not all(x.stride(0) == stride and x[0].is_contiguous()
+               for x in prepped):
+        buf = torch.cat([x.to(_F32) for x in prepped], -2).contiguous()
+        prepped = split_rows(buf, prepped.cx.shape[-2])
+        stride = buf.stride(0)
+    return [kernels.ptr(x[0], name) for x, name in
+            zip(prepped, prepped._fields)], stride
 
 
 def candidates_from_prepped(prepped: PreppedCandidates
@@ -207,12 +255,46 @@ def candidates_from_prepped(prepped: PreppedCandidates
     return cand, f[7] > 0
 
 
+GN_OUT = 44  # K5's output row: jtj (36), jtr (6), n_corr, total weight
+
+
+def _unpack_gn(out: torch.Tensor):
+    """(jtj [..., 6, 6], jtr [..., 6], n_corr int32, total weight) of K5's
+    output rows [..., 44]."""
+    lead = out.shape[:-1]
+    return (out[..., :36].reshape(lead + (6, 6)), out[..., 36:42],
+            out[..., 42].to(torch.int32), out[..., 43])
+
+
 def gn_prepped_torch(t_cur: torch.Tensor, source: torch.Tensor,
                      prepped: PreppedCandidates, kernel: torch.Tensor,
-                     max_d2: torch.Tensor, *, plane_min_quality: float):
+                     max_d2: torch.Tensor, *, plane_min_quality: float,
+                     active: torch.Tensor | None = None,
+                     out: torch.Tensor | None = None):
     """K5's plain twin: ``icp.gn_from_candidates`` on the candidates the
     prepped tensors hold. Returns (jtj [6, 6], jtr [6], n_corr int32,
-    total weight)."""
+    total weight).
+
+    With a leading replica axis (poses [B, 4, 4], ``source`` [B, N, 3],
+    prepped rows [B, ., N], ``kernel`` and ``max_d2`` [B]) replica by
+    replica, packed into K5's output rows ``out`` [B, 44] (a new one when
+    None) and returned as [B, ...] views of them; the rows of replicas
+    whose ``active`` [B] is false keep what ``out`` held (zeros in a new
+    one), selected on the device without a host read."""
+    if source.dim() == 3:
+        def row(*args):
+            jtj, jtr, n_corr, total_w = gn_prepped_torch(
+                *args, plane_min_quality=plane_min_quality)
+            return torch.cat([jtj.reshape(36), jtr, n_corr.to(_F32)[None],
+                              total_w[None]])
+
+        rows = per_replica(row, source.shape[0], t_cur, source, prepped,
+                           kernel, max_d2)
+        if out is None:
+            out = torch.zeros_like(rows)
+        out.copy_(rows if active is None
+                  else torch.where(active[:, None], rows, out))
+        return _unpack_gn(out)
     cand, mask = candidates_from_prepped(prepped)
     return gn_from_candidates(t_cur, source, mask, cand, kernel, max_d2,
                               plane_min_quality=plane_min_quality)
@@ -220,34 +302,54 @@ def gn_prepped_torch(t_cur: torch.Tensor, source: torch.Tensor,
 
 def gn_prepped(t_cur: torch.Tensor, source: torch.Tensor,
                prepped: PreppedCandidates, kernel: torch.Tensor,
-               max_d2: torch.Tensor, *, plane_min_quality: float):
+               max_d2: torch.Tensor, *, plane_min_quality: float,
+               active: torch.Tensor | None = None,
+               out: torch.Tensor | None = None):
     """K5: CUDA tensors launch ``gn_iter`` (one launch a build, shaped by
     :func:`gn_plan`); CPU tensors take the twin. The kernel transforms
-    ``source`` [N, 3] by ``t_cur`` itself."""
+    ``source`` [N, 3] by ``t_cur`` itself.
+
+    A leading replica axis (as :func:`gn_prepped_torch`'s) builds every
+    replica's system in the one launch (grid y = the replica; the prepped
+    rows one stride apart, :func:`prepped_rows`), counted once, into
+    ``out`` [B, 44] (a new one when None); ``active`` [B] bool on the card
+    leaves the rows of the replicas it clears as they were, and their CTAs
+    do no work. Returns [B, ...] views of ``out``."""
     if kernels.device_kind(source, "gn_iter") == "cpu":
         return gn_prepped_torch(t_cur, source, prepped, kernel, max_d2,
-                                plane_min_quality=plane_min_quality)
-    c, n = prepped.cx.shape
-    if source.shape != (n, 3) or prepped.feat.shape != (8, n) or any(
-            x.shape != (c, n) for x in prepped[2:]):
+                                plane_min_quality=plane_min_quality,
+                                active=active, out=out)
+    lead, (c, n) = source.shape[:-2], prepped.cx.shape[-2:]
+    if source.shape != lead + (n, 3) or len(lead) > 1 \
+            or prepped.feat.shape != lead + (8, n) \
+            or any(x.shape != lead + (c, n) for x in prepped[2:]):
         raise ValueError(
             f"gn_iter: source {tuple(source.shape)}, feat "
             f"{tuple(prepped.feat.shape)}, candidates {c} x {n}")
-    scal = torch.cat([kernel.reshape(1), max_d2.reshape(1),
-                      t_cur[:3].reshape(12)]).to(_F32)
-    partial = torch.empty(gn_plan(n, c).blocks * 45, dtype=_F32,
+    b = int(lead[0]) if lead else 1
+    if out is None:
+        out = torch.empty(lead + (GN_OUT,), dtype=_F32, device=source.device)
+    if out.shape != lead + (GN_OUT,) or (active is not None and (
+            not lead or active.shape != lead)):
+        raise ValueError(f"gn_iter: out {tuple(out.shape)}, active "
+                         f"{None if active is None else tuple(active.shape)}"
+                         f" for {b} replicas")
+    scal = torch.cat([kernel.reshape(lead + (1,)),
+                      max_d2.reshape(lead + (1,)),
+                      t_cur[..., :3, :].reshape(lead + (12,))], -1) \
+        .to(_F32).contiguous()
+    partial = torch.empty(b * gn_plan(n, c).blocks * 45, dtype=_F32,
                           device=source.device)
-    out = torch.empty(44, dtype=_F32, device=source.device)
+    rows, stride = prepped_rows(prepped, lead)
     kernels.launch(
-        "gn_iter", kernels.ptr(source, "source"),
-        kernels.ptr(prepped.feat, "feat"), kernels.ptr(prepped.cx, "cx"),
-        kernels.ptr(prepped.cy, "cy"), kernels.ptr(prepped.cz, "cz"),
-        kernels.ptr(prepped.inf, "inf"), kernels.ptr(scal, "scal"),
-        kernels.ptr(partial, "partial"),
-        kernels.ptr(_ticket(source.device), "ticket", torch.int32),
-        kernels.ptr(out, "out"), n, c, plane_min_quality)
-    return (out[:36].reshape(6, 6), out[36:42], out[42].to(torch.int32),
-            out[43])
+        "gn_iter", kernels.ptr(source, "source"), *rows,
+        kernels.ptr(scal, "scal"), kernels.ptr(partial, "partial"),
+        kernels.ptr(_ticket(source.device, b), "ticket", torch.int32),
+        kernels.ptr(out, "out"),
+        None if active is None else kernels.ptr(active, "active",
+                                                torch.bool),
+        n, c, plane_min_quality, b, stride)
+    return _unpack_gn(out)
 
 
 MOMENT_ROWS = 16  # plane_moments output rows (10 used, the rest zero)

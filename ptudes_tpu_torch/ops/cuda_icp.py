@@ -27,7 +27,8 @@ import torch
 
 from .. import kernels
 from ..geom import se3, so3
-from .cuda_gn import PreppedCandidates, candidates_from_prepped
+from .cuda_gn import (PreppedCandidates, candidates_from_prepped,
+                      prepped_rows)
 from .icp import gn_from_candidates, gn_twist
 from ..utils.replicas import per_replica
 
@@ -137,7 +138,7 @@ def icp_loop(source: torch.Tensor, prepped: PreppedCandidates,
                       guess[..., :3, :].reshape(lead + (12,))], -1) \
         .to(_F32).contiguous()
     out = torch.empty(lead + (20,), dtype=_F32, device=source.device)
-    rows, stride = _prepped_rows(prepped, lead)
+    rows, stride = prepped_rows(prepped, lead)
     conv = np.float32(convergence)
     kernels.launch(
         "icp_loop", kernels.ptr(src, "src"), *rows,
@@ -150,22 +151,3 @@ def icp_loop(source: torch.Tensor, prepped: PreppedCandidates,
             out[..., 16].to(torch.int32), out[..., 17].to(torch.int32),
             out[..., 18], out[..., 19])
 
-
-def _prepped_rows(prepped: PreppedCandidates, lead: tuple
-                  ) -> tuple[list[int], int]:
-    """K4's pointers to replica 0's feat, cx, cy, cz, inf rows and the
-    floats between replicas: one stride for all five (K3's replica-axis
-    buffer has it; other layouts are packed into one [B, 8 + 4C, N]
-    buffer first)."""
-    if not lead:
-        return [kernels.ptr(x, name) for x, name in
-                zip(prepped, prepped._fields)], 0
-    stride = prepped.feat.stride(0)
-    if not all(x.stride(0) == stride and x[0].is_contiguous()
-               for x in prepped):
-        buf = torch.cat([x.to(_F32) for x in prepped], -2).contiguous()
-        prepped = PreppedCandidates(buf[:, :8], *buf[:, 8:].split(
-            prepped.cx.shape[-2], -2))
-        stride = buf.stride(0)
-    return [kernels.ptr(x[0], name) for x, name in
-            zip(prepped, prepped._fields)], stride

@@ -48,7 +48,9 @@ def deskew_scan(pts: torch.Tensor, col_ts01: torch.Tensor,
                 enabled: torch.Tensor) -> torch.Tensor:
     """KISS constant-velocity deskew: the twist log(T_{k-2}^-1 T_{k-1}),
     about the mid-scan anchor; ``enabled`` (a device bool, false before two
-    poses exist) zeroes it by ``torch.where``, without a host branch."""
+    poses exist) zeroes it by ``torch.where``, without a host branch. With
+    a leading replica axis: pts [B, N, 3], ``col_ts01`` [B, N], poses
+    [B, 4, 4] and ``enabled`` [B]."""
     twist = se3.log_pose(se3.inv(pose_prev2) @ pose_prev1)
-    twist = torch.where(enabled, twist, torch.zeros_like(twist))
+    twist = torch.where(enabled[..., None], twist, torch.zeros_like(twist))
     return deskew_by_twist(pts, col_ts01 - 0.5, twist)

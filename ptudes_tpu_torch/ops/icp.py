@@ -16,6 +16,10 @@ point-to-point (``loss="point"``). Two forms:
   pose has drifted ``refresh_drift`` voxels from the pose they were
   gathered at.
 
+Both forms also run B registrations against a flat B-map table in the
+launches of one (:func:`register_frames_cached_batched`,
+:func:`register_frames_refresh_batched`: the batched driver's).
+
 ``KissConfig.icp_form`` says whether the kernels or their plain PyTorch
 twins run.
 
@@ -192,10 +196,11 @@ def _robust_system(pts_w, nn, d2min, corr, kernel, normal=None,
 def drift_metric(t_gather: torch.Tensor, t_cur: torch.Tensor
                  ) -> torch.Tensor:
     """Worst-case candidate staleness: translation + rotation sweep at a
-    nominal 17.5 m lever arm (half a typical clip range)."""
+    nominal 17.5 m lever arm (half a typical clip range); one per pose of
+    poses [..., 4, 4]."""
     rel = se3.inv(t_gather) @ t_cur
-    dt = torch.linalg.vector_norm(se3.trans(rel))
-    theta = torch.linalg.vector_norm(so3.log_rotmat(se3.rot(rel)))
+    dt = torch.linalg.vector_norm(se3.trans(rel), dim=-1)
+    theta = torch.linalg.vector_norm(so3.log_rotmat(se3.rot(rel)), dim=-1)
     return dt + theta * 0.5 * 35.0
 
 
@@ -204,16 +209,18 @@ def gn_twist(t_cur: torch.Tensor, guess_inv: torch.Tensor,
              prior_rot_weight: float, prior_trans_weight: float
              ) -> torch.Tensor:
     """The GN update twist: the motion prior toward the guess (weighted by
-    the total robust weight), a 1e-8 Tikhonov floor, the 6x6 solve."""
+    the total robust weight), a 1e-8 Tikhonov floor, the 6x6 solve. Leading
+    replica dimensions ([B, 4, 4] poses, [B, 6, 6] systems, [B] weights)
+    solve each replica's system with the same steps."""
     dev = jtj.device
     if prior_rot_weight > 0.0 or prior_trans_weight > 0.0:
         xi = se3.log_pose(t_cur @ guess_inv)
-        wp = total_w * torch.cat([
+        wp = total_w[..., None] * torch.cat([
             torch.full((3,), prior_rot_weight, dtype=torch.float32,
                        device=dev),
             torch.full((3,), prior_trans_weight, dtype=torch.float32,
                        device=dev)])
-        jtj = jtj + torch.diag(wp)
+        jtj = jtj + torch.diag_embed(wp)
         jtr = jtr + wp * xi
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     return solve_spd6(jtj + 1e-8 * eye6, -jtr)
@@ -229,19 +236,24 @@ def reset_refresh_counts() -> None:
         REFRESH_COUNTS[k] = 0
 
 
-def read_flags(flags: torch.Tensor) -> list[bool]:
-    """Copy the small bool tensor ``flags`` to the host and count the read.
+def _bools(x):
+    return [_bools(v) for v in x] if isinstance(x, list) else bool(x)
+
+
+def read_flags(flags: torch.Tensor) -> list:
+    """Copy the small bool tensor ``flags`` to the host and count the read:
+    a list of bools, or of lists of them for a [B, k] tensor.
 
     On a CUDA tensor this synchronises with the card: it is the refresh
     loop's one read per iteration, and the one place that lifts
     ``torch.cuda.set_sync_debug_mode("error")`` (restored on return)."""
     REFRESH_COUNTS["host_reads"] += 1
     if flags.device.type != "cuda":
-        return [bool(x) for x in flags.tolist()]
+        return _bools(flags.tolist())
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode(0)
     try:
-        return [bool(x) for x in flags.tolist()]
+        return _bools(flags.tolist())
     finally:
         torch.cuda.set_sync_debug_mode(mode)
 
@@ -283,12 +295,22 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
     and the candidates come from this replica's slots
     (:func:`gather_candidates`). K6 probes the whole table, so with a slot
     base ``fused_gather`` takes the gather and K3 instead
-    (``ptudes_tpu/ops/icp.py:406-408``)."""
+    (``ptudes_tpu/ops/icp.py:406-408``). A ``logical_capacity`` without a
+    slot base raises ``ValueError`` where K6 would run: K6 hashes with the
+    table's physical capacity, so it would find other slots than the
+    gather."""
     from . import cuda_gather, cuda_gn, cuda_icp
     if form not in ("cuda", "torch"):
         raise ValueError(f"unknown icp form {form!r}")
     if loss not in ("plane", "point"):
         raise ValueError(f"unknown loss {loss!r}")
+    fused = (fused_gather and neighborhood in (7, 27) and slot_base is None
+             and refresh_drift <= 0.0)
+    if fused and logical_capacity is not None:
+        raise ValueError(
+            "fused_gather with logical_capacity and no slot_base: the fused "
+            "gather (K6) hashes with the physical capacity; pass the "
+            "replica's slot_base, or fused_gather=False")
     guess = initial_guess.to(torch.float32)
     if refresh_drift > 0.0:
         return _register_refresh(
@@ -303,10 +325,10 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
             form=form, slot_base=slot_base,
             logical_capacity=logical_capacity)
     r = 1.5 * voxel_size if plane_radius is None else plane_radius
-    if fused_gather and neighborhood in (7, 27) and slot_base is None:
-        fused = (cuda_gather.gather_prep_fused if form == "cuda"
-                 else cuda_gather.gather_prep_fused_torch)
-        prepped = fused(vmap_, source, source_mask, guess,
+    if fused:
+        fuse = (cuda_gather.gather_prep_fused if form == "cuda"
+                else cuda_gather.gather_prep_fused_torch)
+        prepped = fuse(vmap_, source, source_mask, guess,
                         voxel_size=voxel_size, max_probes=max_probes,
                         neighborhood=neighborhood, n_voxels=n_voxels,
                         plane_radius=r, loss=loss)
@@ -429,6 +451,113 @@ def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
         torch.full((), iters, dtype=torch.int32, device=source.device),
         torch.linalg.vector_norm(se3.trans(dev_pose)),
         torch.linalg.vector_norm(so3.log_rotmat(se3.rot(dev_pose))))
+
+
+def register_frames_refresh_batched(
+        source: torch.Tensor, source_mask: torch.Tensor,
+        vmap_: hashmap.VoxelHashMap, initial_guess: torch.Tensor,
+        max_distance: torch.Tensor, kernel: torch.Tensor, *,
+        slot_base: torch.Tensor, logical_capacity: int, voxel_size: float,
+        max_probes: int, max_iterations: int, convergence: float,
+        loss: str, plane_min_quality: float, prior_rot_weight: float,
+        prior_trans_weight: float, neighborhood: int, n_voxels: int,
+        plane_radius: float | None, refresh_drift: float,
+        form: str) -> IcpResult:
+    """B refresh loops (:func:`_register_refresh`) run as one, as the JAX
+    package's ``while_loop`` and ``lax.cond`` run under ``jax.vmap``:
+    ``source`` [B, M, 3], ``source_mask`` [B, M], guesses [B, 4, 4],
+    ``max_distance`` and ``kernel`` [B], against replica b's slots
+    (``slot_base`` [B]) of the flat B-map table ``vmap_``.
+
+    The loop runs while any replica goes and the iteration cap allows.
+    Each iteration is one K5 launch with a replica axis for the active
+    replicas (or its twin with ``form="torch"``), then the prior, the
+    Tikhonov floor, the solve and the SE(3) update over [B]; a replica
+    that has converged keeps its pose, iteration count and correspondence
+    count (its update is zero, as in JAX's ``gn_step``). From the second
+    iteration on, one :func:`read_flags` of a [B, 2] tensor (goes, stale)
+    an iteration; only the stale replicas that go re-gather, at their
+    current pose, from their own slots, picked by the host from that read
+    (``REFRESH_COUNTS["regathers"]`` counts one a replica). Replica b's
+    iteration count, re-gathers and correspondence count are
+    :func:`_register_refresh`'s on its own inputs. The result's leaves
+    carry the leading [B]."""
+    from . import cuda_gn
+    if form not in ("cuda", "torch"):
+        raise ValueError(f"unknown icp form {form!r}")
+    if loss not in ("plane", "point"):
+        raise ValueError(f"unknown loss {loss!r}")
+    gn = cuda_gn.gn_prepped if form == "cuda" else cuda_gn.gn_prepped_torch
+    b, m = source_mask.shape
+    dev = source.device
+    refresh_th = refresh_drift * voxel_size
+    max_d2 = max_distance * max_distance
+
+    def pick(x, idx):
+        return x if len(idx) == b else torch.stack([x[i] for i in idx])
+
+    def fetch(idx, t_at):
+        """Replicas ``idx``' prepped rows [k, 8 + 4C, M], gathered at
+        their poses ``t_at`` [k, 4, 4] in one call."""
+        k = len(idx)
+        cand = gather_candidates(
+            vmap_, se3.transform(t_at, pick(source, idx)).reshape(k * m, 3),
+            voxel_size=voxel_size, max_probes=max_probes,
+            neighborhood=neighborhood, n_voxels=n_voxels,
+            fit_planes=loss == "plane", plane_radius=plane_radius,
+            slot_base=pick(slot_base, idx)[:, None].expand(k, m).reshape(
+                k * m), logical_capacity=logical_capacity)
+        cand = CandidateSet(*(x.reshape((k, m) + x.shape[1:]) for x in cand))
+        return cuda_gn.lane_major_rows(cand, pick(source_mask, idx),
+                                       loss=loss)
+
+    guess = initial_guess.to(torch.float32)
+    guess_inv = se3.inv(guess)
+    everyone = list(range(b))
+    rows = fetch(everyone, guess)
+    prepped = cuda_gn.split_rows(rows, n_voxels * vmap_.points.shape[-1])
+    t_cur = t_gather = guess
+    out = torch.zeros((b, cuda_gn.GN_OUT), dtype=torch.float32, device=dev)
+    n_corr = torch.zeros((b,), dtype=torch.int32, device=dev)
+    iters = torch.zeros((b,), dtype=torch.int32, device=dev)
+    active = torch.ones((b,), dtype=torch.bool, device=dev)
+    it = 0
+    while it < max_iterations:
+        if it > 0:
+            stale = drift_metric(t_gather, t_cur) > refresh_th
+            flags = read_flags(torch.stack([active, stale], -1))
+            if not any(f[0] for f in flags):
+                break
+            redo = [i for i, (go, st) in enumerate(flags) if go and st]
+            if redo:
+                fresh = fetch(redo, pick(t_cur, redo))
+                if len(redo) == b:
+                    rows.copy_(fresh)
+                else:
+                    for j, i in enumerate(redo):
+                        rows[i].copy_(fresh[j])
+                t_gather = torch.where((active & stale)[:, None, None],
+                                       t_cur, t_gather)
+                REFRESH_COUNTS["regathers"] += len(redo)
+        jtj, jtr, corr_n, total_w = gn(
+            t_cur, source, prepped, kernel, max_d2,
+            plane_min_quality=plane_min_quality, active=active, out=out)
+        dx = gn_twist(t_cur, guess_inv, jtj, jtr, total_w,
+                      prior_rot_weight=prior_rot_weight,
+                      prior_trans_weight=prior_trans_weight)
+        dx = torch.where(active[:, None], dx, 0.0)
+        t_cur = torch.where(active[:, None, None],
+                            se3.exp_twist(dx) @ t_cur, t_cur)
+        n_corr = torch.where(active, corr_n, n_corr)
+        iters = iters + active.to(torch.int32)
+        active = active & ~(torch.linalg.vector_norm(dx, dim=-1)
+                            < convergence)
+        it += 1
+    dev_pose = guess_inv @ t_cur
+    return IcpResult(
+        t_cur, n_corr, iters,
+        torch.linalg.vector_norm(se3.trans(dev_pose), dim=-1),
+        torch.linalg.vector_norm(so3.log_rotmat(se3.rot(dev_pose)), dim=-1))
 
 
 def register_frame(source: torch.Tensor, source_mask: torch.Tensor,

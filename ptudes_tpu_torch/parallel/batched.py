@@ -8,16 +8,20 @@ map insert and eviction over the whole table. The step gives every stage
 an explicit leading replica axis (the JAX package vmaps the single step;
 ``torch.func.vmap`` stops at the step's in-place ops): the front end sorts
 and compacts each replica's row in the same launches, one candidate gather
-covers all replicas' points, and the four kernels on the path (K1 predict,
-K3 candidate prep, K4 GN loop, K2 pose update) each launch once a scan for
-all replicas, as a ``pallas_call`` under ``jax.vmap`` gains a grid axis.
-So a scan costs about the same number of launches at any B. The step
-never reads the card from the host.
+covers all replicas' points, and each kernel on the path launches once for
+all replicas, as a ``pallas_call`` under ``jax.vmap`` gains a grid axis:
+K1 predict and K2 pose update once a scan, K3 candidate prep and K4 GN
+loop once a scan with frozen candidates, K5 once a GN iteration in the
+candidate-refresh loop (whose replicas that have converged take no work in
+it). So a scan costs about the same number of launches at any B. The
+frozen-candidate step never reads the card from the host; the refresh loop
+reads all replicas' flags once a GN iteration (``icp.read_flags``).
 
-It runs the bench configuration and its variants with frozen candidates
-(:func:`check_config`); every other configuration raises ``ValueError``.
-Across cards, or for configurations it does not run,
-``parallel.replay.replay_bags`` runs each bag through ``lio.run_sequence``.
+It runs every configuration the JAX package's batched driver runs
+(:func:`check_config`): either candidate form, every predict form (K1, its
+unrolled twin, the associative form), the EKF, ground-truth and
+constant-velocity guesses, either deskew. Like JAX's it refuses a frozen
+map and a map query every GN iteration.
 """
 from __future__ import annotations
 
@@ -28,39 +32,30 @@ from ..models import esekf, kiss, lio
 from ..ops import hashmap
 from ..ops.projection import XyzLut, scan_to_points
 
-UNPORTED = ("ROADMAP queue 1 item 15b, the batched driver's remaining "
-            "forms")
-
 
 def check_config(cfg: PipelineConfig) -> None:
     """Raise ``ValueError`` unless ``cfg`` is one the batched driver runs:
-    cached frozen candidates (``nn_refresh_drift == 0``), the EKF guess and
-    deskew, the predict block as K1 or its unrolled twin, an unfrozen map;
-    any loss, neighbourhood, column decimation, steady insert mode and
-    fused-gather flag (with a slot base the gather and K3 run in place of
-    K6, as in the JAX package)."""
+    every configuration but the two the JAX package's batched driver
+    refuses, ``nn_mode="every"`` (its flat-map step asserts cached
+    candidates, ``ptudes_tpu/models/kiss.py:160-167``) and ``map_frozen``
+    (``ptudes_tpu/parallel/batched.py:69-74``). With a slot base the fused
+    gather flag takes the gather and K3 in place of K6, as in the JAX
+    package."""
     check_supported(cfg)
-    k = cfg.kiss
-    missing = []
-    if k.nn_mode != "cached":
-        missing.append("nn_mode='every' (a map query every GN iteration)")
-    elif k.nn_refresh_drift > 0:
-        missing.append("the candidate-refresh loop (nn_refresh_drift > 0: "
-                       "a host read of every replica's flags a GN "
-                       "iteration)")
-    if cfg.ekf.predict_batch == "assoc":
-        missing.append("predict_batch='assoc'")
-    if cfg.map_frozen:
-        missing.append("map_frozen (a frozen map has no insert to defer)")
-    if cfg.guess != "ekf":
-        missing.append(f"guess={cfg.guess!r}")
-    if k.deskew and cfg.deskew_mode != "ekf":
-        missing.append(f"deskew_mode={cfg.deskew_mode!r}")
-    if missing:
+    if cfg.kiss.nn_mode != "cached":
         raise ValueError(
-            "run_sequence_batched does not run " + "; ".join(missing)
-            + f" ({UNPORTED}); run such sequences through lio.run_sequence "
-            "or parallel.replay.replay_bags")
+            "run_sequence_batched does not run nn_mode='every' (a map query "
+            "every GN iteration): the JAX package's flat-map step asserts "
+            "cached candidates (ptudes_tpu/models/kiss.py:160-167); run such "
+            "sequences through lio.run_sequence or "
+            "parallel.replay.replay_bags")
+    if cfg.map_frozen:
+        raise ValueError(
+            "run_sequence_batched does not run map_frozen: its flat table "
+            "always defers the map insert, and the JAX package's batched "
+            "driver refuses it too (ptudes_tpu/parallel/batched.py:69-74); "
+            "run frozen-map sequences through lio.run_sequence or "
+            "parallel.replay.replay_bags")
 
 
 def scan_of(batches: lio.ScanBatch, i: int) -> lio.ScanBatch:
@@ -79,11 +74,12 @@ def make_batched_step(lut: XyzLut, cfg: PipelineConfig, replicas: int,
     histories [B, K]. The state's leaves are stacked [B, ...] and its map
     is the flat table of ``replicas`` x ``logical_capacity`` slots; the
     step inserts and evicts all replicas' frames in it (``insert_overflow``
-    as in ``lio.make_scan_step``)."""
+    as in ``lio.make_scan_step``). The guess and the deskew twist are
+    picked as ``lio.make_scan_step`` picks them."""
     check_config(cfg)
     h, w = lut.direction.shape[:2]
     d = cfg.col_decimation
-    need_twist = cfg.kiss.deskew
+    need_twist = cfg.deskew_mode == "ekf" and cfg.kiss.deskew
     vs = cfg.kiss.resolved_voxel_size
     slot_base = torch.arange(replicas, dtype=torch.int32,
                              device=lut.direction.device) * logical_capacity
@@ -98,11 +94,16 @@ def make_batched_step(lut: XyzLut, cfg: PipelineConfig, replicas: int,
         ekf1 = res[0]
         pts, mask, ts01 = scan_to_points(lut, batch.range_m, decimate=d)
         has_imu = torch.any(batch.imu_valid, -1)
+        guess = None                          # "kiss": constant velocity
+        if cfg.guess == "ekf":
+            guess = esekf.pose_mat(ekf1)
+        elif cfg.guess == "gt":
+            guess = batch.guess_pose
         kiss1, pose, aux, dfr = kiss.register_scan_batched(
             state.kiss, pts, mask, ts01, cfg=cfg.kiss, cap=cfg.cap,
-            grid_hw=(h, w // d), initial_guess=esekf.pose_mat(ekf1),
-            update_ok=has_imu, slot_base=slot_base,
-            logical_capacity=logical_capacity,
+            grid_hw=(h, w // d), initial_guess=guess,
+            use_guess=guess is not None, update_ok=has_imu,
+            slot_base=slot_base, logical_capacity=logical_capacity,
             deskew_twist=res[1] if need_twist else None)
         flat = hashmap.insert_deduped_batched(
             state.kiss.local_map, dfr.frame_w, dfr.mask, voxel_size=vs,

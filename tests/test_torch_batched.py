@@ -17,7 +17,10 @@ against the JAX package.
   own ``run_sequence`` per bag with ``map_points`` equal at every scan
   (JAX's own bars between its batched and single runs,
   tests/test_batched.py:156-162); ``log=True`` shapes and knots; the
-  ``ValueError`` of each configuration the driver does not run.
+  candidate-refresh loop, the ``"assoc"`` predict, the constant-velocity
+  guess and KISS's deskew against the single runs at the same bars; the
+  ``ValueError`` of the two configurations the driver, like JAX's, does
+  not run.
 """
 import dataclasses
 
@@ -444,27 +447,71 @@ def test_batched_log_shapes_and_knots(bags_run):
                                    sout.flog.pos.numpy(), atol=SELF_BAR_M)
 
 
+def _with(cfg, kw):
+    """``cfg`` with the fields of ``kw``, ``kiss`` and ``ekf`` given as
+    dicts of their own fields."""
+    kw = dict(kw)
+    sub = {name: R(getattr(cfg, name), **kw.pop(name))
+           for name in ("kiss", "ekf") if name in kw}
+    return R(cfg, **sub, **kw)
+
+
 @pytest.mark.parametrize("kw,what", [
-    (dict(kiss=dict(nn_refresh_drift=0.5)), "candidate-refresh"),
-    (dict(ekf=dict(predict_batch="assoc")), "assoc"),
-    (dict(kiss=dict(nn_mode="every")), "every"),
-    (dict(map_frozen=True), "map_frozen"),
-    (dict(guess="kiss"), "guess"),
-    (dict(deskew_mode="kiss"), "deskew_mode"),
+    pytest.param(dict(kiss=dict(nn_mode="every")), "every",
+                 id="kw2-every"),
+    pytest.param(dict(map_frozen=True), "map_frozen", id="kw3-map_frozen"),
 ])
 def test_unported_configurations_raise(bags_run, kw, what):
-    """Each configuration outside the driver's set raises ValueError naming
-    what is missing and the ROADMAP item that will port it."""
-    cfg = bags_run["cfg"]
-    sub = {}
-    for name in ("kiss", "ekf"):
-        if name in kw:
-            sub[name] = R(getattr(cfg, name), **kw.pop(name))
-    bad = R(cfg, **sub, **kw)
+    """The two configurations the JAX package's batched driver refuses
+    raise ValueError naming what is refused and citing JAX's own refusal
+    (``ptudes_tpu/models/kiss.py:160-167``,
+    ``ptudes_tpu/parallel/batched.py:69-74``)."""
+    bad = _with(bags_run["cfg"], kw)
     with pytest.raises(ValueError, match=what) as e:
         batched.run_sequence_batched(bags_run["states"], bags_run["stacked"],
                                      bags_run["lut"], cfg=bad)
-    assert "ROADMAP" in str(e.value)
+    assert "ptudes_tpu/" in str(e.value)
+
+
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(kiss=dict(nn_refresh_drift=0.5, nn_neighborhood=27)),
+                 id="candidate-refresh"),
+    pytest.param(dict(ekf=dict(predict_batch="assoc")), id="assoc"),
+    pytest.param(dict(guess="kiss"), id="guess"),
+    pytest.param(dict(deskew_mode="kiss"), id="deskew_mode"),
+])
+def test_batched_runs_configuration(bags_run, kw):
+    """The configurations the driver now runs beside the bench
+    configuration's twins (the candidate-refresh loop at half a voxel with
+    the 27-neighbourhood, both ``KissConfig``'s defaults; the ``"assoc"``
+    predict; the constant-velocity guess; KISS's deskew): each replica
+    within 1e-4 m of the port's own ``run_sequence`` of its bag, with
+    ``map_points`` and the GN iteration counts equal at every scan (JAX's
+    bars between its batched and single runs). The comparisons with JAX
+    are tests/test_torch_batched_refresh.py's and
+    test_torch_batched_guess.py's.
+
+    The refresh loop with bench's 7-neighbourhood is not held here: on this
+    scene replica 0's ICP stops at its 20-iteration cap unconverged at
+    scans 3 and 5 (in the single run too), and there the batched loop's
+    [B, 4, 4] products, which the CPU rounds differently from 4 x 4 ones,
+    grow to 1.5 mm by scan 6. The frozen path's twins run replica by
+    replica and show no difference."""
+    cfg = _with(bags_run["cfg"], kw)
+    lut, stacked = bags_run["lut"], bags_run["stacked"]
+    _, out = batched.run_sequence_batched(
+        replay.stack_bags([lio.init_state(cfg, "cpu")] * 2), stacked, lut,
+        cfg=cfg)
+    for i in range(2):
+        _, sout = lio.run_sequence(lio.init_state(cfg, "cpu"),
+                                   replicas.take(stacked, i), lut, cfg=cfg)
+        d = _pose_err(out.kiss_pose[i].double(), sout.kiss_pose.double())
+        print(f"{kw} replica {i}: {d.max():.3g} m from its single run")
+        assert d.max() <= SELF_BAR_M, d
+        _eq(out.aux.map_points[i], sout.aux.map_points)
+        _eq(out.aux.iterations[i], sout.aux.iterations)
+        _eq(out.scan_valid[i], sout.scan_valid)
+    assert not torch.equal(out.kiss_pose[0], out.kiss_pose[1])
 
 
 def test_bench_variants_are_accepted():

@@ -421,7 +421,11 @@ def test_make_torch_fixture_bytes(recording, tmp_path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """With ``jax`` and ``ptudes_tpu`` blocked, every module of the port
     imports (``parallel`` among them) and the command line's ``--help``
-    runs, ``ekf-bench ouster``'s and ``ekf-bench sweep``'s too."""
+    runs, ``ekf-bench ouster``'s and ``ekf-bench sweep``'s too; so does a
+    CPU run of the batched driver at the library's defaults (the refresh
+    loop, the ``"assoc"`` predict) with the constant-velocity guess and
+    ``sim.make_world``: the code they reach at run time imports nothing
+    of either."""
     code = """
 import pkgutil, runpy, sys
 sys.modules["jax"] = None
@@ -441,14 +445,47 @@ assert need <= set(names), need - set(names)
 assert not any(m == "jax" or m.startswith(("jax.", "ptudes_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print(len(names), "modules")
+#RUN
 sys.argv = ["ptudes-tpu-torch", "--help"]
 runpy.run_module("ptudes_tpu_torch.cli.main", run_name="__main__")
 """
+    run = """
+import numpy as np
+from ptudes_tpu_torch import config
+from ptudes_tpu_torch.models import lio, sim
+from ptudes_tpu_torch.parallel import batched, replay
+from ptudes_tpu_torch.utils import convert
+cfg = config.PipelineConfig(
+    kiss=config.KissConfig(max_range=30.0, min_range=1.0),
+    cap=config.Capacity(max_points=16 * 128, max_frame=2048, max_source=512,
+                        map_capacity=1 << 12, dedup_table=1 << 12,
+                        max_new_per_scan=1024), guess="kiss")
+sensor = sim.make_sim_sensor(h=16, w=128)
+world = sim.make_sim_world(seed=0, extent=25.0, n_boxes=20)
+ts = np.array([0.0, 0.1, 0.2])
+scans = np.stack([sim.render_range_image(world, p, sensor)
+                  for p in sim.circle_poses_at(ts)])
+imu_ts = np.arange(1, 21) * 0.01
+imu = sim.imu_for_circle(imu_ts)
+bt = lio.build_batches(cfg, scans, ts + 1e-9, np.asarray(imu.lacc),
+                       np.asarray(imu.avel), imu_ts, device="cpu")
+_, out = batched.run_sequence_batched(
+    replay.stack_bags([lio.init_state(cfg, "cpu")] * 2),
+    replay.stack_bags([bt, bt]), convert.lut_from_numpy(sensor.lut, "cpu"),
+    cfg=cfg)
+assert out.kiss_pose.shape == (2, 3, 4, 4)
+assert sim.make_world(0, n=600).shape == (600, 3)
+assert not any(m == "jax" or m.startswith(("jax.", "ptudes_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("batched run")
+"""
     env = dict(os.environ, PYTHONPATH=ROOT)
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
+    r = subprocess.run([sys.executable, "-c", code.replace("#RUN", run)],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=120)
     assert r.returncode == 0, r.stderr
     assert "modules" in r.stdout and "ekf-bench" in r.stdout
+    assert "batched run" in r.stdout
     r = subprocess.run([sys.executable, "-c", code.replace(
         '"--help"', '"ekf-bench", "ouster", "--help"')], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=120)

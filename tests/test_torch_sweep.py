@@ -13,7 +13,10 @@
   against the JAX command on the same file: the same variant lines, each
   variant's drift within 0.02 m of JAX's (the sequence bar) and its ATE
   within 0.005 m (the CLI tests' bar); the ``bacc_z=+0.000`` row equals
-  the ``--replicas`` rows, which equal each other.
+  the ``--replicas`` rows, which equal each other. On the CPU (one device)
+  the command runs its variants as one program through
+  ``parallel.batched.run_sequence_batched``: each variant's poses within
+  1e-4 m of ``replay_bags``' on the same inputs.
 """
 import dataclasses
 import io
@@ -30,7 +33,7 @@ from click.testing import CliRunner
 from ptudes_tpu.cli.main import ptudes_cli
 from ptudes_tpu_torch.cli import main as pcli
 from ptudes_tpu_torch.models import lio
-from ptudes_tpu_torch.parallel import mesh, replay
+from ptudes_tpu_torch.parallel import batched, mesh, replay
 from ptudes_tpu_torch.utils import convert
 from test_torch_batched import N_SCANS, _render_bags, port_config
 
@@ -111,17 +114,30 @@ def _rows(text):
 
 @pytest.fixture(scope="module")
 def sweeps(rec):
+    """Each flag's JAX output, the port's output and result, and the
+    arguments of the port's last ``run_sequence_batched`` call."""
     pcap, meta, gt = rec
     out = {}
+    run_batched = batched.run_sequence_batched
+    calls = []
+
+    def recorded(*args, **kw):
+        calls.append((args, kw))
+        return run_batched(*args, **kw)
+
     for flag in (["--replicas", "2"], ["--bacc-z", "-0.1,0,0.1"],
                  ["--beams", "16,8"]):
         args = ["ekf-bench", "sweep", pcap, "-m", meta, "-g", gt, *flag]
         r = CliRunner().invoke(ptudes_cli, args, catch_exceptions=False)
         assert r.exit_code == 0, r.output
         buf = io.StringIO()
-        with redirect_stdout(buf):
-            res = pcli.run(args + ["--device", "cpu"])
-        out[flag[0]] = (r.output, buf.getvalue(), res)
+        batched.run_sequence_batched = recorded
+        try:
+            with redirect_stdout(buf):
+                res = pcli.run(args + ["--device", "cpu"])
+        finally:
+            batched.run_sequence_batched = run_batched
+        out[flag[0]] = (r.output, buf.getvalue(), res, calls[-1])
     return out
 
 
@@ -130,7 +146,7 @@ def test_sweep_matches_jax(sweeps, flag):
     """The port's printed lines against the JAX command's: the variants
     line, the aggregate line, each variant's row; drift within 0.02 m and
     ATE within 0.005 m of JAX's."""
-    jtext, ptext, res = sweeps[flag]
+    jtext, ptext, res, _ = sweeps[flag]
     jrows, prows = _rows(jtext), _rows(ptext)
     assert list(prows) == list(jrows) and len(prows) >= 2, (jrows, prows)
     nb = len(prows)
@@ -157,6 +173,25 @@ def test_sweep_replicas_and_zero_prior_agree(sweeps):
     np.testing.assert_array_equal(bz["ekf_poses"][k], rep["ekf_poses"][0])
     assert bz["rows"][k] == {**rep["rows"][0], "variant": "bacc_z=+0.000"}
     assert not np.array_equal(bz["ekf_poses"][0], bz["ekf_poses"][k])
+
+
+@pytest.mark.parametrize("flag", ["--replicas", "--bacc-z", "--beams"])
+def test_sweep_batched_matches_replay_bags(sweeps, flag):
+    """On one device the command runs its variants through the batched
+    driver; each variant's EKF and KISS poses are within 1e-4 m of
+    ``replay_bags`` (each bag through ``run_sequence``) on the same
+    states, batches and configuration (JAX's bar between its batched and
+    single runs), with the same GN iterations."""
+    _, _, res, ((states, batches, lut), kw) = sweeps[flag]
+    _, out = replay.replay_bags(states, batches, lut, kw["cfg"])
+    assert res["ekf_poses"].shape[0] == out.ekf_pose.shape[0] >= 2
+    for name in ("ekf_poses", "kiss_poses"):
+        want = getattr(out, name[:-1]).double().numpy()
+        d = np.abs(res[name][..., :3, 3] - want[..., :3, 3]).max()
+        print(f"{flag} {name}: {d:.3g} m from replay_bags")
+        assert d <= 1e-4
+    np.testing.assert_array_equal(res["iterations"],
+                                  out.aux.iterations.numpy())
 
 
 def test_sweep_flag_errors(rec):

@@ -131,7 +131,8 @@ def main() -> None:
             args = ptrs(src, *pp, scal, partial, ticket, out)
 
             def k5(fn=fn, args=args):
-                if fn(*args, n, c, 0.2, stream) != 0:
+                # no replica mask, one replica, no replica stride
+                if fn(*args, None, n, c, 0.2, 1, 0, stream) != 0:
                     raise SystemExit("gn_iter launch failed")
             print(f"K5 N={n} C={c} {v}: {device_us(k5):.2f} us", flush=True)
 

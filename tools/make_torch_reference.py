@@ -72,6 +72,11 @@ Each ``--config`` NAME is written to ``tests/data/<NAME>_jax_poses.txt``
   associative predict off the TPU). The poses are its EKF poses, captured
   from the command's ``parallel.replay.replay_bags`` call, and the
   header's ATE RMSE is the one the command prints for them.
+- ``sweep_bacc_z`` and ``sweep_beams``: the same command with ``--bacc-z
+  -0.1,0,0.1`` and with ``--beams 128,64``, both with ``--end-scan 20``
+  (scans 0-20): every variant's EKF poses, variant after variant (21 rows
+  each, in the command's variant order, named in the header with the
+  ``ate_rmse`` the command prints for each).
 """
 from __future__ import annotations
 
@@ -92,7 +97,13 @@ KISS_EVERY_SCANS = 13  # scans of the kiss_every reference (see above)
 FROZEN_SPLIT = 25  # bench_frozen: scans mapped before the checkpoint
 CONFIGS = ("bench", "bench_fused", "cli", "cli_kiss", "cli_point",
            "bench_point", "bench_dec2", "bench_nn4", "bench_frozen",
-           "kiss_every", "cli_pcap", "bench_beams64", "sweep_pcap")
+           "kiss_every", "cli_pcap", "bench_beams64", "sweep_pcap",
+           "sweep_bacc_z", "sweep_beams")
+SWEEP_FLAGS = {   # ekf-bench sweep's variant flags of each sweep reference
+    "sweep_pcap": ["--replicas", "1"],
+    "sweep_bacc_z": ["--bacc-z", "-0.1,0,0.1", "--end-scan", "20"],
+    "sweep_beams": ["--beams", "128,64", "--end-scan", "20"],
+}
 WHERE = {
     "bench": "bench.py:bench_config",
     "bench_fused": "bench.py:bench_config with fused_gather=True",
@@ -261,8 +272,9 @@ def write_cli_pcap(path: str, scene) -> None:
           f"{time.monotonic() - t0:.0f} s", flush=True)
 
 
-def write_sweep_pcap(path: str, scene) -> None:
-    """``sweep_pcap`` (see the module docstring)."""
+def write_sweep(path: str, scene, which: str) -> None:
+    """``sweep_pcap``, ``sweep_bacc_z``, ``sweep_beams`` (see the module
+    docstring)."""
     import re
     import types
 
@@ -284,6 +296,7 @@ def write_sweep_pcap(path: str, scene) -> None:
         runs.append(res)
         return res
 
+    flags = SWEEP_FLAGS[which]
     replay.replay_bags = capture
     try:
         with tempfile.TemporaryDirectory() as tmp:
@@ -291,30 +304,44 @@ def write_sweep_pcap(path: str, scene) -> None:
                                                      scene=scene)
             r = CliRunner().invoke(
                 ptudes_cli, ["ekf-bench", "sweep", rec, "-m", meta, "-g",
-                             gt, "--replicas", "1"],
-                catch_exceptions=False)
+                             gt, *flags], catch_exceptions=False)
     finally:
         replay.replay_bags = real
     if r.exit_code:
         raise RuntimeError(r.output)
-    ekf = np.asarray(runs[-1][1].ekf_pose[0], np.float64)
-    line = re.findall(r"replica 0\s+(\S+)\s+(\S+)\s+(\S+)", r.output)
-    drift, ate, kiss_ate = line[0]
-    header = "\n".join([
+    ekf = np.asarray(runs[-1][1].ekf_pose, np.float64)       # [V, N, 4, 4]
+    rows = re.findall(r"^\s*((?:replica \d+)|(?:bacc_z=\S+)|(?:beams=\d+))"
+                      r"\s+(\S+)\s+(\S+)\s+(\S+)\s*$", r.output, re.M)
+    scene_line = (
         "JAX reference poses of the bench scene (ptudes_tpu_torch.models."
         "sim.bench_scene: 50 scans, 128x1024, bench.py:make_data) written "
         "as an Ouster recording (tools/make_torch_fixture.py bench over "
-        "ptudes_tpu.io: LEGACY pcap, 1024x10, ranges in mm)",
-        "ptudes_tpu ekf-bench sweep REC.pcap -m REC.json -g gt.csv "
-        "--replicas 1 on the CPU (ptudes_tpu/cli/main.py:642-648: "
-        "predict_batch='assoc', update_form='xla')",
-        f"JAX ATE RMSE vs gt.csv: {ate} m (the command's ate_rmse column; "
-        f"drift {drift} m, kiss_rmse {kiss_ate} m)",
-        "one row per scan: the 3x4 top of the replica's EKF pose, "
-        "row-major (KITTI)"])
-    np.savetxt(path, ekf[:, :3, :].reshape(len(ekf), 12), fmt="%.9g",
-               header=header)
-    print(f"wrote {path}: {len(ekf)} poses, JAX ATE RMSE {ate} m, "
+        "ptudes_tpu.io: LEGACY pcap, 1024x10, ranges in mm)")
+    command = (f"ptudes_tpu ekf-bench sweep REC.pcap -m REC.json -g gt.csv "
+               f"{' '.join(flags)} on the CPU (ptudes_tpu/cli/main.py:"
+               "642-648: predict_batch='assoc', update_form='xla')")
+    if which == "sweep_pcap":
+        _, drift, ate, kiss_ate = rows[0]
+        header = [
+            scene_line, command,
+            f"JAX ATE RMSE vs gt.csv: {ate} m (the command's ate_rmse "
+            f"column; drift {drift} m, kiss_rmse {kiss_ate} m)",
+            "one row per scan: the 3x4 top of the replica's EKF pose, "
+            "row-major (KITTI)"]
+    else:
+        header = [
+            scene_line, command,
+            "variants (rows variant after variant, "
+            f"{ekf.shape[1]} scans each): "
+            + ", ".join(v for v, *_ in rows),
+            "the command's ate_rmse column vs gt.csv by variant (m): "
+            + ", ".join(f"{v} {a}" for v, _, a, _ in rows),
+            "one row per scan and variant: the 3x4 top of the variant's "
+            "EKF pose, row-major (KITTI)"]
+    flat = ekf[..., :3, :].reshape(-1, 12)
+    np.savetxt(path, flat, fmt="%.9g", header="\n".join(header))
+    print(f"wrote {path}: {len(rows)} variants x {ekf.shape[1]} poses, "
+          f"ATE {[a for _, _, a, _ in rows]} m, "
           f"{time.monotonic() - t0:.0f} s", flush=True)
 
 
@@ -327,8 +354,8 @@ def main(which: str, path: str, scene) -> None:
 
     if which == "cli_pcap":
         return write_cli_pcap(path, scene)
-    if which == "sweep_pcap":
-        return write_sweep_pcap(path, scene)
+    if which in SWEEP_FLAGS:
+        return write_sweep(path, scene, which)
     sensor, scans, scan_ts, gt_mid, imu = scene
     lut = XyzLut(jnp.asarray(sensor.lut.direction),
                  jnp.asarray(sensor.lut.offset))
