@@ -130,6 +130,25 @@ Phases, each reported on its own line:
      variants, no other kernel; then one JSON line of phase 10's figures
      with the card's name and power limit. ``--phases 10`` runs phases 1,
      2, 4, 5, 7a-b and 10 alone.
+ 11. point-sharded LIO (``parallel.sharded``) and the viz paths: (a) K3
+     and K5 at the shard shapes (N = 1024, C = 32 and N = 4096, C = 80)
+     against their twins at phase 3's bars, repeating bit for bit, with
+     device us and bounds; (b) ``run_sharded`` at ``bench_config()`` over
+     the 50 scans at world size 1 with NCCL on the card (host syncs made
+     errors but the counted reads) and (c) at world size 2 with gloo, both
+     ranks on the one card, for ``bench_config()``, the same with
+     ``fused_gather=True`` (K6 on each shard) and ``cli_config(128,
+     1024)`` on the first 25 scans (NCCL across two
+     cards too where there are two): every rank bit-equal, within 0.02 m
+     of ``bench_jax_poses.txt`` / ``cli_jax_poses.txt``, K4 never, K5 once
+     a GN iteration with one all-reduce after it, K3 (bench) and K1 once a
+     scan; scans/s, all-reduces a scan and us an all-reduce; (d) on the
+     scene written as phase 9's pcap, ``ekf-bench ouster --save-map-ply
+     --save-debug-scene`` on scans 0-10 (the knots within 0.02 m of
+     ``tests/data/debug_scene_jax_poses.txt``), ``flyby --kitti-poses``,
+     ``viz --stream-dir`` and a plot flag refused without matplotlib; one
+     JSON line of phase 11's figures. ``--phases 11`` runs phases 1, 2, 4
+     and 11 alone.
 Phase 3 also holds K3's point mode (``loss="point"``: the instance without
 the fit) bit for bit against its twin, K4 on its point rows and K5 on
 point rows at the CLI shapes; phase 2 prints the SASS instruction count of
@@ -2670,6 +2689,373 @@ def run_phase10(scene, dev, bench_out, cli_out, assoc_out, card: str,
     return launches
 
 
+# -------------------------------------------------------------- phase 11
+
+# (cell, source points of one shard, scene): the sharded paths' shard
+# shapes at n_pt = 2, bench_config (C = 4 x 8) and cli_config (C = 4 x 20)
+SHARD_SHAPES = (("bench_pt2", 1024, "bench"), ("cli_pt2", 4096, "cli"))
+CLI_PT_SCANS = 25   # scans of the sharded CLI cell (cli_jax_poses.txt's first)
+# a sharded bench cell's correspondence count a scan against phase 4's:
+# within this share (+1), the bar of tests/test_torch_sharded.py against
+# JAX; a reduction that gave the ranks a wrong sum misses it
+SHARD_CORR_FRAC = 0.005
+# ekf-bench ouster's flags of 11d (tools/make_torch_reference.py's
+# debug_scene reference: scans 0-10, a knot every second scan)
+DEBUG_SCENE_FLAGS = ["--use-imu-prediction", "--end-scan", "10",
+                     "--debug-scene-stride", "2"]
+
+
+def shard_scene(dev, which: str, n: int):
+    """K3's and K5's inputs at a shard's shapes: ``icp_scene``'s map over
+    the 7-neighbourhood and 4 voxels of 8 points (bench, C = 32), or
+    ``cli_map_scene``'s over the 27-neighbourhood and 4 voxels of 20 (CLI,
+    C = 80), with ``n`` source points."""
+    if which == "bench":
+        m, src, mask, t = icp_scene(dev, n=n)
+        vs, nb = 0.3, 7
+    else:
+        m, src, mask, t = cli_map_scene(dev)
+        src, mask = src[:n].contiguous(), mask[:n].contiguous()
+        vs, nb = 0.7, 27
+    q_w = se3.transform(t, src)
+    cand = icp.gather_candidates(m, q_w, voxel_size=vs, max_probes=2,
+                                 neighborhood=nb, n_voxels=4,
+                                 fit_planes=False)
+    return t, src, mask, q_w, cand, 1.5 * vs
+
+
+def check_shard_kernels(dev, results) -> dict:
+    """11a: K3 and K5 at the shard shapes against their twins (K3: the
+    lane-major rows bit for bit and feat at phase 3's bars; K5 on K3's rows:
+    n_corr exact, jtj / jtr / total weight at 1e-5 relative; both repeat
+    bit for bit), with device us and bounds."""
+    kern = torch.tensor(0.1667, device=dev)
+    max_d2 = torch.tensor(2.25, device=dev)
+    out = {}
+    for tag, n, which in SHARD_SHAPES:
+        t, src, mask, q_w, cand, r = shard_scene(dev, which, n)
+        pk, _, err = check_prep(cand, mask, q_w, r, f"11a gn_prep {tag}")
+        c = pk.cx.shape[0]
+        check(pk.cx.shape == (32 if which == "bench" else 80, n),
+              f"11a {tag}: candidates {tuple(pk.cx.shape)}")
+
+        def k3():
+            return cuda_gn.prep_with_plane(cand, mask, q_w, r)
+
+        def k5():
+            return cuda_gn.gn_prepped(t, src, pk, kern, max_d2,
+                                      plane_min_quality=0.2)
+
+        (jk, rk, nk, wk) = k5()
+        (jp, rp, np_, wp) = cuda_gn.gn_prepped_torch(
+            t, src, pk, kern, max_d2, plane_min_quality=0.2)
+        rel = [float((a - b).abs().max() / b.abs().max())
+               for a, b in ((jk, jp), (rk, rp), (wk, wp))]
+        check(int(nk) == int(np_) > 100,
+              f"11a gn_iter {tag}: n_corr {int(nk)} vs {int(np_)}")
+        check(max(rel) < 1e-5, f"11a gn_iter {tag}: rel {rel}")
+        check(all(torch.equal(a, b) for a, b in zip(k5(), (jk, rk, nk, wk))),
+              f"11a gn_iter {tag} does not repeat bit for bit")
+        prep = dict(max_abs_err=err, ms=cuda_ms(k3, 200),
+                    plain_ms=cuda_ms(lambda: cuda_gn.prep_with_plane_torch(
+                        cand, mask, q_w, r), 20),
+                    device_us=kernel_us(k3, "gn_prep"),
+                    **bound(nbytes(cand.pts, cand.valid, q_w, mask, pk),
+                            n * (20 * c + 150)))
+        build = dict(max_abs_err=max(float((jk - jp).abs().max()),
+                                     float((rk - rp).abs().max()),
+                                     float((wk - wp).abs())),
+                     ms=cuda_ms(k5, 200),
+                     plain_ms=cuda_ms(lambda: cuda_gn.gn_prepped_torch(
+                         t, src, pk, kern, max_d2, plane_min_quality=0.2),
+                         20),
+                     device_us=kernel_us(k5, "gn_iter", 50),
+                     **bound(nbytes(src, pk, t), n * (8 * c + 120)))
+        say(f"  11a {tag} (N={n}, C={c}): gn_prep "
+            f"{prep['device_us']:.2f} us (bound "
+            f"{prep['bound_ms'] * 1e3:.3f} us), gn_iter n_corr {int(nk)} "
+            f"exact, rel {max(rel):.2e} (1e-5), "
+            f"{build['device_us']:.2f} us (bound "
+            f"{build['bound_ms'] * 1e3:.3f} us); both repeat bit for bit")
+        out[tag] = dict(gn_prep=prep, gn_iter=build)
+        for name in ("gn_prep", "gn_iter"):
+            results.setdefault(name, {}).setdefault("shard", {})[tag] = \
+                out[tag][name]
+    return out
+
+
+def run_sharded_path(scene, dev, bench_out, card: str):
+    """11b-c: ``parallel.sharded.run_sharded`` on the bench scene, a rank a
+    process, each run twice from a fresh state (a warm-up, then the timed
+    run, whose launches and reads are counted): ``bench_config`` at world
+    size 1 with NCCL on the card (host syncs made errors but the counted
+    reads), ``bench_config``, the same with ``fused_gather=True`` (K6 on
+    each rank's shard) and ``cli_config(128, 1024)`` (the refresh loop,
+    the first ``CLI_PT_SCANS`` scans) at world size 2 with gloo, both
+    ranks on the one card (gloo stages each all-reduce through host
+    memory); with two cards also NCCL across them. Every rank bit-equal,
+    every pose within 0.02 m of the JAX reference, K4 never, K5 once a GN
+    iteration (the summed iterations) with one all-reduce after each, K3
+    (bench; K6 fused) and K1 once a scan. The bench cells also against
+    phase 4's single run (K4): each scan's correspondence count within
+    ``SHARD_CORR_FRAC``, and, printed, the scans whose GN iteration count
+    differs and the pose gap before the first of them. Returns (cells,
+    launches by cell)."""
+    from ptudes_tpu_torch.parallel import sharded
+
+    sensor, scans, scan_ts, gt_mid, imu = scene
+    n_all = scans.shape[0]
+    h, w = scans.shape[1:]
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    bench, cli = config.bench_config(), config.cli_config(h, w)
+    fused = dataclasses.replace(bench, kiss=dataclasses.replace(
+        bench.kiss, fused_gather=True))
+    plan = [("bench_pt1", bench, n_all, ["cuda:0"], "nccl", "bench"),
+            ("bench_pt2", bench, n_all, ["cuda:0"] * 2, "gloo", "bench"),
+            ("bench_fused_pt2", fused, n_all, ["cuda:0"] * 2, "gloo",
+             "bench_fused"),
+            ("cli_pt2", cli, min(CLI_PT_SCANS, n_all), ["cuda:0"] * 2,
+             "gloo", "cli")]
+    if torch.cuda.device_count() >= 2:
+        plan.append(("bench_pt2_nccl", bench, n_all, ["cuda:0", "cuda:1"],
+                     "nccl", "bench"))
+    single = bench_out.kiss_pose.double().cpu().numpy()
+    corr4 = bench_out.aux.num_corr.cpu().numpy().astype(np.int64)
+    iters4 = bench_out.aux.iterations.cpu().numpy()
+    cells, launches = {}, {}
+    for tag, cfg, n, devices, backend, ref_name in plan:
+        batches = lio.scan_at(lio.build_batches(
+            cfg, scans, scan_ts, imu.lacc, imu.avel, imu.ts, device=dev),
+            slice(0, n))
+        t0 = time.monotonic()
+        run = sharded.run_sharded(
+            lio.init_state(cfg, dev), batches, lut, cfg, devices=devices,
+            backend=backend, probe=True)
+        wall = time.monotonic() - t0
+        check((run.backend, run.world_size) == (backend, len(devices)),
+              f"11 {tag}: ran {run.backend} x {run.world_size}")
+        check(run.ranks_equal, f"11 {tag}: the ranks' outputs differ")
+        st = run.rank_stats[0]
+        iters = run.out.aux.iterations
+        total = int(iters.sum())
+        want = {"ekf_predict": n, "gn_iter": total}
+        if cfg.kiss.nn_refresh_drift == 0.0:
+            want.update(ekf_update=n)
+            want["gather_fused" if cfg.kiss.fused_gather else "gn_prep"] = n
+        check(all(c == want.get(name, 0)
+                  for name, c in st["launches"].items()),
+              f"11 {tag}: launches {st['launches']}, want {want}")
+        check(st["allreduces"] == total,
+              f"11 {tag}: {st['allreduces']} all-reduces, {total} builds")
+        capped = int((iters == cfg.kiss.max_iterations).sum())
+        check(st["host_reads"] == total - capped,
+              f"11 {tag}: {st['host_reads']} host reads")
+        kp = run.out.kiss_pose.double().numpy()
+        check(bool(np.isfinite(kp).all()), f"11 {tag}: non-finite poses")
+        _, ref = ref_poses(ref_name)
+        err = np.linalg.norm(kp[:, :3, 3] - ref[:n, :, 3], axis=1)
+        check(float(err.max()) <= POSE_GATE_M,
+              f"11 {tag}: pose vs JAX {err.max():.4f} m > {POSE_GATE_M} m")
+        vs_single = None
+        if tag.startswith("bench_pt"):
+            d_corr = (run.out.aux.num_corr.numpy().astype(np.int64)
+                      - corr4[:n])
+            it_diff = np.flatnonzero(iters.numpy() != iters4[:n])
+            first = int(it_diff[0]) if len(it_diff) else n
+            gap = np.linalg.norm(kp[:, :3, 3] - single[:n, :3, 3], axis=1)
+            above = np.flatnonzero(gap > 1e-5)
+            vs_single = dict(
+                max_pose_m=float(np.abs(kp - single[:n]).max()),
+                max_num_corr_diff=int(np.abs(d_corr).max()),
+                scans_num_corr_differ=int((d_corr != 0).sum()),
+                first_scan_num_corr_differs=(int(np.flatnonzero(d_corr)[0])
+                                             if d_corr.any() else None),
+                scans_iterations_differ=int(len(it_diff)),
+                first_scan_iterations_differ=(first if first < n else None),
+                first_scan_trans_above_1e5_m=(int(above[0]) if len(above)
+                                              else None),
+                iterations_minus_phase4=int(iters.numpy().sum()
+                                            - iters4[:n].sum()),
+                max_trans_before_first_m=float(gap[:first].max()
+                                               if first else 0.0),
+                max_trans_from_first_m=float(gap[first:].max()
+                                             if first < n else 0.0))
+        cells[tag] = dict(
+            backend=backend, world_size=len(devices), devices=devices,
+            scans=n, seconds=st["seconds"],
+            scans_per_s=n / st["seconds"][-1], wall_s=wall,
+            gn_iterations=total, allreduces_per_scan=total / n,
+            allreduce_us=st["allreduce_us"], host_reads=st["host_reads"],
+            max_pose_vs_jax_m=float(err.max()),
+            vs_phase4=vs_single, launches=st["launches"],
+            ranks_equal=run.ranks_equal, card=card)
+        launches[f"sharded_{tag}"] = st["launches"]
+        say(f"  11 {tag}: {backend} x {len(devices)} on {devices}: "
+            f"{cells[tag]['scans_per_s']:.2f} scans/s (timed run "
+            f"{st['seconds'][-1]:.3f} s, warm-up {st['seconds'][0]:.3f} s), "
+            f"{total / n:.2f} all-reduces a scan, "
+            f"{st['allreduce_us']:.1f} us an all-reduce (probe), ranks "
+            f"bit-equal, max |pose - JAX| {err.max():.4f} m"
+            + ("" if vs_single is None else
+               f"; against phase 4: max |pose - phase 4| "
+               f"{vs_single['max_pose_m']:.3e}, num_corr differs on "
+               f"{vs_single['scans_num_corr_differ']} of {n} scans (first "
+               f"{vs_single['first_scan_num_corr_differs']}, max "
+               f"{vs_single['max_num_corr_diff']}, bar {SHARD_CORR_FRAC:.1%} "
+               f"+ 1), GN iterations differ on "
+               f"{vs_single['scans_iterations_differ']} scans (first "
+               f"{vs_single['first_scan_iterations_differ']}, summed "
+               f"{vs_single['iterations_minus_phase4']:+d}), max |trans - "
+               f"phase 4| {vs_single['max_trans_before_first_m']:.3e} m "
+               f"before that scan, "
+               f"{vs_single['max_trans_from_first_m']:.3e} m from it; "
+               f"first scan more than 1e-5 m off "
+               f"{vs_single['first_scan_trans_above_1e5_m']}")
+            + f"; launches {st['launches']}")
+        if vs_single is not None:
+            check(bool(np.all(np.abs(d_corr)
+                              <= SHARD_CORR_FRAC * corr4[:n] + 1)),
+                  f"11 {tag}: num_corr - phase 4 {d_corr.tolist()}")
+    return cells, launches
+
+
+def run_debug_scene_path(scene, dev, card: str):
+    """11d: the command paths of ``viz`` on the bench scene written as an
+    Ouster recording (phase 9's writer), on the card: ``ekf-bench ouster
+    -g gt.csv --save-kitti-poses --save-map-ply --save-debug-scene`` with
+    ``DEBUG_SCENE_FLAGS`` (scans 0-10; the scene exported every second
+    scan), each knot's ICP and EKF pose within 0.02 m of
+    ``tests/data/debug_scene_jax_poses.txt`` and the saved poses of
+    ``cli_pcap_jax_poses.txt``'s first rows; ``flyby --kitti-poses`` (a
+    finite PLY and a camera program); ``viz --stream-dir --max-scans 5``
+    (the player's files); a plot flag refused where matplotlib is
+    missing. Returns (summary, the ouster command's launches)."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import make_torch_fixture
+    from ptudes_tpu_torch.cli import main as cli
+    from ptudes_tpu_torch.viz import cloud
+
+    ref = np.loadtxt(os.path.join(HERE, "tests", "data",
+                                  "debug_scene_jax_poses.txt"), ndmin=2)
+    _, pcap_ref = ref_poses("cli_pcap")
+    h, w = scene[1].shape[1:]
+    tmp = tempfile.mkdtemp(prefix="ptudes_viz_")
+    try:
+        rec, meta, gt = make_torch_fixture.bench(tmp, scene=scene)
+        kitti, ply = os.path.join(tmp, "k.txt"), os.path.join(tmp, "m.ply")
+        sdir = os.path.join(tmp, "scene")
+        kernels.reset_launches()
+        icp.reset_refresh_counts()
+        t = time.monotonic()
+        res = cli.run(["ekf-bench", "ouster", rec, "-m", meta, "-g", gt,
+                       "--save-kitti-poses", kitti, "--save-map-ply", ply,
+                       "--save-debug-scene", sdir] + DEBUG_SCENE_FLAGS)
+        wall = time.monotonic() - t
+        launches = launch_counts()
+        n = res["n_scans"]
+        cmd_iters = int(res["iterations"].sum()
+                        + res["iterations_first"].sum())
+        # K1 once a scan in each of the command's two runs and twice a
+        # scan in the export (its step, and the prediction it writes as
+        # pred_pose); K5 once a GN iteration of each (the export's
+        # iterations are not the command's: its whole-frame insert makes
+        # other maps)
+        check(launches["ekf_predict"] == 4 * n
+              and launches["gn_iter"] > cmd_iters
+              and all(launches[k] == 0 for k in launches
+                      if k not in ("ekf_predict", "gn_iter")),
+              f"11d: launches {launches} ({n} scans, {cmd_iters} command "
+              "GN iterations)")
+        kp = np.loadtxt(kitti).reshape(-1, 3, 4)
+        err_k = np.linalg.norm(kp[:, :, 3] - pcap_ref[:n, :, 3], axis=1)
+        check(float(err_k.max()) <= POSE_GATE_M,
+              f"11d: saved poses vs JAX {err_k.max():.4f} m")
+        knots = res["debug_scene"]["knots"]
+        check(knots == [int(k) for k in ref[:, 0]],
+              f"11d: knots {knots}, JAX {ref[:, 0]}")
+        worst, corr_diff, iter_diff = 0.0, [], []
+        for row in ref:
+            k = int(row[0])
+            with open(os.path.join(sdir, f"knot_{k:04d}.json")) as f:
+                m = json.load(f)
+            for key, cols in (("icp_pose", row[3:15]), ("ekf_pose",
+                                                      row[15:27])):
+                e = float(np.linalg.norm(np.asarray(m[key])[:3, 3]
+                                         - cols.reshape(3, 4)[:, 3]))
+                worst = max(worst, e)
+            corr_diff.append(m["num_corr"] - int(row[1]))
+            iter_diff.append(m["iterations"] - int(row[2]))
+            src = cloud.load_ply(os.path.join(sdir,
+                                              f"knot_{k:04d}_source.ply"))
+            check(len(src) == m["num_corr"] and np.isfinite(src).all(),
+                  f"11d: knot {k} source {len(src)} of {m['num_corr']}")
+        check(worst <= POSE_GATE_M, f"11d: knot pose vs JAX {worst:.4f} m")
+        mp = cloud.load_ply(ply)
+        fmap = res["state"].kiss.local_map
+        # a slot's count can pass its row of points (8 of 3494 slots after
+        # these scans on the CPU); map_to_points and the PLY hold the
+        # stored points, at most a row a slot
+        stored = int(fmap.meta[:, 1].clamp(max=fmap.points.shape[1]).sum())
+        check(len(mp) == stored > 0 and bool(np.isfinite(mp).all()),
+              f"11d: map PLY {mp.shape}, {stored} stored points")
+
+        fply, cam = os.path.join(tmp, "fly.ply"), os.path.join(tmp, "c.json")
+        t = time.monotonic()
+        fly = cli.run(["flyby", rec, "-m", meta, "--kitti-poses", kitti,
+                       "--end-scan", "10", "-o", fply, "--camera-json", cam])
+        fly_s = time.monotonic() - t
+        fp = cloud.load_ply(fply)
+        with open(cam) as f:
+            prog = json.load(f)
+        check(len(fp) == fly["points"] > 0 and bool(np.isfinite(fp).all())
+              and len(prog) > 0 and set(prog[0]) == {"t", "target", "pitch",
+                                                     "yaw", "dolly"},
+              f"11d flyby: {len(fp)} points, {len(prog)} keyframes")
+        stream = os.path.join(tmp, "stream")
+        cli.run(["viz", rec, "-m", meta, "--stream-dir", stream,
+                 "--max-scans", "5"])
+        with open(os.path.join(stream, "stream.json")) as f:
+            sj = json.load(f)
+        check(sj["n"] == 5 and os.path.getsize(os.path.join(
+            stream, "ranges.bin")) == 5 * h * w * 2 and os.path.exists(
+            os.path.join(stream, "viewer_stream.html")),
+            f"11d viz --stream-dir: {sorted(os.listdir(stream))}")
+        try:
+            import matplotlib  # noqa: F401
+            plots = "matplotlib is installed: the plot flags run"
+        except ImportError:
+            rc = cli.main(["ekf-bench", "sim", "-p", "graphs"])
+            check(rc == 2, f"11d: -p graphs without matplotlib gave rc {rc}")
+            plots = "matplotlib is missing: -p graphs refused (exit 2)"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"  11d: ekf-bench ouster with the exports {wall:.2f} s ({n} scans, "
+        f"{len(knots)} knots {knots}), max |knot pose - JAX| {worst:.4f} m, "
+        f"num_corr - JAX {corr_diff}, iterations - JAX {iter_diff}, saved "
+        f"poses within {err_k.max():.4f} m; map PLY {len(mp)} points; flyby "
+        f"{len(fp)} points, {len(prog)} keyframes in {fly_s:.2f} s; viz "
+        f"--stream-dir {sj['n']} scans; {plots}; launches {launches}")
+    return dict(wall_s=wall, scans=n, knots=knots,
+                max_knot_pose_vs_jax_m=worst, num_corr_minus_jax=corr_diff,
+                iterations_minus_jax=iter_diff,
+                max_pose_vs_jax_m=float(err_k.max()), map_points=len(mp),
+                flyby_points=len(fp), flyby_keyframes=len(prog),
+                flyby_s=fly_s, plots=plots, launches=launches,
+                card=card), launches
+
+
+def run_phase11(scene, dev, bench_out, card: str, results) -> dict:
+    """Phase 11: the point-sharded driver and the viz paths (11a-d); prints
+    one JSON line of its figures. Returns the launches by path."""
+    shapes = check_shard_kernels(dev, results)
+    cells, launches = run_sharded_path(scene, dev, bench_out, card)
+    viz, launches["debug_scene_pcap"] = run_debug_scene_path(scene, dev,
+                                                             card)
+    say(json.dumps(dict(phase11=dict(shard_shapes=shapes, sharded=cells,
+                                     debug_scene_pcap=viz, card=card))))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scans", type=int, default=50,
@@ -2677,13 +3063,13 @@ def main() -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of the phases to run after 1-2 "
                     "(default all; 10 runs phases 4, 5 and 7a-b first, "
-                    "whose runs it compares with)")
+                    "whose runs it compares with, 11 runs phase 4 first)")
     args = ap.parse_args()
-    want = set(range(3, 11)) if args.phases == "all" else {
+    want = set(range(3, 12)) if args.phases == "all" else {
         int(x) for x in args.phases.split(",")}
     if 10 in want:
         want |= {5, 7}
-    if want & {5, 7}:
+    if want & {5, 7, 11}:
         want.add(4)
 
     say("phase 1: device")
@@ -2716,7 +3102,7 @@ def main() -> int:
         "cuobjdump)"))
 
     results: dict[str, dict] = {}
-    if want != set(range(3, 11)):
+    if want != set(range(3, 12)):
         # a subset, for working on a phase: its own checks, no summary
         if 3 in want:
             say("phase 3: kernels against their twins")
@@ -2736,6 +3122,9 @@ def main() -> int:
             say("phase 10: several sequences at once")
             run_phase10(scene, dev, bench_out, cli_out, assoc_out, card,
                         results)
+        if 11 in want:
+            say("phase 11: point-sharded LIO and the viz paths")
+            run_phase11(scene, dev, bench_out, card, results)
         say(f"phases {sorted(want)} passed (a subset: no kernel summary)")
         say(card_line())
         return 0
@@ -2787,6 +3176,8 @@ def main() -> int:
         "ekf-bench sweep)")
     by_path.update(run_phase10(scene, dev, bench_out, cli_out, assoc_out,
                                card, results))
+    say("phase 11: point-sharded LIO (parallel.sharded) and the viz paths")
+    by_path.update(run_phase11(scene, dev, bench_out, card, results))
 
     rows = []
     for name in (*kernels.KERNELS, *kernels.VARIANT_LAUNCHES):

@@ -1,23 +1,28 @@
-"""``ptudes-tpu-torch``: the PyTorch port's command line, the recording
-path of ``ptudes_tpu.cli.main`` on one CUDA card.
+"""``ptudes-tpu-torch``: the PyTorch port's command line, the commands
+of ``ptudes_tpu.cli.main`` on one CUDA card.
 
     python -m ptudes_tpu_torch.cli.main stat REC.pcap -m META.json
     python -m ptudes_tpu_torch.cli.main ekf-bench ouster REC.pcap \\
-        -m META.json --use-imu-prediction -g gt.csv
-    python -m ptudes_tpu_torch.cli.main ekf-bench sweep REC.pcap \
+        -m META.json --use-imu-prediction -g gt.csv \\
+        [--save-map-ply MAP.ply] [--save-debug-scene DIR] [-p graphs]
+    python -m ptudes_tpu_torch.cli.main ekf-bench sweep REC.pcap \\
         -m META.json -g gt.csv --bacc-z -0.1,0,0.1
     python -m ptudes_tpu_torch.cli.main ekf-bench {sim,nc,cmp} ...
+    python -m ptudes_tpu_torch.cli.main flyby REC.pcap -m META.json \\
+        --kitti-poses POSES.txt -o MAP.ply --camera-json CAM.json
+    python -m ptudes_tpu_torch.cli.main viz REC.pcap -m META.json \\
+        {--out-png F.png | --out-dir DIR | --stream-dir DIR | --serve}
 
 The commands, flags, defaults and printed lines are the JAX command's,
-written with ``argparse`` (the card's machine has no ``click``), without
-the plotting and export flags (``-p``, ``--xy-plot``, ``--save-map-ply``,
-``--save-debug-scene``). A recording is a pcap, a ROS1 bag, a ROS2 bag
-directory or a directory of bags with its Ouster metadata JSON. Every
-command that computes runs on the card unless ``--device cpu`` is given;
-without a card the default raises instead of running on the CPU. On the
-card the LIO configuration takes the card's kernel forms where the JAX
-command takes the TPU's (the predict block as K1, the ICP kernels); on the
-CPU their plain PyTorch twins (``config.twin_config``).
+written with ``argparse`` (the card's machine has no ``click``). A
+recording is a pcap, a ROS1 bag, a ROS2 bag directory or a directory of
+bags with its Ouster metadata JSON. Every command that computes runs on
+the card unless ``--device cpu`` is given; without a card the default
+raises instead of running on the CPU. On the card the LIO configuration
+takes the card's kernel forms where the JAX command takes the TPU's (the
+predict block as K1, the ICP kernels); on the CPU their plain PyTorch
+twins (``config.twin_config``). The plots (``-p``, ``viz``'s images) need
+matplotlib: without it a plot flag is refused before anything runs.
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ class CliError(Exception):
 
 # ---------------------------------------------------------------- sources
 
-def _load_source(file, meta):
+def _load_source(file, meta, keep_fields=False):
     from ..io.metadata import read_metadata_json, resolve_metadata
     from ..io.sources import read_packet_source
 
@@ -51,8 +56,19 @@ def _load_source(file, meta):
     if not meta_path:
         raise CliError("Metadata not found; specify with -m/--meta")
     info = read_metadata_json(meta_path)
-    scans, imu = read_packet_source(file, info)
+    scans, imu = read_packet_source(file, info, keep_fields=keep_fields)
     return info, scans, imu, meta_path
+
+
+def _need_plots(what) -> None:
+    """Refuse the plot ``what`` (a flag's description; nothing when empty)
+    up front where matplotlib is missing."""
+    if what:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            raise CliError(f"{what}: plotting needs matplotlib, which is "
+                           "not installed") from None
 
 
 def nav_frame_lut(info, device):
@@ -88,6 +104,11 @@ def _sync(out) -> None:
 
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+def _np_log(log):
+    """A ``FilterLog`` with numpy leaves (for the graphs)."""
+    return type(log)(*(_np(x) for x in log))
 
 
 # ------------------------------------------------------------------- stat
@@ -259,6 +280,7 @@ def cmd_ekf_ouster(args):
         raise CliError(
             "--frozen-map requires --resume-state (localization needs a "
             "prior map)")
+    _need_plots(args.plot and f"-p {args.plot}")
     dev = _device(args)
 
     file, loss = args.file, args.loss
@@ -306,22 +328,27 @@ def cmd_ekf_ouster(args):
 
     n = len(scans)
     result = dict(cfg=cfg, n_scans=n)
+    want_log = args.plot == "graphs"
+    batches = None
+    if not args.online or args.save_debug_scene:
+        batches = lio.build_batches(
+            cfg, range_m, scans.ts, imu.lacc, imu.avel, imu.ts,
+            guess_poses=guess_poses, time_origin=origin,
+            prev_scan_ts=prev_scan_ts, device=dev)
     if args.online:
         fin, out, lats = _run_online(cfg, lut, state, range_m, scans, imu,
                                      origin, prev_scan_ts, args.rate)
         result["latencies_s"] = lats
     else:
-        batches = lio.build_batches(
-            cfg, range_m, scans.ts, imu.lacc, imu.avel, imu.ts,
-            guess_poses=guess_poses, time_origin=origin,
-            prev_scan_ts=prev_scan_ts, device=dev)
         t0 = time.monotonic()
-        fin, out = lio.run_sequence(state, batches, lut, cfg=cfg)
+        fin, out = lio.run_sequence(state, batches, lut, cfg=cfg,
+                                    log=want_log)
         _sync(out)
         t_first = time.monotonic() - t0
         result["iterations_first"] = _np(out.aux.iterations)
         t0 = time.monotonic()
-        fin, out = lio.run_sequence(state, batches, lut, cfg=cfg)
+        fin, out = lio.run_sequence(state, batches, lut, cfg=cfg,
+                                    log=want_log)
         _sync(out)
         t_steady = time.monotonic() - t0
         # the first run pays the kernels' build and load and the
@@ -351,6 +378,11 @@ def cmd_ekf_ouster(args):
         save_poses_nc_gt_format(args.save_nc_gt_poses, res_t, res_poses,
                                 header=header)
         print(f"NC GT poses saved to: {args.save_nc_gt_poses}")
+    if args.save_map_ply:
+        from ..viz.cloud import map_to_points, save_ply
+        save_ply(args.save_map_ply, map_to_points(
+            fin.kiss.local_map, cfg.kiss.resolved_voxel_size))
+        print(f"Local map saved to: {args.save_map_ply}")
     if args.save_state:
         from ..utils.checkpoint import save_state
         save_state(args.save_state, fin,
@@ -358,6 +390,13 @@ def cmd_ekf_ouster(args):
                           "end_scan_ts": float(res_t[-1]),
                           "time_origin": float(origin)})
         print(f"Pipeline state checkpoint saved to: {args.save_state}")
+    if args.save_debug_scene:
+        from ..viz.debug_scene import export_debug_scenes
+        idx = export_debug_scenes(args.save_debug_scene, cfg, lut, batches,
+                                  stride=args.debug_scene_stride)
+        print(f"Debug scenes ({len(idx['knots'])} knots) saved to: "
+              f"{args.save_debug_scene}")
+        result["debug_scene"] = idx
 
     if gts:
         gts_m, res_t_m = filter_nc_gt_by_close_ts(gts, list(res_t))
@@ -376,6 +415,33 @@ def cmd_ekf_ouster(args):
                 print(f"ATE RMSE:  {rr:.04f} deg / {rt:.04f} m")
                 result[key] = dict(ate_rot=ate_rot, ate_trans=ate_trans,
                                    rmse_rot=rr, rmse_trans=rt)
+
+    if args.plot == "graphs":
+        from ..viz.graphs import ekf_graphs, kiss_innovation_graph
+        if out.flog is not None:
+            # the full figure set of the flagship mode: the IMU-rate EKF
+            # grid with the KISS-only and GT trajectory overlays, then the
+            # innovation / adaptive-sigma traces (online mode has no
+            # IMU-rate log: the traces only)
+            flog = lio.flatten_filter_log(out.flog, batches.imu_valid)
+            iv = _np(batches.imu_valid).reshape(-1)
+            lacc = _np(batches.imu.lacc).reshape(-1, 3)[iv]
+            avel = _np(batches.imu.avel).reshape(-1, 3)[iv]
+            rel_scan_t = _np(batches.scan_ts)
+            gt2 = None
+            if gts:
+                gts_m, res_t_m = filter_nc_gt_by_close_ts(gts, list(res_t))
+                if gts_m:
+                    gt2 = (np.asarray(res_t_m) - res_t[0] + rel_scan_t[0],
+                           np.asarray([g[1] for g in gts_m]))
+            result["figures"] = [ekf_graphs(
+                flog, imu_lacc=lacc, imu_avel=avel,
+                gt=(rel_scan_t, kiss_poses), gt2=gt2, xy_plot=True,
+                labels=["ES EKF KissICP smoothed poses",
+                        "KissICP only poses", "GT poses"])]
+        result.setdefault("figures", []).append(kiss_innovation_graph(
+            res_t, _np(out.aux.err_dt), _np(out.aux.err_drot),
+            _np(out.aux.sigma)))
     return result
 
 
@@ -528,6 +594,7 @@ def cmd_ekf_sim(args):
     from ..models import esekf, sim
     from ..utils.metrics import calc_ate, calc_ate_rmse
 
+    _need_plots(args.plot and f"-p {args.plot}")
     dev = _device(args)
     duration, freq = args.duration, args.freq
     n = int(duration * freq)
@@ -557,8 +624,15 @@ def cmd_ekf_sim(args):
     print(f"ATE_rot:   {ate_rot:.04f} deg")
     print(f"ATE trans: {ate_trans:.04f} m")
     print(f"ATE RMSE:  {rmse_rot:.04f} deg / {rmse_trans:.04f} m")
-    return dict(ate_rot=ate_rot, ate_trans=ate_trans, rmse_rot=rmse_rot,
-                rmse_trans=rmse_trans, updates=int(upd.sum()))
+    result = dict(ate_rot=ate_rot, ate_trans=ate_trans, rmse_rot=rmse_rot,
+                  rmse_trans=rmse_trans, updates=int(upd.sum()))
+    if args.plot == "graphs":
+        from ..viz.graphs import ekf_error_graphs, ekf_graphs
+        result["figures"] = [
+            ekf_graphs(_np_log(log), imu_lacc=_np(noisy.lacc),
+                       imu_avel=_np(noisy.avel)),
+            ekf_error_graphs(_np_log(log_gt), _np_log(log))]
+    return result
 
 
 def cmd_ekf_nc(args):
@@ -570,6 +644,7 @@ def cmd_ekf_nc(args):
     from ..models.esekf import Imu
     from ..utils.metrics import calc_ate
 
+    _need_plots(args.plot and f"-p {args.plot}")
     dev = _device(args)
     imu_topic = args.imu_topic
     init_grav = GRAV * UP
@@ -621,32 +696,211 @@ def cmd_ekf_nc(args):
         print(f"ATE_rot:   {ate_rot:.04f} deg")
         print(f"ATE trans: {ate_trans:.04f} m")
         result.update(ate_rot=ate_rot, ate_trans=ate_trans)
+    if args.plot == "graphs":
+        from ..viz.graphs import ekf_graphs
+        result["figures"] = [ekf_graphs(
+            _np_log(log), imu_lacc=lacc, imu_avel=avel,
+            xy_plot=args.xy_plot, gt=(ts[upd], corr_poses[upd]),
+            labels=["ES EKF IMU + GT pose correction", "GT poses"])]
     return result
 
 
 def cmd_ekf_cmp(args):
     """Compare trajectories in Newer College format (reference
-    ``ekf-bench cmp``); host-side numpy, no device."""
+    ``ekf-bench cmp``); host-side numpy, no device. ``-p graphs`` plots
+    the ground truth's matched poses and each compared trajectory
+    (``graphs_full``: the whole ground truth), with ``--use-gt-frame``
+    each moved into the ground truth's frame at its first matched pose."""
     from ..io.poses import filter_nc_gt_by_cmp, read_newer_college_gt
     from ..utils.metrics import calc_ate
 
+    _need_plots(args.plot and f"-p {args.plot}")
     gts_all = read_newer_college_gt(args.gt_file)
-    result = []
+    gts, gts_cmp = [], []
     for cmp_file in args.gt_file_cmp:
         a, b = filter_nc_gt_by_cmp(gts_all, read_newer_college_gt(cmp_file))
-        a = np.asarray([p for _, p in a])
-        b = np.asarray([p for _, p in b])
+        gts.append(a)
+        gts_cmp.append(b)
+
+    fname = lambda f: os.path.splitext(os.path.basename(f))[0]  # noqa: E731
+    result = []
+    for idx, cmp_file in enumerate(args.gt_file_cmp):
+        a = np.asarray([p for _, p in gts[idx]])
+        b = np.asarray([p for _, p in gts_cmp[idx]])
         ate_rot, ate_trans = calc_ate(a, b)
-        name = os.path.splitext(os.path.basename(cmp_file))[0]
-        print(f"\nTraj poses comparisons GT v. {name} "
+        print(f"\nTraj poses comparisons GT v. {fname(cmp_file)} "
               f"({len(a)} poses):")
         print(f"ATE_rot:   {ate_rot:.04f} deg")
         print(f"ATE trans: {ate_trans:.04f} m")
         result.append(dict(ate_rot=ate_rot, ate_trans=ate_trans))
+
+    if args.plot in ("graphs", "graphs_full"):
+        from ..viz.graphs import gt_poses_graphs
+        sets = [gts_all if args.plot == "graphs_full" else
+                (gts[0] if gts else gts_all)]
+        for idx in range(len(gts_cmp)):
+            aligned = gts_cmp[idx]
+            if args.use_gt_frame and gts[idx]:
+                p0 = gts[idx][0][1] @ np.linalg.inv(gts_cmp[idx][0][1])
+                aligned = [(t, p0 @ p) for t, p in gts_cmp[idx]]
+            sets.append(aligned)
+        result.append(dict(pose_sets=sets, figure=gt_poses_graphs(
+            sets, xy_plot=args.xy_plot,
+            labels=[f"GT Poses: {fname(args.gt_file)}"]
+            + [f"Cmp poses {i+1}: {fname(f)}"
+               for i, f in enumerate(args.gt_file_cmp)])))
     return result
 
 
+# ------------------------------------------------------------------ flyby
+
+def cmd_flyby(args):
+    """Build the registered map and the flyby camera program (reference
+    ``ptudes flyby``; rendering is left to external viewers through the
+    PLY and the camera JSON). The scans project on the device."""
+    from ..io.poses import load_poses_kitti_format, read_newer_college_gt
+    from ..ops.projection import scan_to_points
+    from ..utils.trajectory import poses_for_scans
+    from ..viz.cloud import AccumCloud, save_ply
+    from ..viz.fly import Flyby
+
+    dev = _device(args)
+    info, scans, imu, _ = _load_source(args.file, args.meta)
+    scans = scans.window(args.start_scan, args.end_scan)
+    lut = nav_frame_lut(info, dev)
+    range_unit = info.range_unit_m()
+
+    if args.kitti_poses:
+        poses = load_poses_kitti_format(args.kitti_poses)[:len(scans)]
+        valid = np.ones(len(poses), bool)
+    elif args.nc_gt_poses:
+        gts = read_newer_college_gt(args.nc_gt_poses)
+        gp0 = np.linalg.inv(gts[0][1])
+        gts = [(t, gp0 @ p) for t, p in gts]  # origin shift (flyby.py:96-100)
+        poses, valid = poses_for_scans(scans.ts, gts, time_bounds=1.5)
+    else:
+        raise CliError(
+            "Provide --kitti-poses or --nc-gt-poses (or run ekf-bench "
+            "ouster --save-kitti-poses first)")
+
+    cloud = AccumCloud(max_points=args.map_points)
+    for i in range(len(scans)):
+        if not valid[i]:
+            continue
+        pts, mask, _ = scan_to_points(lut, torch.as_tensor(
+            scans.range_mm[i].astype(np.float32) * range_unit, device=dev))
+        p = _np(pts)[_np(mask)]
+        pw = p @ poses[i][:3, :3].T + poses[i][:3, 3]
+        cloud.add(pw[::4])
+    save_ply(args.out_ply, cloud.points)
+    print(f"map: {len(cloud)} points -> {args.out_ply}")
+
+    traj = [(scans.ts[i], poses[i]) for i in range(len(scans)) if valid[i]]
+    bbox = np.stack([cloud.points.min(0), cloud.points.max(0)], axis=1)
+    fly = Flyby(traj=traj, bbox=bbox)
+    print(f"flyby duration: {fly.total_duration:.1f} s")
+    if args.camera_json:
+        import json
+        prog = []
+        for t in np.arange(0, fly.total_duration, 1 / 30):
+            cam = fly.camera_at(float(t))
+            prog.append({"t": float(t), "target": cam.target.tolist(),
+                         "pitch": cam.pitch, "yaw": cam.yaw,
+                         "dolly": cam.dolly})
+        with open(args.camera_json, "w") as f:
+            json.dump(prog, f)
+        print(f"camera program ({len(prog)} keyframes) -> "
+              f"{args.camera_json}")
+    return dict(points=len(cloud), duration_s=fly.total_duration)
+
+
+# -------------------------------------------------------------------- viz
+
+def cmd_viz(args):
+    """Raw scan viewer (reference ``ptudes viz``): the WebGL player of the
+    stream (``--serve`` / ``--stream-dir``, host-side numpy), or
+    destaggered channel images as matplotlib figures, one scan
+    (``--out-png`` or on screen) or the whole stream (``--out-dir``); the
+    destagger runs on the device."""
+    if args.serve or args.stream_dir:
+        from ..viz.stream_player import export_stream, serve_dir
+
+        info, scans, imu, _ = _load_source(args.file, args.meta,
+                                           keep_fields=True)
+        if not len(scans):
+            raise CliError("no scans decoded")
+        if args.max_scans is not None and len(scans) > args.max_scans:
+            print(f"exporting first {args.max_scans} of {len(scans)} scans "
+                  "(--max-scans)")
+            scans = scans.window(0, args.max_scans - 1)  # end inclusive
+        d = args.stream_dir or (os.path.splitext(str(args.file))[0]
+                                + "_stream")
+        out = export_stream(d, info, scans, rate=args.rate)
+        print(f"player -> {out}")
+        if args.serve:
+            serve_dir(d, args.port)
+        return dict(player=out)
+
+    _need_plots("viz's images (--out-png, --out-dir or on screen; "
+                "--stream-dir and --serve need no plotting)")
+    import matplotlib
+    if args.out_png or args.out_dir:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from ..ops.projection import destagger
+
+    dev = _device(args)
+    field_name = args.field_name
+    info, scans, imu, _ = _load_source(args.file, args.meta,
+                                       keep_fields=field_name != "range")
+    print(f"scans: {len(scans)}, imus: {len(imu)}, "
+          f"sensor: {info.prod_line} {info.mode}")
+    if not len(scans):
+        return {}
+    if field_name == "range":
+        channel, unit, cmap = scans.range_mm, "range (mm)", "viridis"
+    else:
+        if field_name not in (scans.fields or {}):
+            raise CliError(
+                f"field '{field_name}' not in this recording's profile "
+                f"(has: range, {', '.join(sorted(scans.fields or {}))})")
+        channel, unit, cmap = scans.fields[field_name], field_name, "gray"
+        if field_name == "range2":
+            unit, cmap = "range2 (mm)", "viridis"
+    shifts = np.asarray(info.pixel_shift_by_row)
+
+    def render(i, path=None):
+        img = destagger(torch.as_tensor(channel[i].astype(np.float32),
+                                        device=dev), shifts)
+        plt.figure(figsize=(16, 4))
+        plt.imshow(_np(img), cmap=cmap, aspect="auto")
+        plt.colorbar(label=unit)
+        plt.title(f"scan {i} [{field_name}]  t={scans.ts[i]:.3f}s")
+        if path:
+            plt.savefig(path, dpi=120, bbox_inches="tight")
+            plt.close()
+        else:
+            plt.show()
+
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+        idxs = range(0, len(scans), max(args.stride, 1))
+        for i in idxs:
+            render(i, os.path.join(args.out_dir, f"scan_{i:05d}.png"))
+        print(f"exported {len(list(idxs))} frames to {args.out_dir}")
+    elif args.out_png:
+        render(args.scan_idx, args.out_png)
+        print(f"saved {args.out_png}")
+    else:
+        render(args.scan_idx)
+    return {}
+
+
 # ------------------------------------------------------------------ parser
+
+def _plot_flag(p, help=None) -> None:
+    p.add_argument("-p", "--plot", default=None, help=help)
+
 
 def _device_flag(p) -> None:
     p.add_argument("--device", default="cuda",
@@ -689,6 +943,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--acc-noise-std", type=float, default=0.4)
     p.add_argument("--gyr-noise-std", type=float, default=0.4)
     p.add_argument("--seed", type=int, default=42)
+    _plot_flag(p, "[graphs]")
     _device_flag(p)
     p.set_defaults(fn=cmd_ekf_sim)
 
@@ -699,6 +954,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-t", "--duration", type=float, default=0.0)
     p.add_argument("--start-ts", type=float, default=0.0)
     p.add_argument("-i", "--imu-topic", default="/os_node/imu_packets")
+    _plot_flag(p)
+    p.add_argument("--xy-plot", action="store_true")
     _device_flag(p)
     p.set_defaults(fn=cmd_ekf_nc)
 
@@ -720,6 +977,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss", choices=["plane", "point"], default="plane")
     p.add_argument("--save-kitti-poses", default=None)
     p.add_argument("--save-nc-gt-poses", default=None)
+    p.add_argument("--save-map-ply", default=None,
+                   help="Export the final local map as PLY")
+    p.add_argument("--save-debug-scene", default=None,
+                   help="Export per-update EKF debug scenes (PLY+JSON) to "
+                   "DIR (replaces the reference's 3D ekf_viz debug viewer)")
+    p.add_argument("--debug-scene-stride", type=int, default=5)
     p.add_argument("--save-state", default=None,
                    help="Checkpoint the final pipeline state (voxel map + "
                    "EKF + covariance) to FILE.npz; resume with "
@@ -746,6 +1009,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-frame", type=int, default=None,
                    help="Downsampled frame (map insert) capacity "
                    "(default 32768)")
+    _plot_flag(p)
     _device_flag(p)
     p.set_defaults(fn=cmd_ekf_ouster)
 
@@ -778,13 +1042,62 @@ def build_parser() -> argparse.ArgumentParser:
                       "format")
     p.add_argument("gt_file")
     p.add_argument("gt_file_cmp", nargs="*")
+    _plot_flag(p)
+    p.add_argument("--use-gt-frame", action="store_true")
+    p.add_argument("--xy-plot", action="store_true")
     p.set_defaults(fn=cmd_ekf_cmp)
+
+    p = sub.add_parser("flyby", help="the registered map and a flyby "
+                       "camera program")
+    p.add_argument("file")
+    p.add_argument("-m", "--meta", default=None)
+    p.add_argument("--kitti-poses", default=None)
+    p.add_argument("--nc-gt-poses", default=None)
+    p.add_argument("--start-scan", type=int, default=0)
+    p.add_argument("--end-scan", type=int, default=None)
+    p.add_argument("-o", "--out-ply", default="flyby_map.ply")
+    p.add_argument("--camera-json", default=None,
+                   help="Export the flyby camera program as JSON")
+    p.add_argument("--map-points", type=int, default=1_500_000)
+    _device_flag(p)
+    p.set_defaults(fn=cmd_flyby)
+
+    p = sub.add_parser("viz", help="raw scan viewer: the WebGL stream "
+                       "player, or destaggered channel images")
+    p.add_argument("file")
+    p.add_argument("-m", "--meta", default=None)
+    p.add_argument("--scan", dest="scan_idx", type=int, default=0)
+    p.add_argument("-o", "--out-png", default=None)
+    p.add_argument("--out-dir", default=None,
+                   help="Export the WHOLE stream as PNG frames")
+    p.add_argument("--stride", type=int, default=1,
+                   help="Export every Nth scan with --out-dir")
+    p.add_argument("--field", dest="field_name", default="range",
+                   choices=["range", "reflectivity", "signal", "nearir",
+                            "range2", "reflectivity2", "signal2"],
+                   help="Channel to render (dual-return *2 channels need a "
+                   "DUAL/FUSA profile recording)")
+    p.add_argument("--serve", action="store_true",
+                   help="LIVE playback: export the stream and serve the "
+                   "inline-WebGL player")
+    p.add_argument("--stream-dir", default=None,
+                   help="Export the WebGL player + stream blobs here "
+                   "without serving")
+    p.add_argument("--port", type=int, default=8126, help="--serve port")
+    p.add_argument("-r", "--rate", type=float, default=1.0,
+                   help="Initial playback rate for --serve/--stream-dir; 0 "
+                   "starts paused")
+    p.add_argument("--max-scans", type=int, default=None,
+                   help="--serve/--stream-dir: export at most N scans")
+    _device_flag(p)
+    p.set_defaults(fn=cmd_viz)
     return ap
 
 
 def _check_files(args) -> None:
     """The JAX command's ``click.Path(exists=True)`` checks."""
-    for name in ("file", "meta", "gt_file", "resume_state"):
+    for name in ("file", "meta", "gt_file", "resume_state", "kitti_poses",
+                 "nc_gt_poses"):
         path = getattr(args, name, None)
         if path is not None and not os.path.exists(path):
             raise CliError(f"Path '{path}' does not exist.")

@@ -23,6 +23,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import Capacity, KissConfig
 from ..geom import se3
@@ -90,6 +91,19 @@ def model_error(dev_t: torch.Tensor, dev_r: torch.Tensor,
     return dev_t + 2.0 * max_range * torch.sin(0.5 * dev_r)
 
 
+def check_point_sharding(cfg: KissConfig, cap: Capacity, n_pt: int) -> None:
+    """Raise ``ValueError`` unless a registration can be point-sharded over
+    ``n_pt`` ranks: cached candidates and ``cap.max_source`` a multiple of
+    ``n_pt`` (``ptudes_tpu/parallel/sharded.py:51-52``,
+    ``ptudes_tpu/models/kiss.py:157-159``)."""
+    if cfg.nn_mode != "cached":
+        raise ValueError("point-sharded registration needs nn_mode='cached', "
+                         f"not {cfg.nn_mode!r}")
+    if n_pt < 1 or cap.max_source % n_pt:
+        raise ValueError(f"max_source={cap.max_source} not divisible by "
+                         f"pt={n_pt}")
+
+
 def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
                   ts01: torch.Tensor, *, cfg: KissConfig, cap: Capacity,
                   update_ok: torch.Tensor | None = None,
@@ -101,7 +115,8 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
                   map_frozen: bool = False,
                   defer_insert: bool = False,
                   map_slot_base: torch.Tensor | None = None,
-                  map_logical_capacity: int | None = None
+                  map_logical_capacity: int | None = None,
+                  group=None
                   ) -> tuple[KissState, torch.Tensor, KissAux]:
     """Register one scan; returns (new state, pose, diagnostics). The
     guess is ``initial_guess`` with ``use_guess``, else the constant-
@@ -120,8 +135,17 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
     a fourth result, a :class:`DeferredInsert`. ``map_slot_base`` /
     ``map_logical_capacity`` (with ``defer_insert`` and cached candidates):
     ``state.local_map`` is a flat B-map table and this scan's candidates
-    come from its replica's slots (``icp.gather_candidates``)."""
+    come from its replica's slots (``icp.gather_candidates``).
+
+    ``group`` (a ``torch.distributed`` process group): the point-sharded
+    registration. Every stage runs on every rank on the same inputs; after
+    the compaction each rank takes its slice of ``cap.max_source / world``
+    source points by its rank, and the ICP sums the GN system over the
+    ranks (``icp.register_frame_cached``), so every rank returns the same
+    pose. :func:`check_point_sharding` holds for ``group``'s size."""
     vs = cfg.resolved_voxel_size
+    if group is not None:
+        check_point_sharding(cfg, cap, dist.get_world_size(group))
     if map_frozen and defer_insert:
         raise ValueError(
             "map_frozen with defer_insert: a frozen map has no insert to "
@@ -167,14 +191,22 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
                   prior_trans_weight=cfg.prior_trans_weight,
                   neighborhood=cfg.nn_neighborhood)
     if cfg.nn_mode == "cached":
+        src_icp, mask_icp = source, source_mask
+        if group is not None:
+            # this rank's slice of the replicated, identically compacted
+            # source (ptudes_tpu/models/kiss.py:238-243)
+            shard = cap.max_source // dist.get_world_size(group)
+            lo = dist.get_rank(group) * shard
+            src_icp = source[lo:lo + shard]
+            mask_icp = source_mask[lo:lo + shard]
         res = icp.register_frame_cached(
-            source, source_mask, state.local_map, guess, 3.0 * sigma,
+            src_icp, mask_icp, state.local_map, guess, 3.0 * sigma,
             sigma / 3.0, n_voxels=cfg.nn_voxels,
             plane_radius=cfg.plane_fit_radius,
             refresh_drift=cfg.nn_refresh_drift,
             fused_gather=cfg.fused_gather, form=cfg.icp_form,
             slot_base=map_slot_base, logical_capacity=map_logical_capacity,
-            **common)
+            group=group, **common)
     else:
         res = icp.register_frame(
             source, source_mask, state.local_map, guess, 3.0 * sigma,

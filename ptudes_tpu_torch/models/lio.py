@@ -148,7 +148,7 @@ def _fold_knot(flog: FilterLog, valid: torch.Tensor, has_imu: torch.Tensor,
 def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
                    insert_overflow: bool | str = True, log: bool = False,
                    defer_insert: bool = False,
-                   map_logical_capacity: int | None = None):
+                   map_logical_capacity: int | None = None, group=None):
     """The scan step closure over the projection LUT: (state, one scan of
     the batch) -> (state, packed output row), and with ``log`` the scan's
     :class:`FilterLog` as a third element. ``insert_overflow=True`` is the
@@ -168,7 +168,11 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
     step takes the replica's slot base as a third argument
     (``ptudes_tpu.models.lio.make_scan_step``'s flat-map mode; the
     batched driver, ``parallel.batched``, runs all replicas in one step of
-    its own instead)."""
+    its own instead).
+
+    ``group`` (a ``torch.distributed`` process group): the point-sharded
+    step of ``parallel.sharded``, the same step with the ICP source split
+    over the group's ranks (``kiss.register_scan``'s ``group``)."""
     if map_logical_capacity is not None and not defer_insert:
         raise ValueError("a flat map (map_logical_capacity) needs "
                          "defer_insert")
@@ -198,7 +202,7 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
             deskew_twist=twist, update_ok=has_imu, grid_hw=(h, w // d),
             insert_overflow=insert_overflow, map_frozen=cfg.map_frozen,
             defer_insert=defer_insert, map_slot_base=map_slot_base,
-            map_logical_capacity=map_logical_capacity)
+            map_logical_capacity=map_logical_capacity, group=group)
         ekf2 = esekf.process_pose(ekf1, pose, cfg=cfg.ekf)
         ekf_out = esekf.masked_update(ekf1, ekf2, has_imu)
         out = LioOut(
@@ -224,7 +228,7 @@ def scan_at(batches: ScanBatch, i) -> ScanBatch:
 
 
 def run_sequence(state: LioState, batches: ScanBatch, lut: XyzLut, *,
-                 cfg: PipelineConfig, log: bool = False
+                 cfg: PipelineConfig, log: bool = False, group=None
                  ) -> tuple[LioState, LioOut]:
     """Run every scan of ``batches``: the first ``cfg.bootstrap_scans``
     with the whole-frame insert, the rest with the steady insert
@@ -234,16 +238,18 @@ def run_sequence(state: LioState, batches: ScanBatch, lut: XyzLut, *,
     ``log=True`` also returns the
     IMU-rate filter history in ``LioOut.flog``, shaped [N, K] (filter it
     with ``batches.imu_valid``, :func:`flatten_filter_log`); the carried
-    states are the same as without."""
+    states are the same as without. ``group``: every step point-sharded
+    over its ranks (:func:`make_scan_step`; ``parallel.sharded``)."""
     n = batches.range_m.shape[0]
     k = n if cfg.bootstrap_scans < 0 else min(cfg.bootstrap_scans, n)
     if cfg.map_frozen:
         k = 0
     steady = make_scan_step(
         lut, cfg, insert_overflow=(False if cfg.map_frozen
-                                   else cfg.steady_insert_mode), log=log)
-    boot = make_scan_step(lut, cfg, insert_overflow=True, log=log) if k \
-        else steady
+                                   else cfg.steady_insert_mode), log=log,
+        group=group)
+    boot = make_scan_step(lut, cfg, insert_overflow=True, log=log,
+                          group=group) if k else steady
     rows, logs = [], []
     for i in range(n):
         state, row, *flog = (boot if i < k else steady)(state,

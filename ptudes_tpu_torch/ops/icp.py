@@ -16,6 +16,13 @@ point-to-point (``loss="point"``). Two forms:
   pose has drifted ``refresh_drift`` voxels from the pose they were
   gathered at.
 
+Point-sharded across ranks (``group``, a ``torch.distributed`` process
+group: ``parallel.sharded``), each rank registers its slice of the source
+and the GN system is all-reduced once a GN iteration: the frozen form
+preps once (K3, or K6) and runs a host loop of K5 builds instead of K4,
+which cannot reduce across ranks; the refresh form adds the all-reduce
+after its K5 build.
+
 Both forms also run B registrations against a flat B-map table in the
 launches of one (:func:`register_frames_cached_batched`,
 :func:`register_frames_refresh_batched`: the batched driver's).
@@ -34,6 +41,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..geom import se3, so3
 from ..geom.linalg import solve_spd6
@@ -226,9 +234,10 @@ def gn_twist(t_cur: torch.Tensor, guess_inv: torch.Tensor,
     return solve_spd6(jtj + 1e-8 * eye6, -jtr)
 
 
-# the refresh loop's device-to-host reads (read_flags) and re-gathers
-# since the last reset_refresh_counts()
-REFRESH_COUNTS = {"host_reads": 0, "regathers": 0}
+# the refresh loop's device-to-host reads (read_flags), re-gathers and,
+# point-sharded, all-reduces of the GN system (all_reduce_system) since the
+# last reset_refresh_counts()
+REFRESH_COUNTS = {"host_reads": 0, "regathers": 0, "allreduces": 0}
 
 
 def reset_refresh_counts() -> None:
@@ -258,6 +267,21 @@ def read_flags(flags: torch.Tensor) -> list:
         torch.cuda.set_sync_debug_mode(mode)
 
 
+def all_reduce_system(jtj: torch.Tensor, jtr: torch.Tensor,
+                      n_corr: torch.Tensor, total_w: torch.Tensor, group):
+    """The sum over the ranks of ``group`` of one GN build (jtj [6, 6], jtr
+    [6], n_corr int32, total weight) as ONE all-reduce of a packed f32
+    [36 + 6 + 1 + 1] buffer (the JAX package's four ``psum``s,
+    ``ptudes_tpu/ops/icp.py:479-484``). The count travels as f32, exact
+    below 2^24, and comes back int32. Every rank gets the same bits."""
+    buf = torch.cat([jtj.reshape(36), jtr, n_corr.to(torch.float32)[None],
+                     total_w.reshape(1)])
+    dist.all_reduce(buf, group=group)
+    REFRESH_COUNTS["allreduces"] += 1
+    return (buf[:36].reshape(6, 6), buf[36:42], buf[42].to(torch.int32),
+            buf[43])
+
+
 def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
                           vmap_: hashmap.VoxelHashMap,
                           initial_guess: torch.Tensor,
@@ -274,7 +298,8 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
                           fused_gather: bool = False,
                           form: str = "torch",
                           slot_base: torch.Tensor | None = None,
-                          logical_capacity: int | None = None) -> IcpResult:
+                          logical_capacity: int | None = None,
+                          group=None) -> IcpResult:
     """Cached-candidate robust GN ICP, ``loss`` "plane" or "point".
 
     ``refresh_drift == 0``: the candidates gathered at the guess stay
@@ -298,7 +323,17 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
     (``ptudes_tpu/ops/icp.py:406-408``). A ``logical_capacity`` without a
     slot base raises ``ValueError`` where K6 would run: K6 hashes with the
     table's physical capacity, so it would find other slots than the
-    gather."""
+    gather.
+
+    ``group`` (a ``torch.distributed`` process group; None: no sharding):
+    ``source`` and ``source_mask`` are this rank's shard of the source,
+    the map and the guess are the same on every rank, and each GN build is
+    summed over the ranks by :func:`all_reduce_system` before the solve,
+    so every rank returns the same result. The frozen form then preps
+    once as above (K6 or K3) and runs :func:`_register_refresh`'s host
+    loop without its re-gather: K5 (``cuda_gn.gn_prepped``) a GN
+    iteration, never K4, which cannot reduce across ranks (as the JAX
+    package routes it, ``ptudes_tpu/ops/icp.py:365-377``)."""
     from . import cuda_gather, cuda_gn, cuda_icp
     if form not in ("cuda", "torch"):
         raise ValueError(f"unknown icp form {form!r}")
@@ -323,7 +358,7 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
             neighborhood=neighborhood, n_voxels=n_voxels,
             plane_radius=plane_radius, refresh_drift=refresh_drift,
             form=form, slot_base=slot_base,
-            logical_capacity=logical_capacity)
+            logical_capacity=logical_capacity, group=group)
     r = 1.5 * voxel_size if plane_radius is None else plane_radius
     if fused:
         fuse = (cuda_gather.gather_prep_fused if form == "cuda"
@@ -341,6 +376,17 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
         prep = (cuda_gn.prep_with_plane if form == "cuda"
                 else cuda_gn.prep_with_plane_torch)
         prepped = prep(cand, source_mask, q_w, r, loss=loss)
+    if group is not None:
+        return _register_refresh(
+            source, source_mask, vmap_, guess, max_distance * max_distance,
+            kernel, voxel_size=voxel_size, max_probes=max_probes,
+            max_iterations=max_iterations, convergence=convergence,
+            loss=loss, plane_min_quality=plane_min_quality,
+            prior_rot_weight=prior_rot_weight,
+            prior_trans_weight=prior_trans_weight,
+            neighborhood=neighborhood, n_voxels=n_voxels,
+            plane_radius=plane_radius, refresh_drift=0.0, form=form,
+            group=group, prepped=prepped)
     loop = cuda_icp.icp_loop if form == "cuda" else cuda_icp.icp_loop_torch
     pose, n_corr, iters, dev_t, dev_r = loop(
         source, prepped, guess, kernel, max_distance * max_distance,
@@ -397,11 +443,17 @@ def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
                       loss, plane_min_quality, prior_rot_weight,
                       prior_trans_weight, neighborhood, n_voxels,
                       plane_radius, refresh_drift, form, slot_base=None,
-                      logical_capacity=None) -> IcpResult:
+                      logical_capacity=None, group=None,
+                      prepped=None) -> IcpResult:
     """The refresh loop (``ptudes_tpu.ops.icp.register_frame_cached`` with
     ``refresh_drift > 0``). Per iteration: stale check; re-gather at the
-    current pose if stale; one GN build (K5 or its twin); prior, Tikhonov
-    floor, solve, SE(3) update; convergence.
+    current pose if stale; one GN build (K5 or its twin); with ``group``
+    its all-reduce over the ranks (:func:`all_reduce_system`); prior,
+    Tikhonov floor, solve, SE(3) update; convergence.
+
+    ``refresh_drift == 0`` (the point-sharded frozen form): the candidates
+    ``prepped`` the caller prepped stay frozen, there is no stale check,
+    and the read is "not converged" alone.
 
     The JAX package runs this as a ``while_loop`` around a ``lax.cond``.
     Here the loop is on the host, and from the second iteration on it
@@ -422,23 +474,30 @@ def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
         return cuda_gn.prep_candidates(cand, source_mask, loss=loss)
 
     guess_inv = se3.inv(guess)
-    prepped = fetch(guess)
+    refresh = refresh_drift > 0.0
+    if refresh:
+        prepped = fetch(guess)
     t_cur = t_gather = guess
     n_corr = torch.zeros((), dtype=torch.int32, device=source.device)
     iters = 0
     while iters < max_iterations:
         if iters > 0:
-            go, stale = read_flags(torch.stack(
-                [~converged, drift_metric(t_gather, t_cur) > refresh_th]))
+            flags = [~converged]
+            if refresh:
+                flags.append(drift_metric(t_gather, t_cur) > refresh_th)
+            go, *stale = read_flags(torch.stack(flags))
             if not go:
                 break
-            if stale:
+            if refresh and stale[0]:
                 prepped = fetch(t_cur)
                 t_gather = t_cur
                 REFRESH_COUNTS["regathers"] += 1
         jtj, jtr, n_corr, total_w = gn(t_cur, source, prepped, kernel,
                                        max_d2,
                                        plane_min_quality=plane_min_quality)
+        if group is not None:
+            jtj, jtr, n_corr, total_w = all_reduce_system(
+                jtj, jtr, n_corr, total_w, group)
         dx = gn_twist(t_cur, guess_inv, jtj, jtr, total_w,
                       prior_rot_weight=prior_rot_weight,
                       prior_trans_weight=prior_trans_weight)

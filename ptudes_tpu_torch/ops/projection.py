@@ -5,7 +5,8 @@ The XYZ lookup table is built on the host with numpy
 device once (:func:`make_xyz_lut`, or ``utils.convert.lut_from_numpy`` for
 a table already built); the per-scan projection is one multiply-add.
 :func:`reduce_active_beams_mask` keeps a subset of the beam rows (the
-commands' ``--beams``).
+commands' ``--beams``); :func:`destagger` shifts each row of a channel
+image by its beam's pixel offset (the ``viz`` command's images).
 """
 from __future__ import annotations
 
@@ -108,6 +109,20 @@ def scan_to_points(lut: XyzLut, range_m: torch.Tensor, decimate: int = 1
     cols = torch.arange(g, device=dev)[None, :] * decimate + k
     ts = (cols.to(torch.float32) / w).reshape(lead + (h * g,))
     return pts, mask, ts
+
+
+def destagger(field: torch.Tensor, pixel_shift_by_row) -> torch.Tensor:
+    """Each row of ``field`` [H, W, ...] rolled right by its per-beam
+    offset ``pixel_shift_by_row`` [H] (ouster-sdk ``client.destagger``;
+    ``ptudes_tpu.ops.projection.destagger``'s ``jnp.roll`` per row), as one
+    gather: ``out[r, c] = field[r, (c - shift[r]) mod W]``."""
+    h, w = field.shape[:2]
+    shift = torch.as_tensor(np.asarray(pixel_shift_by_row),
+                            device=field.device).to(torch.int64)
+    cols = torch.remainder(
+        torch.arange(w, device=field.device)[None, :] - shift[:, None], w)
+    idx = cols.reshape((h, w) + (1,) * (field.dim() - 2)).expand(field.shape)
+    return torch.gather(field, 1, idx)
 
 
 def reduce_active_beams_mask(h: int, beams_num: int) -> np.ndarray:

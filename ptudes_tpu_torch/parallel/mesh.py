@@ -2,9 +2,9 @@
 
 Two axes, as in the JAX package: ``bag`` (independent sequences, no
 communication: ``parallel.replay`` deals bags over a grid's rows) and
-``pt`` (one scan's ICP source split across cards, the 6x6 system reduced
-every GN iteration). The ``pt`` axis waits for the point-sharded driver
-(``ptudes_tpu.parallel.sharded``), so a grid has one column for now.
+``pt`` (one scan's ICP source split across ranks, the 6x6 system reduced
+every GN iteration: ``parallel.sharded``, which runs one grid row as one
+process group, a rank a device).
 """
 from __future__ import annotations
 
@@ -20,13 +20,10 @@ def default_devices() -> list[torch.device]:
 
 def make_mesh(n_bags: int = 1, n_pt: int = 1, devices=None) -> np.ndarray:
     """An [n_bags, n_pt] object array of ``torch.device`` (row b: the cards
-    of bag b) from ``devices`` (default :func:`default_devices`), whose
-    count must be ``n_bags * n_pt``. ``n_pt > 1`` raises ``ValueError``
-    until the point-sharded driver is ported (ROADMAP queue 1 item 15a)."""
-    if n_pt != 1:
-        raise ValueError(
-            f"n_pt={n_pt}: the pt axis (point-sharded ICP across cards) is "
-            "not ported yet (ROADMAP queue 1 item 15a)")
+    of bag b, one ``pt`` group) from ``devices`` (default
+    :func:`default_devices`), whose count must be ``n_bags * n_pt``."""
+    if n_bags < 1 or n_pt < 1:
+        raise ValueError(f"bag x pt grid {n_bags}x{n_pt}")
     devices = default_devices() if devices is None else \
         [torch.device(d) for d in devices]
     if n_bags * n_pt != len(devices):

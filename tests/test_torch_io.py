@@ -419,17 +419,19 @@ def test_make_torch_fixture_bytes(recording, tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """With ``jax`` and ``ptudes_tpu`` blocked, every module of the port
-    imports (``parallel`` among them) and the command line's ``--help``
-    runs, ``ekf-bench ouster``'s and ``ekf-bench sweep``'s too; so does a
-    CPU run of the batched driver at the library's defaults (the refresh
-    loop, the ``"assoc"`` predict) with the constant-velocity guess and
+    """With ``jax``, ``ptudes_tpu`` and ``matplotlib`` blocked, every
+    module of the port imports (``parallel``, ``parallel.sharded`` and
+    ``viz`` among them) and the command line's ``--help`` runs, ``ekf-bench
+    ouster``'s and ``ekf-bench sweep``'s too; so does a CPU run of the
+    batched driver at the library's defaults (the refresh loop, the
+    ``"assoc"`` predict) with the constant-velocity guess and
     ``sim.make_world``: the code they reach at run time imports nothing
     of either."""
     code = """
 import pkgutil, runpy, sys
 sys.modules["jax"] = None
 sys.modules["ptudes_tpu"] = None
+sys.modules["matplotlib"] = None
 import ptudes_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     ptudes_tpu_torch.__path__, "ptudes_tpu_torch.")
@@ -440,7 +442,11 @@ need = {"ptudes_tpu_torch.io.sources", "ptudes_tpu_torch.native",
         "ptudes_tpu_torch.cli.main", "ptudes_tpu_torch.models.online",
         "ptudes_tpu_torch.io.rosbag2", "ptudes_tpu_torch.utils.stats",
         "ptudes_tpu_torch.parallel", "ptudes_tpu_torch.parallel.batched",
-        "ptudes_tpu_torch.parallel.replay", "ptudes_tpu_torch.parallel.mesh"}
+        "ptudes_tpu_torch.parallel.replay", "ptudes_tpu_torch.parallel.mesh",
+        "ptudes_tpu_torch.parallel.sharded", "ptudes_tpu_torch.viz",
+        "ptudes_tpu_torch.viz.cloud", "ptudes_tpu_torch.viz.fly",
+        "ptudes_tpu_torch.viz.graphs", "ptudes_tpu_torch.viz.stream_player",
+        "ptudes_tpu_torch.viz.debug_scene"}
 assert need <= set(names), need - set(names)
 assert not any(m == "jax" or m.startswith(("jax.", "ptudes_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -496,3 +502,37 @@ print("batched run")
         capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "--bacc-z" in r.stdout and "--replicas" in r.stdout
+
+
+def test_plot_flags_refused_without_matplotlib(tmp_path):
+    """Where matplotlib is missing (the card's machine), a plot flag is
+    refused with a clear error before anything runs (exit code 2), and
+    ``viz --stream-dir`` (numpy) still runs; nothing imports JAX."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["ptudes_tpu"] = None
+sys.modules["matplotlib"] = None
+from ptudes_tpu_torch.cli import main
+from ptudes_tpu_torch.viz import graphs
+for argv in (["ekf-bench", "sim", "-p", "graphs", "--device", "cpu"],
+             ["ekf-bench", "cmp", "GT", "-p", "graphs"],
+             ["viz", "GT", "--out-png", "x.png", "--device", "cpu"]):
+    argv = [sys.argv[1] if a == "GT" else a for a in argv]
+    assert main.main(argv) == 2, argv
+try:
+    graphs.kiss_innovation_graph([0.0], [0.0], [0.0], [0.0], show=False)
+except graphs.PlotUnavailable as e:
+    print("refused:", e)
+print("ok")
+"""
+    gt = tmp_path / "gt.csv"
+    gt.write_text("0,0,0,0,0,0,0,0,1\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code, str(gt)], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.endswith("ok\n") and "refused: plotting needs " \
+        "matplotlib" in r.stdout
+    assert r.stderr.count("plotting needs matplotlib, which is not "
+                          "installed") == 3, r.stderr

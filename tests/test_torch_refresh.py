@@ -182,7 +182,8 @@ def test_refresh_loop_empty_map_returns_guess(icp_scene):
         torch.tensor(0.5), torch.tensor(0.1667), form="cuda", **ICP_KW)
     np.testing.assert_allclose(res.pose.numpy(), tguess.numpy(), atol=1e-6)
     assert int(res.num_corr) == 0 and int(res.iterations) == 1
-    assert icp.REFRESH_COUNTS == {"host_reads": 1, "regathers": 0}
+    assert icp.REFRESH_COUNTS == {"host_reads": 1, "regathers": 0,
+                                  "allreduces": 0}
 
 
 # ---------------------------------------------------------------- sequence

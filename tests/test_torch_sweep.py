@@ -4,9 +4,9 @@
 - ``stack_bags`` stacks states and batches; ``replay_bags`` gives each bag
   ``lio.run_sequence``'s result bit for bit (the same steps on the same
   inputs), for a frozen-candidate and a candidate-refresh configuration.
-- ``make_mesh``: its [n_bags, n_pt] grid, and ``ValueError`` for ``n_pt >
-  1`` (the point-sharded driver is not ported) and for a device count
-  that does not fill the grid.
+- ``make_mesh``: its [n_bags, n_pt] grid (the ``pt`` axis too, which
+  ``parallel.sharded`` runs), and ``ValueError`` for a device count that
+  does not fill the grid.
 - ``ekf-bench sweep --device cpu`` with ``--replicas 2``, ``--bacc-z
   -0.1,0,0.1`` and ``--beams 16,8`` on tests/test_torch_cli.py's recording
   (``tools/make_fixture.generate(n_scans=8, h=16, w=128, seed=7)``)
@@ -91,8 +91,8 @@ def test_make_mesh():
     g = mesh.make_mesh(3, devices=[cpu] * 3)
     assert g.shape == (3, 1) and all(d == cpu for d in g[:, 0])
     assert mesh.make_mesh(1, 1, devices=["cpu"]).shape == (1, 1)
-    with pytest.raises(ValueError, match="pt axis"):
-        mesh.make_mesh(2, 2, devices=[cpu] * 4)
+    g = mesh.make_mesh(2, 2, devices=[cpu] * 4)
+    assert g.shape == (2, 2) and all(d == cpu for d in g.ravel())
     with pytest.raises(ValueError, match="3x1 != 2 devices"):
         mesh.make_mesh(3, devices=[cpu] * 2)
 

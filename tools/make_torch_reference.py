@@ -72,6 +72,12 @@ Each ``--config`` NAME is written to ``tests/data/<NAME>_jax_poses.txt``
   associative predict off the TPU). The poses are its EKF poses, captured
   from the command's ``parallel.replay.replay_bags`` call, and the
   header's ATE RMSE is the one the command prints for them.
+- ``debug_scene``: the JAX command ``ekf-bench ouster --use-imu-prediction
+  -g gt.csv --end-scan 10 --save-debug-scene DIR --debug-scene-stride 2``
+  on the CPU on ``cli_pcap``'s recording (scans 0-10): the exported
+  scene's knots (``ptudes_tpu.viz.debug_scene.export_debug_scenes``), one
+  row each: knot, ``num_corr``, ``iterations``, then the 3x4 tops of its
+  ``icp_pose`` and ``ekf_pose``.
 - ``sweep_bacc_z`` and ``sweep_beams``: the same command with ``--bacc-z
   -0.1,0,0.1`` and with ``--beams 128,64``, both with ``--end-scan 20``
   (scans 0-20): every variant's EKF poses, variant after variant (21 rows
@@ -98,7 +104,10 @@ FROZEN_SPLIT = 25  # bench_frozen: scans mapped before the checkpoint
 CONFIGS = ("bench", "bench_fused", "cli", "cli_kiss", "cli_point",
            "bench_point", "bench_dec2", "bench_nn4", "bench_frozen",
            "kiss_every", "cli_pcap", "bench_beams64", "sweep_pcap",
-           "sweep_bacc_z", "sweep_beams")
+           "sweep_bacc_z", "sweep_beams", "debug_scene")
+# ekf-bench ouster's flags of the debug_scene reference
+DEBUG_SCENE_FLAGS = ["--use-imu-prediction", "--end-scan", "10",
+                     "--debug-scene-stride", "2"]
 SWEEP_FLAGS = {   # ekf-bench sweep's variant flags of each sweep reference
     "sweep_pcap": ["--replicas", "1"],
     "sweep_bacc_z": ["--bacc-z", "-0.1,0,0.1", "--end-scan", "20"],
@@ -272,6 +281,51 @@ def write_cli_pcap(path: str, scene) -> None:
           f"{time.monotonic() - t0:.0f} s", flush=True)
 
 
+def write_debug_scene(path: str, scene) -> None:
+    """``debug_scene`` (see the module docstring)."""
+    import json
+    import types
+
+    from click.testing import CliRunner
+
+    import make_torch_fixture
+    from ptudes_tpu.cli.main import ptudes_cli
+    from ptudes_tpu.io import metadata, packets, pcap, poses
+
+    t0 = time.monotonic()
+    jax_io = types.SimpleNamespace(metadata=metadata, packets=packets,
+                                   pcap=pcap, poses=poses)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, meta, gt = make_torch_fixture.bench(tmp, io=jax_io,
+                                                 scene=scene)
+        out_dir = os.path.join(tmp, "scene")
+        args = ["ekf-bench", "ouster", rec, "-m", meta, "-g", gt,
+                "--save-debug-scene", out_dir] + DEBUG_SCENE_FLAGS
+        r = CliRunner().invoke(ptudes_cli, args, catch_exceptions=False)
+        if r.exit_code:
+            raise RuntimeError(r.output)
+        with open(os.path.join(out_dir, "scene.json")) as f:
+            knots = json.load(f)["knots"]
+        rows = []
+        for k in knots:
+            with open(os.path.join(out_dir, f"knot_{k:04d}.json")) as f:
+                m = json.load(f)
+            rows.append([k, m["num_corr"], m["iterations"]]
+                        + list(np.asarray(m["icp_pose"])[:3].ravel())
+                        + list(np.asarray(m["ekf_pose"])[:3].ravel()))
+    header = "\n".join([
+        "JAX debug scene of the bench scene written as an Ouster recording "
+        "(tools/make_torch_fixture.py bench over ptudes_tpu.io), scans 0-10",
+        "ptudes_tpu ekf-bench ouster REC.pcap -m REC.json -g gt.csv "
+        "--save-debug-scene DIR " + " ".join(DEBUG_SCENE_FLAGS)
+        + " on the CPU (predict_batch='assoc', update_form='xla')",
+        "one row per exported knot: knot, num_corr, iterations, the 3x4 top "
+        "of icp_pose, the 3x4 top of ekf_pose (knot_XXXX.json), row-major"])
+    np.savetxt(path, np.asarray(rows), fmt="%.9g", header=header)
+    print(f"wrote {path}: {len(rows)} knots {knots}, "
+          f"{time.monotonic() - t0:.0f} s", flush=True)
+
+
 def write_sweep(path: str, scene, which: str) -> None:
     """``sweep_pcap``, ``sweep_bacc_z``, ``sweep_beams`` (see the module
     docstring)."""
@@ -354,6 +408,8 @@ def main(which: str, path: str, scene) -> None:
 
     if which == "cli_pcap":
         return write_cli_pcap(path, scene)
+    if which == "debug_scene":
+        return write_debug_scene(path, scene)
     if which in SWEEP_FLAGS:
         return write_sweep(path, scene, which)
     sensor, scans, scan_ts, gt_mid, imu = scene
