@@ -152,8 +152,26 @@ Phases, each reported on its own line:
 Phase 3 also holds K3's point mode (``loss="point"``: the instance without
 the fit) bit for bit against its twin, K4 on its point rows and K5 on
 point rows at the CLI shapes; phase 2 prints the SASS instruction count of
-both K3 instances (``cuobjdump``).
-Every kernel's line in the JSON summary carries its bound: the larger of
+both K3 instances (``cuobjdump``); the scene renders in a child process
+beside phases 2-3.
+The graph form (``models.graph``): phases 4, 6, 7c, 8b-e (8d and 8e on
+their first 25 scans) and 10b also run each cell with ``graph=True``, the
+drivers' default on the card: a first graph call, which captures, then
+the eager loop and the graph in alternation, three timed runs each with
+host syncs made errors, each graph run a later call of the kept runner;
+the graph's rows and final state bit-equal to the eager run's, the same
+launches, the profiled device operations a scan of the steady step's
+replays equal to the eager step's plus the runner's own; both forms' busy
+ms, idle share, wall ms a scan, scans/s, and the graph's first call (its
+capture included), capture ms, break-even scans and graph pool MB. Phase
+9 also runs ``LioOnline`` at ``bench_config()`` in both forms on an
+epoch-scale clock (the graph's rows bit-equal to the batch graph run's,
+latency p50/p95/p99 of both). The phases whose steps
+read the card from the host (5, 7a-b, 8a, 8f, 9's command, 10c-e, 11)
+check that they ran eagerly. One JSON line of the graph forms' figures
+with the card's name and power limit precedes the kernel summary.
+Every kernel's line in the JSON summary carries its launches in graphs
+and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the H100 SXM data
 sheet), for the inputs it was timed on. The last two lines before the
@@ -181,7 +199,8 @@ import torch
 
 from ptudes_tpu_torch import config, kernels
 from ptudes_tpu_torch.geom import se3, so3
-from ptudes_tpu_torch.models import esekf, kiss, lio, sim
+from ptudes_tpu_torch.models import esekf, graph, kiss, lio, sim
+from ptudes_tpu_torch.models.online import LioOnline
 from ptudes_tpu_torch.ops import (cuda_ekf, cuda_gather, cuda_gn, cuda_icp,
                                   hashmap, icp)
 from ptudes_tpu_torch.ops import voxel
@@ -214,6 +233,14 @@ F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.monotonic()
+
+
+def phase(msg: str) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    say(f"{msg} (at {time.monotonic() - T_START:.1f} s)")
 
 
 def launch_counts() -> dict[str, int]:
@@ -1228,12 +1255,10 @@ def check_fused_registration(dev):
         f"{int(ru.num_corr)}")
 
 
-def check_plane_moments(dev, results):
-    """K7 against its twin at the bench and CLI shapes: the count row
-    exact, the other rows within 1e-5 of each row's largest magnitude,
-    rows 10-15 zero. Returns its launches in the checks (the timing
-    loops' not counted)."""
-    checked = 0
+def plane_moments_inputs(dev):
+    """K7's inputs at the bench and CLI shapes: (name, (ptq, cx, cy, cz,
+    inf, radius2)) for the bench scene (N = 2048, C = 32) and the CLI
+    scene (N = 8192, C = 80)."""
     cm, csrc, _, ct = cli_map_scene(dev)
     m, src, _, guess = icp_scene(dev)
     for name, (vm, s_, t, vs, nb, r) in (
@@ -1246,61 +1271,280 @@ def check_plane_moments(dev, results):
         cx, cy, cz, inf = cuda_gn.lane_major(cand)
         n = q_w.shape[0]
         ptq = torch.cat([q_w.T, torch.zeros((5, n), device=dev)]).contiguous()
-        r2 = cuda_gn._radius2(r)
+        yield name, (ptq, cx, cy, cz, inf, cuda_gn._radius2(r))
+
+
+def plane_moments_error(got, op, what: str) -> float:
+    """K7's output ``got`` against the twin's ``op``: fails unless the
+    count row is exact and the pad rows zero; returns rows 1-9's largest
+    error relative to each row's largest magnitude."""
+    check(torch.equal(got[0], op[0])
+          and float(op[0].sum()) > 4 * got.shape[1], f"{what}: count row")
+    check(bool((got[10:] == 0).all()), f"{what}: pad rows")
+    return max(float((got[i] - op[i]).abs().max() / op[i].abs().max())
+               for i in range(1, 10))
+
+
+def check_plane_moments(dev, results):
+    """K7 against its twin at the bench and CLI shapes: the count row
+    exact, the other rows within 1e-5 of each row's largest magnitude,
+    rows 10-15 zero. Returns its launches in the checks (the timing
+    loops' not counted)."""
+    checked = 0
+    for name, (ptq, cx, cy, cz, inf, r2) in plane_moments_inputs(dev):
+        n = ptq.shape[1]
         before = kernels.LAUNCHES["plane_moments"]
         ok_ = cuda_gn.plane_moments(ptq, cx, cy, cz, inf, r2)
+        again = cuda_gn.plane_moments(ptq, cx, cy, cz, inf, r2)
         checked += kernels.LAUNCHES["plane_moments"] - before
-        op = cuda_gn.plane_moments_torch(ptq, cx, cy, cz, inf, r2)
-        check(torch.equal(ok_[0], op[0]) and float(op[0].sum()) > 4 * n,
-              f"plane_moments {name}: count row")
-        rel = max(float((ok_[i] - op[i]).abs().max() / op[i].abs().max())
-                  for i in range(1, 10))
+        check(torch.equal(ok_, again), f"plane_moments {name}: does not "
+              "repeat bit for bit")
+        rel = plane_moments_error(
+            ok_, cuda_gn.plane_moments_torch(ptq, cx, cy, cz, inf, r2),
+            f"plane_moments {name}")
         check(rel <= 1e-5, f"plane_moments {name}: rows 1-9 rel {rel}")
-        check(bool((ok_[10:] == 0).all()), f"plane_moments {name}: pad rows")
         tk = cuda_ms(lambda: cuda_gn.plane_moments(ptq, cx, cy, cz, inf, r2),
                      200)
         tp = cuda_ms(lambda: cuda_gn.plane_moments_torch(
             ptq, cx, cy, cz, inf, r2), 20)
+        dus = kernel_us(lambda: cuda_gn.plane_moments(ptq, cx, cy, cz, inf,
+                                                      r2), "plane_moments")
         c = cx.shape[0]
         # the kernel reads ptq's query rows 0-2 only
         b = bound(nbytes(ptq[:3], cx, cy, cz, inf, ok_), 20 * n * c)
         say(f"  plane_moments {name} (N={n}, C={c}): count row exact, rows "
-            f"1-9 rel {rel:.2e} (1e-5), pad rows zero; {tk:.4f} ms vs twin "
-            f"{tp:.4f} ms (bound {b['bound_ms'] * 1e3:.3f} us)")
+            f"1-9 rel {rel:.2e} (1e-5), pad rows zero, repeating bit for "
+            f"bit; {tk:.4f} ms vs twin {tp:.4f} ms, device {dus:.2f} us "
+            f"(bound {b['bound_ms'] * 1e3:.3f} us)")
         if name == "bench":
             results["plane_moments"] = dict(max_abs_err=rel, ms=tk,
-                                            plain_ms=tp, **b)
+                                            plain_ms=tp, device_us=dus, **b)
         else:
             results["plane_moments"].update(
                 max_abs_err=max(rel, results["plane_moments"]["max_abs_err"]),
-                ms_cli=tk, plain_ms_cli=tp, bound_ms_cli=b["bound_ms"])
+                ms_cli=tk, plain_ms_cli=tp, device_us_cli=dus,
+                bound_ms_cli=b["bound_ms"])
     return checked
 
 
-# --------------------------------------------------------------- phase 4
+# ------------------------------------ the graph form (models.graph)
 
-def timed_run(c, batches, lut, dev, log=False, state=None):
-    """One ``lio.run_sequence`` from ``state`` (default a fresh one) with
-    host syncs made errors (the refresh loop lifts that for its counted
-    reads only); returns (out, seconds)."""
-    state = lio.init_state(c, dev) if state is None else state
+FORM_RUNS = 3   # timed runs of each form a cell, in alternation
+FORM_SCANS_8DE = 25   # scans of 8d's and 8e's form runs (the time limit)
+
+
+def ran_eagerly(tag: str) -> None:
+    """Fail unless the last driver call ran its step op by op."""
+    check(graph.LAST_RUN["form"] == "eager",
+          f"{tag}: ran as {graph.LAST_RUN['form']}, not eagerly")
+
+
+def timed_form(run, form: bool, state) -> dict:
+    """One ``run(form, state)`` (a driver call with ``graph=form`` from
+    ``state``, made before the clock starts) with host syncs made errors,
+    the form it ran checked: its final state, outputs, seconds,
+    ``graph.LAST_RUN`` and launches."""
+    kernels.reset_launches()
     torch.cuda.synchronize()
     t = time.monotonic()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        _, out = lio.run_sequence(state, batches, lut, cfg=c, log=log)
+        fin, out = run(form, state)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    return out, time.monotonic() - t
+    dt = time.monotonic() - t
+    rec = dict(graph.LAST_RUN)
+    check(rec["form"] == ("graph" if form else "eager"),
+          f"graph={form} ran as {rec['form']}")
+    return dict(fin=fin, out=out, s=dt, record=rec,
+                launches=launch_counts())
 
 
-def run_main_path(n_scans: int, dev):
-    """Phase 4; returns each kernel's launches in the timed run, the scene,
-    the timed run's output and scans/s, and the largest difference between
-    the warm-up's and the timed run's poses (0: they repeat bit for
-    bit)."""
+def profiled(fn, n_scans: int) -> dict:
+    """``fn()`` (``n_scans`` scans) under ``torch.profiler``: device busy us,
+    device operations and the idle share of the span from the first device
+    operation to the last, a scan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_us(ev)
+    span = max(e.time_range.end for e in ev) - min(
+        e.time_range.start for e in ev)
+    return dict(busy_us_per_scan=busy / n_scans,
+                device_ops_per_scan=len(ev) / n_scans,
+                idle_share=1.0 - busy / span)
+
+
+def window_forms(tag, step, state, tail, *, axis: int = 0) -> dict:
+    """The steady ``step`` over the scans of ``tail`` from ``state``, op by
+    op and as replays of its graph (captured before the trace), each under
+    the profiler: device busy us, operations and idle share a scan. The
+    graph's operations a scan must be the eager step's plus the runner's
+    own (its input selects, state copies, output copies and counter):
+    the same work. The profiler can drop records, so a mismatch is
+    profiled again up to twice."""
+    n = tail.range_m.shape[axis]
+    scan = lio.scan_at if axis == 0 else batched.scan_of
+    g = graph.SequenceGraph(state, tail, axis=axis)
+    g.add("steady", step)
+
+    def eager():
+        s = state
+        for i in range(n):
+            s, *_ = step(s, scan(tail, i))
+
+    for _ in range(3):
+        e = profiled(eager, n)
+        g.counter.zero_()
+        r = profiled(lambda: g.run(["steady"] * n), n)
+        if r["device_ops_per_scan"] == (e["device_ops_per_scan"]
+                                        + g.own_ops):
+            break
+    check(r["device_ops_per_scan"] == e["device_ops_per_scan"] + g.own_ops,
+          f"{tag}: {r['device_ops_per_scan']} device operations a replay, "
+          f"the eager step {e['device_ops_per_scan']} + the runner's "
+          f"{g.own_ops}")
+    return dict(eager=e, graph=r, runner_ops_per_scan=g.own_ops)
+
+
+def graph_cell(tag: str, run, make_state, n_scans: int, window, *,
+               scans_per_run: int | None = None, first: dict | None = None):
+    """A cell's graph form against its eager loop (phases 4, 6, 7c, 8b-e,
+    10b). ``run(form, state)`` drives the cell with ``graph=form`` and
+    returns (final state, outputs); ``make_state()`` makes its start state
+    (outside the clock); ``window()`` is :func:`window_forms` of its steady
+    step. The kept runners are dropped, so the first graph call captures:
+    its wall time, set-up included, is the cell's first call. Then eager
+    and graph in alternation, ``FORM_RUNS`` timed runs each with host
+    syncs made errors, every graph run a kept runner's later call;
+    ``first``, the cell's own timed eager run (a :func:`timed_form`
+    record), is the first of them when given. Gates: every graph run's
+    rows and final state (the first call's too) bit-equal to the first
+    eager run's, the eager runs repeating bit for bit, the same kernel
+    launches (a graph's: its capture's launches times its replays), each
+    run's form, and the window's device operations. The break-even is
+    the scans a first call needs to beat the eager loop: its capture ms
+    over the median eager minus the median graph ms a scan. Returns
+    (summary, the graph runs' launches)."""
+    graph.RUNNERS.clear()
+    warm = timed_form(run, True, make_state())     # warm-up and capture
+    check(not warm["record"]["cached"], f"{tag}: the first call was kept")
+    runs = {False: [first] if first else [], True: []}
+    for form in ((False, True) * FORM_RUNS)[1 if first else 0:]:
+        runs[form].append(timed_form(run, form, make_state()))
+    ref = runs[False][0]
+    for r in runs[False][1:]:
+        check(same_bits((r["fin"], r["out"]), (ref["fin"], ref["out"])),
+              f"{tag}: the eager runs do not repeat bit for bit")
+    for r in runs[True]:
+        check(r["record"]["cached"], f"{tag}: a later call captured again")
+    for r in [warm, *runs[True]]:
+        check(same_bits(r["out"], ref["out"]),
+              f"{tag}: the graph's rows differ from the eager loop's")
+        check(same_bits(r["fin"], ref["fin"]),
+              f"{tag}: the graph's final state differs from the eager "
+              "loop's")
+        check(r["launches"] == ref["launches"],
+              f"{tag}: launches {r['launches']} as a graph, "
+              f"{ref['launches']} eagerly")
+    win = window()
+    per = scans_per_run or n_scans
+    summary = dict(runner_ops_per_scan=win["runner_ops_per_scan"])
+    for form, name in ((False, "eager"), (True, "graph")):
+        wall = [r["s"] for r in runs[form]]
+        summary[name] = dict(
+            wall_ms_per_scan=[w / n_scans * 1e3 for w in wall],
+            scans_per_s=[per / w for w in wall], **win[name])
+    e, g = summary["eager"], summary["graph"]
+    cap = warm["record"]["capture_ms"]
+    gain = (float(np.median(e["wall_ms_per_scan"]))
+            - float(np.median(g["wall_ms_per_scan"])))
+    g.update(capture_ms=cap, pool_mb=warm["record"]["pool_mb"],
+             first_call_ms=warm["s"] * 1e3,
+             replays=warm["record"]["replays"])
+    summary["break_even_scans"] = cap / gain if gain > 0 else None
+    say(f"  {tag} eager / graph: busy {e['busy_us_per_scan'] / 1e3:.3f} / "
+        f"{g['busy_us_per_scan'] / 1e3:.3f} ms, idle "
+        f"{e['idle_share'] * 100:.1f} / {g['idle_share'] * 100:.1f} %, "
+        f"{e['device_ops_per_scan']:.1f} / {g['device_ops_per_scan']:.1f} "
+        f"device operations a scan (the runner's own "
+        f"{win['runner_ops_per_scan']}); wall ms a scan "
+        + ", ".join(f"{x:.3f}" for x in e["wall_ms_per_scan"]) + " / "
+        + ", ".join(f"{x:.3f}" for x in g["wall_ms_per_scan"])
+        + "; scans/s " + ", ".join(f"{x:.1f}" for x in e["scans_per_s"])
+        + " / " + ", ".join(f"{x:.1f}" for x in g["scans_per_s"])
+        + f"; first call {g['first_call_ms']:.1f} ms with its capture "
+        f"{cap:.1f} ms (break-even {summary['break_even_scans']} scans), "
+        f"graph pool {g['pool_mb']:.1f} MB; rows and final state bit-equal, "
+        f"launches equal ({ref['launches']})")
+    summary["graph_launches"] = runs[True][0]["launches"]
+    FORM_CELLS[tag] = summary
+    return summary, runs[True][0]["launches"]
+
+
+FORM_CELLS: dict[str, dict] = {}   # graph_cell's summaries, by cell
+
+
+def lio_forms(tag, cfg, batches, lut, dev, state=None, *, log=False,
+              window: int = 10, head=None, first=None):
+    """:func:`graph_cell` of ``lio.run_sequence`` of ``cfg`` on
+    ``batches`` from ``state`` (default a fresh one), its window the last
+    ``window`` scans after the first ones ran eagerly (``head``: the state
+    after them, when the cell's warm-up has it; ``first``: the cell's own
+    timed eager run, the first of the eager runs)."""
+    n = batches.range_m.shape[0]
+    window = min(window, n // 2)
+
+    def make_state():
+        return lio.init_state(cfg, dev) if state is None else state
+
+    def run(form, st):
+        return lio.run_sequence(st, batches, lut, cfg=cfg, log=log,
+                                graph=form)
+
+    def win():
+        start = head
+        if start is None:
+            start, _ = lio.run_sequence(
+                make_state(), lio.scan_at(batches, slice(0, n - window)),
+                lut, cfg=cfg, log=log, graph=False)
+        tail = dataclasses.replace(cfg, bootstrap_scans=0)
+        _, steady, _ = lio.sequence_steps(lut, tail, window, log)
+        return window_forms(tag, steady, start,
+                            lio.scan_at(batches, slice(n - window, n)))
+
+    return graph_cell(tag, run, make_state, n, win, first=first)
+
+
+# --------------------------------------------------------------- phase 4
+
+def timed_run(c, batches, lut, dev, log=False, state=None, form=False):
+    """One ``lio.run_sequence`` from ``state`` (default a fresh one) with
+    host syncs made errors (the refresh loop lifts that for its counted
+    reads only), ``graph=form``: the eager loop by default, None the
+    driver's choice, which must be the eager loop; returns
+    :func:`timed_form`'s record."""
+    state = lio.init_state(c, dev) if state is None else state
+    return timed_form(lambda f, st: lio.run_sequence(
+        st, batches, lut, cfg=c, log=log, graph=f), form, state)
+
+
+def run_main_path(n_scans: int, dev, render=None):
+    """Phase 4 (``render``: the child process rendering the scene into its
+    cache, waited for first); returns each kernel's launches in the timed
+    run, the scene, the timed run's output and scans/s, and the largest
+    difference between the warm-up's and the timed run's poses (0: they
+    repeat bit for bit)."""
     t0 = time.monotonic()
+    if render is not None:
+        check(render.wait() == 0, f"the scene render failed (rc "
+              f"{render.returncode})")
     scene = sim.bench_scene(n_scans)
     sensor, scans, scan_ts, gt_mid, imu = scene
     say(f"  scene: {n_scans} scans of {scans.shape[1]}x{scans.shape[2]} "
@@ -1310,13 +1554,9 @@ def run_main_path(n_scans: int, dev):
     batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
                                 imu.ts, device=dev)
 
-    def timed(c):
-        return timed_run(c, batches, lut, dev)
-
-    warm, _ = timed(cfg)                        # warm-up
-    kernels.reset_launches()
-    out, dt = timed(cfg)
-    launches = launch_counts()
+    warm = timed_run(cfg, batches, lut, dev)["out"]        # warm-up
+    first = timed_run(cfg, batches, lut, dev)
+    out, dt, launches = first["out"], first["s"], first["launches"]
     repeat = max(float((getattr(warm, f) - getattr(out, f)).abs().max())
                  for f in ("kiss_pose", "ekf_pose"))
     for name, count in launches.items():
@@ -1342,12 +1582,14 @@ def run_main_path(n_scans: int, dev):
            f"DIFFER by up to {repeat:.3e} (a fault: whole runs should "
            "repeat bit for bit)"))
 
+    lio_forms("4 bench", cfg, batches, lut, dev, first=first)
     tcfg = config.twin_config(cfg)
     lio.run_sequence(lio.init_state(tcfg, dev),
                      lio.scan_at(batches, slice(0, 4)), lut,
-                     cfg=tcfg)                          # warm-up
+                     cfg=tcfg, graph=False)             # warm-up
     kernels.reset_launches()
-    out_t, dt_t = timed(tcfg)
+    tw = timed_run(tcfg, batches, lut, dev)
+    out_t, dt_t = tw["out"], tw["s"]
     check(sum(kernels.LAUNCHES.values()) == 0, "twin path launched kernels")
     kt = out_t.kiss_pose.double().cpu().numpy()
     _, ate_t = metrics.calc_ate_rmse(kt, gt_mid)
@@ -1382,7 +1624,8 @@ def run_log_path(scene, n_scans: int, dev, bench_out, bench_rate,
     kernels.reset_launches()
     esekf.process_imu = counted
     try:
-        out, dt = timed_run(cfg, batches, lut, dev, log=True)
+        first = timed_run(cfg, batches, lut, dev, log=True)
+        out, dt = first["out"], first["s"]
     finally:
         esekf.process_imu = step
     launches = launch_counts()
@@ -1417,6 +1660,7 @@ def run_log_path(scene, n_scans: int, dev, bench_out, bench_rate,
     check(len(flat.ts) == n_valid and bool((np.diff(flat.ts) > 0).all()),
           f"flattened log: {len(flat.ts)} entries of {n_valid}, ts rising "
           f"{bool((np.diff(flat.ts) > 0).all())}")
+    lio_forms("7c bench log", cfg, batches, lut, dev, log=True, first=first)
     say(f"  7c bench_config, log=True: {n_scans / dt:.2f} scans/s ({dt:.3f} "
         f"s; phase 4 in this call {bench_rate:.2f}), poses "
         + ("bit-equal to phase 4's" if diff == 0 else
@@ -1526,40 +1770,27 @@ def busy_us(events) -> float:
     return total + (0.0 if cur_e is None else cur_e - cur_s)
 
 
-def device_window(run, n_scans: int) -> dict:
-    """Device busy us a scan (the union of the device intervals in a
-    ``torch.profiler`` trace) and device operations (kernels, copies and
-    fills) a scan over ``run()``, which runs ``n_scans`` scans."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    return dict(busy_us_per_scan=busy_us(ev) / n_scans,
-                device_ops_per_scan=len(ev) / n_scans)
-
-
-def lio_warm_up(cfg, batches, lut, dev, state, window: int) -> dict:
+def lio_warm_up(cfg, batches, lut, dev, state, window: int):
     """A phase-8 run's warm-up: its first scans, then its last ``window``
     scans from there (the steady step, as in an unbroken run) under the
-    profiler; returns :func:`device_window`'s numbers."""
+    profiler; returns :func:`profiled`'s numbers and the state after
+    the first scans."""
     n = batches.range_m.shape[0]
     k = n - window
     state = lio.init_state(cfg, dev) if state is None else state
     state, _ = lio.run_sequence(state, lio.scan_at(batches, slice(0, k)),
-                                lut, cfg=cfg)
+                                lut, cfg=cfg, graph=False)
     tail = dataclasses.replace(cfg, bootstrap_scans=0)
-    return device_window(lambda: lio.run_sequence(
-        state, lio.scan_at(batches, slice(k, n)), lut, cfg=tail), window)
+    return profiled(lambda: lio.run_sequence(
+        state, lio.scan_at(batches, slice(k, n)), lut, cfg=tail,
+        graph=False), window), state
 
 
 def run_option_path(scene, dev, cfg, tag: str, ref_name: str, want, *,
                     card: str, batches=None, state=None, rows=None,
                     ate_slack=None, ate_max=None, twins: bool = False,
-                    window: int = 10):
+                    window: int = 10, forms: bool = False,
+                    form_scans: int | None = None):
     """A run of ``cfg`` on the bench scene (phases 5-8): ``batches`` and
     the start ``state`` when given, else the scans the JAX poses
     ``tests/data/<ref_name>_jax_poses.txt`` hold from a fresh state. The
@@ -1570,8 +1801,12 @@ def run_option_path(scene, dev, cfg, tag: str, ref_name: str, want, *,
     every pose finite and within 0.02 m of the JAX poses (their ``rows``),
     with ``ate_slack`` the ATE RMSE within that of the JAX run's, with
     ``ate_max`` at most that. With ``twins`` the same run with every kernel
-    replaced by its twin (no launch). Returns (launches, output,
-    summary)."""
+    replaced by its twin (no launch). The timed run is the eager loop:
+    with ``forms`` asked for (``graph=False``) and then the graph form
+    held to it (:func:`lio_forms`), else the driver's own choice, which
+    must be the eager loop (the refresh loop's host reads); ``form_scans``
+    cuts the two forms' runs to the first scans. Returns (launches,
+    output, summary)."""
     sensor, scans, scan_ts, gt_mid, imu = scene
     ref_path, ref = ref_poses(ref_name)
     lut = convert.lut_from_numpy(sensor.lut, dev)
@@ -1584,10 +1819,12 @@ def run_option_path(scene, dev, cfg, tag: str, ref_name: str, want, *,
     window = min(window, n // 2)
     rows = slice(0, n) if rows is None else rows
     ref, gt = ref[rows], gt_mid[rows]
-    busy = lio_warm_up(cfg, batches, lut, dev, state, window)
+    busy, head = lio_warm_up(cfg, batches, lut, dev, state, window)
     kernels.reset_launches()
     icp.reset_refresh_counts()
-    out, dt = timed_run(cfg, batches, lut, dev, state=state)
+    first = timed_run(cfg, batches, lut, dev, state=state,
+                      form=False if forms else None)
+    out, dt = first["out"], first["s"]
     launches, counts = launch_counts(), dict(icp.REFRESH_COUNTS)
     reads = counts["host_reads"]
     iters = int(out.aux.iterations.sum())
@@ -1625,14 +1862,23 @@ def run_option_path(scene, dev, cfg, tag: str, ref_name: str, want, *,
         f"{jax_ate:.4f}), max |pose - JAX| {err.max():.4f} m (<= "
         f"{POSE_GATE_M}), {iters} GN iterations, {counts['regathers']} "
         f"re-gathers, {reads} host reads (<= {iters + n}), no other host "
-        f"sync, hand kernels a scan {ran}; {card}")
+        f"sync, hand kernels a scan {ran}; "
+        + ("the eager loop asked for" if forms else
+           "the driver ran it eagerly") + f"; {card}")
+    if forms and form_scans is None:
+        lio_forms(tag, cfg, batches, lut, dev, state, window=window,
+                  head=head, first=first)
+    elif forms:
+        lio_forms(tag, cfg, lio.scan_at(batches, slice(0, form_scans)), lut,
+                  dev, state, window=window)
     if twins:
         tcfg = config.twin_config(cfg)
         lio.run_sequence(lio.init_state(tcfg, dev) if state is None
                          else state, lio.scan_at(batches, slice(0, 4)), lut,
-                         cfg=tcfg)                      # warm-up
+                         cfg=tcfg, graph=False)         # warm-up
         kernels.reset_launches()
-        out_t, dt_t = timed_run(tcfg, batches, lut, dev, state=state)
+        tw = timed_run(tcfg, batches, lut, dev, state=state)
+        out_t, dt_t = tw["out"], tw["s"]
         check(sum(kernels.LAUNCHES.values()) == 0,
               f"{tag}: the twin path launched kernels")
         kt = out_t.kiss_pose.double().cpu().numpy()
@@ -1710,7 +1956,7 @@ def run_frozen_path(scene, dev, bench_out, card: str):
                              imu.avel, imu.ts, time_origin=origin,
                              device=dev)
     fin, out_head = lio.run_sequence(lio.init_state(cfg, dev), head, lut,
-                                     cfg=cfg)
+                                     cfg=cfg, graph=False)
     check(torch.equal(out_head.kiss_pose, bench_out.kiss_pose[:split]),
           "8c: the mapping scans differ from phase 4's")
     _, ref = ref_poses("bench_frozen")
@@ -1739,15 +1985,17 @@ def run_frozen_path(scene, dev, bench_out, card: str):
         scene, dev, frozen, "8c frozen map", "bench_frozen",
         once_a_scan("ekf_predict", "gn_prep", "icp_loop", "ekf_update"),
         card=card, batches=tail(frozen), state=loaded,
-        rows=slice(split, n))
-    fin_frozen, _ = lio.run_sequence(loaded, tail(frozen), lut, cfg=frozen)
+        rows=slice(split, n), forms=True)
+    fin_frozen, _ = lio.run_sequence(loaded, tail(frozen), lut, cfg=frozen,
+                                     graph=False)
     check(torch.equal(fin_frozen.kiss.local_map.meta,
                       loaded.kiss.local_map.meta)
           and torch.equal(fin_frozen.kiss.local_map.points,
                           loaded.kiss.local_map.points),
           "8c: the frozen run changed the map")
     check(int(fin_frozen.kiss.num_scans) == n, "8c: num_scans")
-    _, out_resume = lio.run_sequence(again, tail(resume), lut, cfg=resume)
+    _, out_resume = lio.run_sequence(again, tail(resume), lut, cfg=resume,
+                                     graph=False)
     check(torch.equal(out_resume.kiss_pose, bench_out.kiss_pose[split:])
           and torch.equal(out_resume.ekf_pose, bench_out.ekf_pose[split:]),
           "8c: save -> load -> continue differs from phase 4's run")
@@ -1771,6 +2019,10 @@ def run_kiss_every(scene, dev, card: str, window: int = 5):
     n = min(len(ref), len(scans))
     ref, window = ref[:n], min(window, n // 2)
     kcfg = config.KissConfig(nn_mode="every", loss="point")
+    # no driver: the step is kiss.register_scan in a host loop, and its
+    # query every GN iteration reads the card, so it stays eager
+    check(graph.host_read_reason(config.PipelineConfig(kiss=kcfg))
+          is not None, "8f: nn_mode='every' counted as capturable")
     cap = config.Capacity(max_points=scans.shape[1] * scans.shape[2])
     lut = convert.lut_from_numpy(sensor.lut, dev)
     ranges = torch.tensor(scans[:n], dtype=torch.float32, device=dev)
@@ -1786,7 +2038,7 @@ def run_kiss_every(scene, dev, card: str, window: int = 5):
         return state, torch.stack(poses), torch.stack(iters)
 
     state, _, _ = run(0, n - window)
-    busy = device_window(lambda: run(n - window, n, state), window)
+    busy = profiled(lambda: run(n - window, n, state), window)
     kernels.reset_launches()
     icp.reset_refresh_counts()
     torch.cuda.synchronize()
@@ -1853,7 +2105,7 @@ def run_phase8(scene, dev, bench_out, card: str
         by_path[name], out, sm = run_option_path(
             scene, dev, kiss_cfg(bench, loss="point", fused_gather=fused),
             f"8b bench point{' fused' if fused else ''}", "bench_point",
-            want, card=card)
+            want, card=card, forms=True)
         outs.append(out.kiss_pose.double().cpu().numpy())
         summaries.append(sm)
     gap = float(np.abs(outs[0] - outs[1])[:, :3, 3].max())
@@ -1865,14 +2117,14 @@ def run_phase8(scene, dev, bench_out, card: str
         scene, dev, R(bench, col_decimation=2), "8d column decimation 2",
         "bench_dec2",
         once_a_scan("ekf_predict", "gn_prep", "icp_loop", "ekf_update"),
-        card=card)
+        card=card, forms=True, form_scans=FORM_SCANS_8DE)
     summaries.append(sm)
     # the octant gather with fused_gather=True: the gather and K3, never K6
     by_path["bench_nn4"], _, sm = run_option_path(
         scene, dev, kiss_cfg(bench, nn_neighborhood=4, fused_gather=True),
         "8e octant gather (fused_gather=True)", "bench_nn4",
         once_a_scan("ekf_predict", "gn_prep", "icp_loop", "ekf_update"),
-        card=card)
+        card=card, forms=True, form_scans=FORM_SCANS_8DE)
     summaries.append(sm)
     by_path["kiss_every"], sm = run_kiss_every(scene, dev, card)
     summaries.append(sm)
@@ -1960,6 +2212,7 @@ def run_recording_path(scene, dev, card: str) -> dict[str, dict[str, int]]:
                           + (["--online"] if mode == "online" else []))
             wall = time.monotonic() - t
             launches[mode] = launch_counts()
+            ran_eagerly(f"9 {mode}")
             reads = icp.REFRESH_COUNTS["host_reads"]
             check(native.backend() == "native",
                   f"9 {mode}: the command decoded with {native.backend()}")
@@ -2027,6 +2280,86 @@ def run_recording_path(scene, dev, card: str) -> dict[str, dict[str, int]]:
     say(json.dumps(summary))
     return {"cli_pcap": launches["batch"],
             "cli_pcap_online": launches["online"]}
+
+
+ONLINE_EPOCH = 1.7e9   # phase 9's online clock: a recording's epoch scale
+
+
+def run_online_forms(scene, dev, card: str) -> dict[str, dict[str, int]]:
+    """Phase 9, the online driver's two forms at ``bench_config()``:
+    ``LioOnline`` fed the bench scene's IMU samples and scans in time order
+    on an epoch-scale clock, each scan's latency its ``push_scan`` and the
+    read of one pose entry. With ``graph=True`` (each step captured at its
+    first scan, static inputs filled from pinned memory) its rows must be
+    bit-equal to the batch run's graph form on the same clock; the eager
+    form's difference is printed. K1-K4 once a scan in both forms.
+    Returns the launches of both."""
+    sensor, scans, scan_ts, gt_mid, imu = scene
+    cfg = config.bench_config()
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    n = len(scans)
+    ts = ONLINE_EPOCH + np.asarray(scan_ts, np.float64)
+    its = ONLINE_EPOCH + np.asarray(imu.ts, np.float64)
+    batches = lio.build_batches(cfg, scans, ts, imu.lacc, imu.avel, its,
+                                device=dev)
+    _, batch_out = lio.run_sequence(lio.init_state(cfg, dev), batches, lut,
+                                    cfg=cfg, graph=True)
+    check(graph.LAST_RUN["form"] == "graph", "9 online: the batch run")
+    events = sorted([(float(t), 0, j) for j, t in enumerate(its)]
+                    + [(float(t), 1, i) for i, t in enumerate(ts)])
+    launches, runs = {}, {}
+    boot = cfg.bootstrap_scans
+    for form in (False, True):
+        odo = LioOnline(cfg, lut, graph=form)
+        check(odo.form == ("graph" if form else "eager"),
+              f"9 online graph={form}: runs as {odo.form}")
+        kernels.reset_launches()
+        outs, lat = [], []
+        for t, kind, j in events:
+            if kind == 0:
+                odo.push_imu(imu.lacc[j], imu.avel[j], t)
+            else:
+                t0 = time.monotonic()
+                out = odo.push_scan(scans[j], t)
+                float(out.ekf_pose[0, 0])
+                lat.append(time.monotonic() - t0)
+                outs.append(out)
+        name = "bench_online" + (" graph" if form else "")
+        launches[name] = launch_counts()
+        want = {k_: n for k_ in ("ekf_predict", "ekf_update", "gn_prep",
+                                 "icp_loop")}
+        check(all(c == want.get(k_, 0) for k_, c in launches[name].items()),
+              f"9 {name}: launches {launches[name]}, want {want}")
+        got = replicas.stack(outs)
+        diff = max(float((getattr(got, f) - getattr(batch_out, f)).abs()
+                         .max()) for f in ("kiss_pose", "ekf_pose"))
+        if form:
+            check(same_bits(got, batch_out),
+                  f"9 online graph: rows differ from the batch graph run's "
+                  f"(poses by up to {diff:.3e})")
+        # the scans that captured (graph) or warmed up (eager) left out
+        skip = {0, boot} if form else {0}
+        kept = np.asarray([x for i, x in enumerate(lat) if i not in skip])
+        runs["graph" if form else "eager"] = dict(
+            latency_ms={f"p{q}": float(np.percentile(kept * 1e3, q))
+                        for q in (50, 95, 99)},
+            latency_max_ms=float(kept.max() * 1e3),
+            first_scans_ms=[x * 1e3 for x in lat[:boot + 1]],
+            capture_ms=odo.capture_ms, max_pose_vs_batch_graph=diff,
+            scans_per_s=n / float(np.sum(lat)))
+    e, g = runs["eager"], runs["graph"]
+    say(f"  9 bench online eager / graph: latency p50 "
+        f"{e['latency_ms']['p50']:.3f} / {g['latency_ms']['p50']:.3f} ms, "
+        f"p95 {e['latency_ms']['p95']:.3f} / {g['latency_ms']['p95']:.3f}, "
+        f"p99 {e['latency_ms']['p99']:.3f} / {g['latency_ms']['p99']:.3f} "
+        f"(scans 0 and {boot}, the captures, left out: "
+        f"{', '.join(f'{x:.1f}' for x in g['first_scans_ms'])} ms); "
+        f"capture {g['capture_ms']:.1f} ms; the graph's rows bit-equal to "
+        f"the batch graph run's, the eager run's within "
+        f"{e['max_pose_vs_batch_graph']:.3e}; K1-K4 once a scan in both; "
+        f"{card}")
+    FORM_CELLS["9 bench online"] = runs
+    return launches
 
 
 # -------------------------------------------------------------- phase 10
@@ -2289,43 +2622,53 @@ def check_gn_iter_replica_axis(dev) -> dict:
 
 def batched_window(cfg, states, batches, lut, window: int) -> dict:
     """The batched run's first scans, then its last ``window`` scans (the
-    steady step) under the profiler: device busy us and operations a scan
-    and the idle share of the window (1 - busy / the span from the first
-    device operation's start to the last one's end)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    steady step) under the profiler (:func:`profiled`); returns its
+    numbers and the states after the first scans."""
     n = batches.range_m.shape[1]
     k = n - window
     fin, _ = batched.run_sequence_batched(
-        states, batched.scan_of(batches, slice(0, k)), lut, cfg=cfg)
+        states, batched.scan_of(batches, slice(0, k)), lut, cfg=cfg,
+        graph=False)
     tail = dataclasses.replace(cfg, bootstrap_scans=0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        batched.run_sequence_batched(
-            fin, batched.scan_of(batches, slice(k, n)), lut, cfg=tail)
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = busy_us(ev)
-    span = max(e.time_range.end for e in ev) - min(
-        e.time_range.start for e in ev)
-    return dict(busy_us_per_scan=busy / window,
-                device_ops_per_scan=len(ev) / window,
-                idle_share=1.0 - busy / span)
+    return profiled(lambda: batched.run_sequence_batched(
+        fin, batched.scan_of(batches, slice(k, n)), lut, cfg=tail,
+        graph=False), window), fin
 
 
-def timed_batched(cfg, states, batches, lut):
-    """One ``run_sequence_batched`` with host syncs made errors; returns
-    (out, seconds)."""
-    torch.cuda.synchronize()
-    t = time.monotonic()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        _, out = batched.run_sequence_batched(states, batches, lut, cfg=cfg)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    return out, time.monotonic() - t
+def timed_batched(cfg, states, batches, lut, form=False):
+    """One ``run_sequence_batched`` with host syncs made errors,
+    ``graph=form`` (None: the driver's choice, which must be the eager
+    loop); returns :func:`timed_form`'s record."""
+    return timed_form(lambda f, st: batched.run_sequence_batched(
+        st, batches, lut, cfg=cfg, graph=f), form, states)
+
+
+def batched_forms(tag, cfg, bags, lut, dev, head, first,
+                  window: int = 10):
+    """:func:`graph_cell` of ``run_sequence_batched`` of ``cfg`` on the
+    stacked ``bags`` from fresh states, its window the last ``window``
+    scans from ``head``, the states after the first ones (the scan read on
+    axis 1); ``first``: the cell's own timed eager run."""
+    b, n = bags.range_m.shape[:2]
+    window = min(window, n // 2)
+
+    def make_state():
+        return replay.stack_bags([lio.init_state(cfg, dev)] * b)
+
+    def run(form, st):
+        return batched.run_sequence_batched(st, bags, lut, cfg=cfg,
+                                            graph=form)
+
+    def win():
+        tail = dataclasses.replace(cfg, bootstrap_scans=0)
+        c = head.kiss.local_map.meta.shape[1]
+        _, steady, _ = batched.sequence_steps(lut, tail, b, c, window)
+        return window_forms(tag, steady, batched.flat_states(head),
+                            batched.scan_of(bags, slice(n - window, n)),
+                            axis=1)
+
+    return graph_cell(tag, run, make_state, n, win, scans_per_run=b * n,
+                      first=first)
 
 
 def run_batched_path(scene, dev, bench_out, card: str):
@@ -2355,15 +2698,15 @@ def run_batched_path(scene, dev, bench_out, card: str):
     runs = {f"bench_x{b}": ([one] * b, [ref] * b) for b in REPLICAS}
     runs["bench_mixed"] = ([one, low], [ref, ref64])
     phase4 = bench_out.kiss_pose.double().cpu().numpy()
-    launches, summary, timed = {}, {}, {}
+    launches, summary = {}, {}
     for tag, (bags, refs) in runs.items():
         b = len(bags)
         states = replay.stack_bags([lio.init_state(cfg, dev)] * b)
         batches = replay.stack_bags(bags)
-        win = batched_window(cfg, states, batches, lut, min(10, n // 2))
-        kernels.reset_launches()
-        out, dt = timed_batched(cfg, states, batches, lut)
-        launches[tag] = launch_counts()
+        win, head = batched_window(cfg, states, batches, lut,
+                                   min(10, n // 2))
+        first = timed_batched(cfg, states, batches, lut)
+        out, dt, launches[tag] = first["out"], first["s"], first["launches"]
         want = {k_: n for k_ in ("ekf_predict", "ekf_update", "gn_prep",
                                  "icp_loop")}
         check(all(c == want.get(k_, 0) for k_, c in launches[tag].items()),
@@ -2393,7 +2736,6 @@ def run_batched_path(scene, dev, bench_out, card: str):
                             max_pose_vs_phase4_m=vs4, ate_rmse_m=ate,
                             gn_iterations=iters, first_scans_per_s=b * n
                             / dt, **win)
-        timed[tag] = [dt]
         say(f"  10b {tag}: B = {b}, {win['device_ops_per_scan']:.1f} device "
             f"operations and {win['busy_us_per_scan'] / 1e3:.3f} ms busy a "
             f"scan, idle {win['idle_share'] * 100:.1f} % (the last 10 "
@@ -2402,25 +2744,23 @@ def run_batched_path(scene, dev, bench_out, card: str):
             + (f" (<= {SELF_GATE_M})" if tag == "bench_x1" else "")
             + f"; identical replicas bit-equal; GN iterations {iters}; "
             f"launches {launches[tag]}; no host sync")
-    for b in (*REPLICAS, *reversed(REPLICAS)):
-        tag = f"bench_x{b}"
-        states = replay.stack_bags([lio.init_state(cfg, dev)] * b)
-        _, dt = timed_batched(cfg, states, replay.stack_bags([one] * b),
-                              lut)
-        timed[tag].append(dt)
-    for tag, dts in timed.items():
-        b = summary[tag]["replicas"]
-        summary[tag]["aggregate_scans_per_s"] = [b * n / t for t in dts]
+        forms, _ = batched_forms(f"10b {tag}", cfg, batches, lut, dev, head,
+                                 first)
+        summary[tag]["aggregate_scans_per_s"] = forms["eager"]["scans_per_s"]
+        summary[tag]["aggregate_scans_per_s_graph"] = \
+            forms["graph"]["scans_per_s"]
     ops = {b: summary[f"bench_x{b}"]["device_ops_per_scan"]
            for b in REPLICAS}
     check(ops[4] <= 1.25 * ops[1],
           f"10b: {ops[4]:.1f} device operations a scan at B = 4 against "
           f"{ops[1]:.1f} at B = 1 (> 1.25x)")
-    say("  10b aggregate scans/s (alternating runs B = 1, 2, 4, 4, 2, 1; "
-        "the first of each B its checked run): " + "; ".join(
-            f"B = {summary[f'bench_x{b}']['replicas']}: "
+    say("  10b aggregate scans/s eager / graph (each B's forms in "
+        "alternation): " + "; ".join(
+            f"B = {b}: " + ", ".join(
+                f"{x:.1f}" for x in
+                summary[f"bench_x{b}"]["aggregate_scans_per_s"]) + " / "
             + ", ".join(f"{x:.1f}" for x in
-                        summary[f"bench_x{b}"]["aggregate_scans_per_s"])
+                        summary[f"bench_x{b}"]["aggregate_scans_per_s_graph"])
             for b in REPLICAS) + f"; operations a scan at B = 4 / B = 1: "
         f"{ops[4] / ops[1]:.3f} (<= 1.25); {card}")
     return launches, summary
@@ -2450,10 +2790,11 @@ def run_batched_refresh_cell(tag, cfg, bags, refs, lut, single, *,
     b, n = bags.range_m.shape[:2]
     states = replay.stack_bags([lio.init_state(cfg, lut.direction.device)]
                                * b)
-    win = batched_window(cfg, states, bags, lut, min(window, n // 2))
+    win, _ = batched_window(cfg, states, bags, lut, min(window, n // 2))
     kernels.reset_launches()
     icp.reset_refresh_counts()
-    out, dt = timed_batched(cfg, states, bags, lut)
+    r = timed_batched(cfg, states, bags, lut, form=None)
+    out, dt = r["out"], r["s"]
     launches, counts = launch_counts(), dict(icp.REFRESH_COUNTS)
     k5 = refresh_launches(out.aux.iterations)
     k1 = n if cfg.ekf.predict_batch == "cuda" else 0
@@ -2535,7 +2876,8 @@ def run_batched_refresh_path(scene, dev, cli_out, assoc_out, card: str):
         timed[tag] = [dt]
     for b in (*REPLICAS, *reversed(REPLICAS)):
         states = replay.stack_bags([lio.init_state(cli, dev)] * b)
-        _, dt = timed_batched(cli, states, replay.stack_bags([one] * b), lut)
+        dt = timed_batched(cli, states, replay.stack_bags([one] * b), lut,
+                           form=None)["s"]
         timed[f"cli_x{b}"].append(dt)
     for tag, dts in timed.items():
         b = summary[tag]["replicas"]
@@ -2616,6 +2958,7 @@ def run_sweep_path(scene, dev, card: str):
                            *flags])
             wall = time.monotonic() - t
             launches[tag] = launch_counts()
+            ran_eagerly(f"10c {tag}")
             n = res["n_scans"]
             k5 = refresh_launches(torch.as_tensor(res["iterations"])) \
                 + refresh_launches(torch.as_tensor(res["iterations_first"]))
@@ -2835,6 +3178,8 @@ def run_sharded_path(scene, dev, bench_out, card: str):
         check((run.backend, run.world_size) == (backend, len(devices)),
               f"11 {tag}: ran {run.backend} x {run.world_size}")
         check(run.ranks_equal, f"11 {tag}: the ranks' outputs differ")
+        check(all(r["form"] == "eager" for r in run.rank_stats),
+              f"11 {tag}: a rank ran as a graph")
         st = run.rank_stats[0]
         iters = run.out.aux.iterations
         total = int(iters.sum())
@@ -2952,6 +3297,7 @@ def run_debug_scene_path(scene, dev, card: str):
                        "--save-debug-scene", sdir] + DEBUG_SCENE_FLAGS)
         wall = time.monotonic() - t
         launches = launch_counts()
+        ran_eagerly("11d")
         n = res["n_scans"]
         cmd_iters = int(res["iterations"].sum()
                         + res["iterations_first"].sum())
@@ -3063,16 +3409,19 @@ def main() -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of the phases to run after 1-2 "
                     "(default all; 10 runs phases 4, 5 and 7a-b first, "
-                    "whose runs it compares with, 11 runs phase 4 first)")
+                    "whose runs it compares with, 9 and 11 run phase 4 "
+                    "first; 9 alone is the online driver's two forms)")
     args = ap.parse_args()
     want = set(range(3, 12)) if args.phases == "all" else {
         int(x) for x in args.phases.split(",")}
     if 10 in want:
         want |= {5, 7}
-    if want & {5, 7, 11}:
+    if want & {5, 7, 9, 11}:
         want.add(4)
 
-    say("phase 1: device")
+    global T_START
+    T_START = time.monotonic()
+    phase("phase 1: device")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -3081,8 +3430,31 @@ def main() -> int:
     card = card_line()
     say(f"  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
+    render = start_scene(args.scans) if 4 in want else None
+    try:
+        return run_phases(args, want, dev, card, render)
+    finally:
+        if render is not None:
+            if render.poll() is None:
+                render.kill()
+            render.wait()
 
-    say("phase 2: build")
+
+def start_scene(n_scans: int) -> subprocess.Popen:
+    """Render the bench scene into its temp-dir cache in a child process
+    (numpy on one core, ~50 s) while the kernels build and phase 3 runs;
+    phase 4 waits for it (:func:`run_main_path`)."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from ptudes_tpu_torch.models import sim; "
+            "sim.bench_scene(int(sys.argv[2]))")
+    return subprocess.Popen([sys.executable, "-c", code, HERE,
+                             str(n_scans)])
+
+
+def run_phases(args, want, dev, card: str, render) -> int:
+    """Phases 2-11 of :func:`main` (``render``: the scene's child
+    process)."""
+    phase("phase 2: build")
     t0 = time.monotonic()
     path = kernels.build()
     kernels.lib()
@@ -3105,31 +3477,37 @@ def main() -> int:
     if want != set(range(3, 12)):
         # a subset, for working on a phase: its own checks, no summary
         if 3 in want:
-            say("phase 3: kernels against their twins")
+            phase("phase 3: kernels against their twins")
             check_ekf(dev, np.random.default_rng(0), results)
             check_icp(dev, results)
+            check_plane_moments(dev, results)
         if 4 in want:
-            say("phase 4: bench path")
-            _, scene, bench_out, _, _ = run_main_path(args.scans, dev)
+            phase("phase 4: bench path")
+            _, scene, bench_out, _, _ = run_main_path(args.scans, dev,
+                                                      render)
         card = card_line()
         if 5 in want:
-            say("phase 5: CLI path")
+            phase("phase 5: CLI path")
             _, cli_out = run_cli_path(scene, dev, card)
         if 7 in want:
-            say("phase 7: the CLI's EKF-facing paths (a, b)")
+            phase("phase 7: the CLI's EKF-facing paths (a, b)")
             _, assoc_out = run_kiss_paths(scene, dev, card)
+        if 9 in want:
+            phase("phase 9: the online driver's two forms")
+            run_online_forms(scene, dev, card)
         if 10 in want:
-            say("phase 10: several sequences at once")
+            phase("phase 10: several sequences at once")
             run_phase10(scene, dev, bench_out, cli_out, assoc_out, card,
                         results)
         if 11 in want:
-            say("phase 11: point-sharded LIO and the viz paths")
+            phase("phase 11: point-sharded LIO and the viz paths")
             run_phase11(scene, dev, bench_out, card, results)
+        say(json.dumps(dict(graph_forms=FORM_CELLS, card=card)))
         say(f"phases {sorted(want)} passed (a subset: no kernel summary)")
         say(card_line())
         return 0
 
-    say("phase 3: kernels against their twins")
+    phase("phase 3: kernels against their twins")
     rng = np.random.default_rng(0)
     check_ekf(dev, rng, results)
     check_icp(dev, results)
@@ -3142,42 +3520,47 @@ def main() -> int:
     check_fused_registration(dev)
     phase3 = {"plane_moments": check_plane_moments(dev, results)}
 
-    say("phase 4: bench path")
+    phase("phase 4: bench path")
     bench_launches, scene, bench_out, bench_rate, repeat = run_main_path(
-        args.scans, dev)
+        args.scans, dev, render)
     bench = config.bench_config()
     card = card_line()
-    say("phase 5: CLI path")
+    phase("phase 5: CLI path")
     cli_launches, cli_out = run_cli_path(scene, dev, card)
-    say("phase 6: fused bench path")
+    phase("phase 6: fused bench path")
     fused = dataclasses.replace(bench, kiss=dataclasses.replace(
         bench.kiss, fused_gather=True))
     fused_launches, fused_out, sm = run_option_path(
         scene, dev, fused, "6 bench fused", "bench_fused",
         once_a_scan("ekf_predict", "gather_fused", "icp_loop", "ekf_update"),
-        card=card, ate_max=ATE_GATE_M, twins=True)
+        card=card, ate_max=ATE_GATE_M, twins=True, forms=True)
     vs_bench = (fused_out.kiss_pose - bench_out.kiss_pose)[:, :3, 3].abs()
     say(f"  6: {sm['scans_per_s']:.2f} scans/s against phase 4's "
         f"{bench_rate:.2f} in this call; max |pose - phase 4| "
         f"{float(vs_bench.max()):.4f} m")
     by_path = {"bench": bench_launches, "cli": cli_launches,
                "bench_fused": fused_launches}
-    say("phase 7: the CLI's EKF-facing paths")
+    phase("phase 7: the CLI's EKF-facing paths")
     kiss_launches, assoc_out = run_kiss_paths(scene, dev, card)
     by_path.update(kiss_launches)
     by_path["bench_log"] = run_log_path(scene, args.scans, dev, bench_out,
                                         bench_rate, repeat)
     by_path["sim_filter"] = run_filter_path(dev)
-    say("phase 8: the pipeline's remaining options")
+    phase("phase 8: the pipeline's remaining options")
     by_path.update(run_phase8(scene, dev, bench_out, card))
-    say("phase 9: the recording path through the command line")
+    phase("phase 9: the recording path through the command line")
     by_path.update(run_recording_path(scene, dev, card))
-    say("phase 10: several sequences at once (the batched driver, "
+    by_path.update(run_online_forms(scene, dev, card))
+    phase("phase 10: several sequences at once (the batched driver, "
         "ekf-bench sweep)")
     by_path.update(run_phase10(scene, dev, bench_out, cli_out, assoc_out,
                                card, results))
-    say("phase 11: point-sharded LIO (parallel.sharded) and the viz paths")
+    phase("phase 11: point-sharded LIO (parallel.sharded) and the viz paths")
     by_path.update(run_phase11(scene, dev, bench_out, card, results))
+    by_path.update({f"{tag} graph": cell["graph_launches"]
+                    for tag, cell in FORM_CELLS.items()
+                    if "graph_launches" in cell})
+    say(json.dumps(dict(graph_forms=FORM_CELLS, card=card)))
 
     rows = []
     for name in (*kernels.KERNELS, *kernels.VARIANT_LAUNCHES):
@@ -3188,11 +3571,13 @@ def main() -> int:
             check(not paths, f"{name} launched on a path: {paths}")
             paths = {"phase3": phase3[name]}
         check(bool(paths), f"{name} launched on no path")
+        in_graph = {p: c for p, c in paths.items() if p.endswith("graph")}
         rows.append(dict(
             name=name, route="cuda",
             source=f"ptudes_tpu_torch/csrc/{REPLACES[name][0]}",
             replaces=REPLACES[name][1], path="+".join(paths),
             launches=sum(paths.values()), launches_by_path=paths,
+            launches_in_graphs=sum(in_graph.values()),
             library_ms=None, **results[name]))
     say(json.dumps({"kernels": rows}))
     say(card_line())

@@ -452,20 +452,6 @@ __device__ __forceinline__ void patch_add(PatchMoments& m, float dx, float dy,
   }
 }
 
-// The moments of point p (query (px, py, pz)) over its c lane-major
-// candidate rows cx/cy/cz/inf [c, n] (K7).
-__device__ __forceinline__ PatchMoments patch_moments(
-    float px, float py, float pz, int p, int n, int c,
-    const float* __restrict__ cx, const float* __restrict__ cy,
-    const float* __restrict__ cz, const float* __restrict__ inf, float r2) {
-  PatchMoments m;
-  for (int k = 0; k < c; ++k) {
-    const int o = k * n + p;
-    patch_add(m, cx[o] - px, cy[o] - py, cz[o] - pz, inf[o], r2);
-  }
-  return m;
-}
-
 // The sum of v over the warp, in every lane: an xor butterfly (offsets
 // 16, 8, 4, 2, 1), so the order of the additions is fixed.
 __device__ __forceinline__ float warp_sum_xor(float v) {

@@ -384,6 +384,31 @@ icp_loop_kernel(Inputs in, const float* __restrict__ scal,
   }
 }
 
+// Raise the staged kernel's dynamic shared memory limit once, at its
+// first launch, to the most the card allows beside the kernel's static
+// shared memory (ops/cuda_icp.py:loop_plan stays under it). Set once, no
+// call is made while a launch is captured in a CUDA graph, and no later
+// launch changes the size a captured one was given. The limit is set on
+// the device current at that launch (a process of the port drives one).
+cudaError_t raise_smem_limit() {
+  static const cudaError_t err = [] {
+    int dev = 0, optin = 0;
+    cudaFuncAttributes attrs;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncGetAttributes(&attrs, icp_loop_kernel<true>);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          icp_loop_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          optin - static_cast<int>(attrs.sharedSizeBytes));
+    return e;
+  }();
+  return err;
+}
+
 template <bool kStaged>
 cudaError_t launch_loop(const Inputs& in, const float* scal, float* out,
                         int n, int c, int ppc, int cluster, float plane_q,
@@ -393,10 +418,10 @@ cudaError_t launch_loop(const Inputs& in, const float* scal, float* out,
   auto kernel = icp_loop_kernel<kStaged>;
   const size_t smem =
       kStaged ? static_cast<size_t>(4 * c + kSideRows) * ppc * 4 : 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  if (kStaged) {
+    const cudaError_t err = raise_smem_limit();
+    if (err != cudaSuccess) return err;
+  }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;

@@ -24,6 +24,7 @@ import torch
 from ..config import PipelineConfig, check_supported
 from ..ops.projection import XyzLut, scan_to_points
 from . import esekf, kiss
+from . import graph as graph_mod
 from .esekf import EkfState, FilterLog, Imu
 from .kiss import KissAux, KissState
 
@@ -227,9 +228,36 @@ def scan_at(batches: ScanBatch, i) -> ScanBatch:
                      batches.imu_valid[i], batches.guess_pose[i])
 
 
+def sequence_steps(lut: XyzLut, cfg: PipelineConfig, n: int,
+                   log: bool = False, group=None):
+    """(boot step, steady step, bootstrap scans k) of an ``n``-scan
+    :func:`run_sequence`: the first k scans take the whole-frame insert, the
+    rest the steady insert (``bootstrap_scans < 0``: all of them boot); with
+    ``cfg.map_frozen`` k is 0 and the one step is built with
+    ``insert_overflow=False`` (``ptudes_tpu/models/lio.py:340-369``). A step
+    no scan takes is None."""
+    k = n if cfg.bootstrap_scans < 0 else min(cfg.bootstrap_scans, n)
+    if cfg.map_frozen:
+        k = 0
+    steady = make_scan_step(
+        lut, cfg, insert_overflow=(False if cfg.map_frozen
+                                   else cfg.steady_insert_mode), log=log,
+        group=group) if k < n else None
+    boot = make_scan_step(lut, cfg, insert_overflow=True, log=log,
+                          group=group) if k else None
+    return boot, steady, k
+
+
+def sequence_out(rows: torch.Tensor, flog=None) -> LioOut:
+    """The packed rows [..., 70] as a :class:`LioOut`, with the stacked
+    filter history of a ``log=True`` run."""
+    out = unpack_out(rows)
+    return out if flog is None else out._replace(flog=flog)
+
+
 def run_sequence(state: LioState, batches: ScanBatch, lut: XyzLut, *,
-                 cfg: PipelineConfig, log: bool = False, group=None
-                 ) -> tuple[LioState, LioOut]:
+                 cfg: PipelineConfig, log: bool = False, group=None,
+                 graph: bool | None = None) -> tuple[LioState, LioOut]:
     """Run every scan of ``batches``: the first ``cfg.bootstrap_scans``
     with the whole-frame insert, the rest with the steady insert
     (``bootstrap_scans < 0``: all bootstrap); with ``cfg.map_frozen``
@@ -239,27 +267,47 @@ def run_sequence(state: LioState, batches: ScanBatch, lut: XyzLut, *,
     IMU-rate filter history in ``LioOut.flog``, shaped [N, K] (filter it
     with ``batches.imu_valid``, :func:`flatten_filter_log`); the carried
     states are the same as without. ``group``: every step point-sharded
-    over its ranks (:func:`make_scan_step`; ``parallel.sharded``)."""
+    over its ranks (:func:`make_scan_step`; ``parallel.sharded``).
+
+    ``graph``: each step captured once as a CUDA graph and replayed once a
+    scan (``models.graph``; the counterpart of the JAX package's compiled
+    scan), the same bits as the eager loop. None takes the graph on a CUDA
+    device where the step never reads the card from the host (no refresh
+    loop, no every-iteration query, no ``group``), else the eager loop;
+    True raises ``ValueError`` where a graph cannot run; False is the eager
+    loop. ``graph.LAST_RUN`` records the form that ran. The first call of a
+    configuration and shape pays the capture (``graph.LAST_RUN
+    ["capture_ms"]``, tens of ms to about a second on an H100); later calls
+    with the same ``cfg``, ``log``, ``lut`` and shapes reuse the kept graph
+    (:func:`graph_run`)."""
+    if graph_mod.use_graph(graph, batches.range_m.device, cfg, group):
+        return graph_run(state, batches, lut, cfg=cfg, log=log)
     n = batches.range_m.shape[0]
-    k = n if cfg.bootstrap_scans < 0 else min(cfg.bootstrap_scans, n)
-    if cfg.map_frozen:
-        k = 0
-    steady = make_scan_step(
-        lut, cfg, insert_overflow=(False if cfg.map_frozen
-                                   else cfg.steady_insert_mode), log=log,
-        group=group)
-    boot = make_scan_step(lut, cfg, insert_overflow=True, log=log,
-                          group=group) if k else steady
+    boot, steady, k = sequence_steps(lut, cfg, n, log, group)
     rows, logs = [], []
     for i in range(n):
         state, row, *flog = (boot if i < k else steady)(state,
                                                         scan_at(batches, i))
         rows.append(row)
         logs += flog
-    out = unpack_out(torch.stack(rows))
-    if log:
-        out = out._replace(flog=FilterLog(*map(torch.stack, zip(*logs))))
-    return state, out
+    graph_mod.ran_eagerly()
+    return state, sequence_out(torch.stack(rows), FilterLog(
+        *map(torch.stack, zip(*logs))) if log else None)
+
+
+def graph_run(state: LioState, batches: ScanBatch, lut: XyzLut, *,
+              cfg: PipelineConfig, log: bool = False, capture: bool = True
+              ) -> tuple[LioState, LioOut]:
+    """:func:`run_sequence`'s graph form (``models.graph.run_scans``): its
+    steps captured once for a configuration, ``log``, ``lut`` and shape,
+    and replayed once a scan. ``capture=False`` runs the same buffers and
+    operations without the capture (the CPU tests)."""
+    n = batches.range_m.shape[0]
+    state, (rows, *flog) = graph_mod.run_scans(
+        ("lio", cfg, log, graph_mod.tensor_key(lut)),
+        lambda: sequence_steps(lut, cfg, n, log), state, batches,
+        capture=capture)
+    return state, sequence_out(rows, *flog)
 
 
 def flatten_filter_log(flog: FilterLog, imu_valid) -> FilterLog:

@@ -20,6 +20,13 @@ an earlier run's clock). The rebase is a float64 subtraction on the
 host, and only the rebased time becomes a float32 tensor: float32 spacing
 at 1.7e9 s is 128 s. The state can be checkpointed at any scan boundary
 with ``utils.checkpoint``.
+
+On a card, a configuration whose step never reads the card from the host
+runs as the JAX online driver's jitted step does: each step (boot and
+steady) is captured as a CUDA graph at the first scan that takes it
+(``models.graph.OnlineGraph``) and replayed once a scan over static input
+buffers, which each scan fills from pinned host memory without a host
+sync.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..ops.projection import XyzLut
+from . import graph as graph_mod
 from . import lio
 from .esekf import Imu
 
@@ -39,16 +47,22 @@ class LioOnline:
     def __init__(self, cfg: PipelineConfig, lut: XyzLut,
                  state: lio.LioState | None = None,
                  time_origin: float | None = None,
-                 prev_scan_ts: float | None = None):
+                 prev_scan_ts: float | None = None,
+                 graph: bool | None = None):
         """``prev_scan_ts`` (absolute clock, like ``time_origin``): when
         resuming from a checkpoint, the checkpoint's last scan timestamp —
         IMU samples at or before it are ignored instead of re-integrated
-        (the seam rule of ``lio.build_batches(prev_scan_ts=...)``)."""
+        (the seam rule of ``lio.build_batches(prev_scan_ts=...)``).
+
+        ``graph``: as in ``lio.run_sequence``: None captures the steps on a
+        CUDA device where they never read the card from the host, True
+        raises ``ValueError`` where they cannot be captured, False runs
+        them op by op."""
         self.cfg = cfg
         self.lut = lut
         self.device = lut.direction.device
-        self.state = (lio.init_state(cfg, self.device) if state is None
-                      else state)
+        self._state = (lio.init_state(cfg, self.device) if state is None
+                       else state)
         self._origin = time_origin
         self._imu_buf: list[tuple] = []
         self._prev_scan_ts = -np.inf
@@ -68,6 +82,61 @@ class LioOnline:
             lut, cfg, insert_overflow=cfg.steady_insert_mode)
         self._step_boot = self._step_steady if cfg.map_frozen else \
             lio.make_scan_step(lut, cfg, insert_overflow=True)
+        self._graph = None
+        if graph_mod.use_graph(graph, self.device, cfg):
+            self._graph = self._make_runner(capture=True)
+            graph_mod.LAST_RUN.clear()
+            graph_mod.LAST_RUN.update(self._graph.record())
+        else:
+            graph_mod.ran_eagerly()
+
+    def _make_runner(self, capture: bool) -> graph_mod.OnlineGraph:
+        """The graph form's runner over the current state: static inputs
+        of one scan on the device and their staging buffers on the host
+        (pinned when it captures). ``capture=False`` runs the same buffers
+        without capturing (the CPU tests)."""
+        h, w = self.lut.direction.shape[:2]
+        k = self.cfg.max_imu_per_scan
+
+        def empty(*shape, dtype=torch.float32, **kw):
+            return torch.empty(shape, dtype=dtype, **kw)
+
+        def scan(**kw):
+            return lio.ScanBatch(
+                range_m=empty(h, w, **kw), scan_ts=empty(**kw),
+                imu=Imu(lacc=empty(k, 3, **kw), avel=empty(k, 3, **kw),
+                        ts=empty(k, **kw)),
+                imu_valid=empty(k, dtype=torch.bool, **kw), guess_pose=None)
+
+        runner = graph_mod.OnlineGraph(self._state, scan(device=self.device),
+                                       capture=capture)
+        runner.inputs = runner.inputs._replace(guess_pose=torch.eye(
+            4, dtype=torch.float32, device=self.device))
+        self._staging = scan(pin_memory=capture)
+        self._copied = None
+        self._state = None
+        return runner
+
+    @property
+    def state(self) -> lio.LioState:
+        """The state after the last pushed scan (a copy in the graph
+        form)."""
+        if self._graph is None:
+            return self._state
+        return graph_mod.tree_map(torch.clone, self._graph.state)
+
+    @property
+    def form(self) -> str:
+        """How the steps run: "graph", "eager", or "static" (the graph
+        form's buffers without the capture)."""
+        if self._graph is None:
+            return "eager"
+        return "graph" if self._graph.capture else "static"
+
+    @property
+    def capture_ms(self) -> float | None:
+        """Host ms of the graph form's warm-ups and captures so far."""
+        return None if self._graph is None else self._graph.capture_ms
 
     @property
     def n_dropped_imu(self) -> int:
@@ -116,19 +185,47 @@ class LioOnline:
             its[:m] = [s[2] for s in sel]
             valid[:m] = True
         self._prev_scan_ts = t1
+        boot = not self.cfg.map_frozen and (
+            self._boot_scans < 0 or self._n_scans < self._boot_scans)
+        self._n_scans += 1
+        host = (np.asarray(range_m, np.float32), np.float32(t1), lacc, avel,
+                its, valid)
+        if self._graph is not None:
+            return self._replay("boot" if boot else "steady", host)
 
         def t(x, dtype=torch.float32):
             return torch.as_tensor(np.asarray(x), dtype=dtype,
                                    device=self.device)
 
         batch = lio.ScanBatch(
-            range_m=t(np.asarray(range_m, np.float32)),
-            scan_ts=t(np.float32(t1)),
+            range_m=t(host[0]), scan_ts=t(host[1]),
             imu=Imu(lacc=t(lacc), avel=t(avel), ts=t(its)),
             imu_valid=t(valid, torch.bool),
             guess_pose=torch.eye(4, dtype=torch.float32, device=self.device))
-        boot = self._boot_scans < 0 or self._n_scans < self._boot_scans
-        self.state, row = (self._step_boot if boot
-                           else self._step_steady)(self.state, batch)
-        self._n_scans += 1
+        self._state, row = (self._step_boot if boot
+                            else self._step_steady)(self._state, batch)
         return lio.unpack_out(row)
+
+    def _replay(self, name: str, host: tuple) -> lio.LioOut:
+        """The graph form of one scan: the host arrays into the staging
+        buffers (once the previous scan's copies out of them are done),
+        copied to the static inputs without a host sync, then the step
+        ``name`` replayed (captured first at its first scan)."""
+        g = self._graph
+        if self._copied is not None:
+            self._copied.synchronize()
+        staging = graph_mod.leaves(self._staging)
+        for dst, src in zip(staging, host):
+            dst.numpy()[...] = src
+        for dst, src in zip(graph_mod.leaves(
+                g.inputs._replace(guess_pose=None)), staging):
+            dst.copy_(src, non_blocking=True)
+        if g.capture:
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+        if not g.has(name):
+            g.add(name, self._step_boot if name == "boot"
+                  else self._step_steady)
+            graph_mod.LAST_RUN.update(g.record())
+        g.step(name)
+        return lio.unpack_out(g.row.clone())

@@ -29,6 +29,7 @@ import torch
 
 from ..config import PipelineConfig, check_supported
 from ..models import esekf, kiss, lio
+from ..models import graph as graph_mod
 from ..ops import hashmap
 from ..ops.projection import XyzLut, scan_to_points
 
@@ -132,9 +133,44 @@ def make_batched_step(lut: XyzLut, cfg: PipelineConfig, replicas: int,
     return step
 
 
+def flat_states(states: lio.LioState) -> lio.LioState:
+    """Stacked [B, ...] states with their B maps as one flat table of B x C
+    slots (views)."""
+    b, c = states.kiss.local_map.meta.shape[:2]
+    ppv = states.kiss.local_map.points.shape[-1]
+    flat = hashmap.VoxelHashMap(
+        meta=states.kiss.local_map.meta.reshape(b * c, hashmap.META_W),
+        points=states.kiss.local_map.points.reshape(b * c, ppv))
+    return states._replace(kiss=states.kiss._replace(local_map=flat))
+
+
+def stacked_states(state: lio.LioState, b: int) -> lio.LioState:
+    """The inverse of :func:`flat_states`: each map a [B, C, ...] view."""
+    m = state.kiss.local_map
+    return state._replace(kiss=state.kiss._replace(
+        local_map=hashmap.VoxelHashMap(
+            meta=m.meta.reshape(b, -1, hashmap.META_W),
+            points=m.points.reshape(b, -1, m.points.shape[-1]))))
+
+
+def sequence_steps(lut: XyzLut, cfg: PipelineConfig, b: int, c: int,
+                   n: int, log: bool = False):
+    """(boot step, steady step, bootstrap scans k) of an ``n``-scan
+    :func:`run_sequence_batched` of ``b`` replicas of ``c`` map slots each:
+    the first k scans insert the whole frame, the rest take
+    ``cfg.steady_insert_mode``. A step no scan takes is None."""
+    k = n if cfg.bootstrap_scans < 0 else min(cfg.bootstrap_scans, n)
+    steady = make_batched_step(lut, cfg, b, c,
+                               insert_overflow=cfg.steady_insert_mode,
+                               log=log) if k < n else None
+    boot = make_batched_step(lut, cfg, b, c, insert_overflow=True,
+                             log=log) if k else None
+    return boot, steady, k
+
+
 def run_sequence_batched(states: lio.LioState, batches: lio.ScanBatch,
                          lut: XyzLut, *, cfg: PipelineConfig,
-                         log: bool = False
+                         log: bool = False, graph: bool | None = None
                          ) -> tuple[lio.LioState, lio.LioOut]:
     """B replicas through the batched step with one flat map table: the
     contract of ``ptudes_tpu.parallel.batched.run_sequence_batched``.
@@ -145,34 +181,43 @@ def run_sequence_batched(states: lio.LioState, batches: lio.ScanBatch,
     take ``cfg.steady_insert_mode`` (budget and decimation per replica).
     Returns the final states, each map a [B, C, ...] view of the flat
     table, and the outputs [B, N, ...] (``map_points`` counted after each
-    scan's insert); ``log=True`` adds the histories [B, N, K]."""
+    scan's insert); ``log=True`` adds the histories [B, N, K].
+
+    ``graph``: as in ``lio.run_sequence``, the batched step captured once
+    and replayed once a scan (``models.graph``), the scan read on axis 1;
+    None takes it on a CUDA device without the refresh loop's reads; the
+    graph is kept for later calls of the same shapes (:func:`graph_run`)."""
     check_config(cfg)
+    if graph_mod.use_graph(graph, batches.range_m.device, cfg):
+        return graph_run(states, batches, lut, cfg=cfg, log=log)
     b, c = states.kiss.local_map.meta.shape[:2]
-    ppv = states.kiss.local_map.points.shape[-1]
     n = batches.range_m.shape[1]
-    flat = hashmap.VoxelHashMap(
-        meta=states.kiss.local_map.meta.reshape(b * c, hashmap.META_W),
-        points=states.kiss.local_map.points.reshape(b * c, ppv))
-    state = states._replace(kiss=states.kiss._replace(local_map=flat))
-    k = n if cfg.bootstrap_scans < 0 else min(cfg.bootstrap_scans, n)
-    steady = make_batched_step(lut, cfg, b, c,
-                               insert_overflow=cfg.steady_insert_mode,
-                               log=log)
-    boot = make_batched_step(lut, cfg, b, c, insert_overflow=True,
-                             log=log) if k else steady
+    state = flat_states(states)
+    boot, steady, k = sequence_steps(lut, cfg, b, c, n, log)
     rows, logs = [], []
     for i in range(n):
         state, row, *flog = (boot if i < k else steady)(state,
                                                         scan_of(batches, i))
         rows.append(row)
         logs += flog
-    out = lio.unpack_out(torch.stack(rows, 1))
-    if log:
-        out = out._replace(flog=esekf.FilterLog(
-            *(torch.stack(x, 1) for x in zip(*logs))))
-    m = state.kiss.local_map
-    fin = state._replace(kiss=state.kiss._replace(
-        local_map=hashmap.VoxelHashMap(
-            meta=m.meta.reshape(b, c, hashmap.META_W),
-            points=m.points.reshape(b, c, ppv))))
-    return fin, out
+    graph_mod.ran_eagerly()
+    return stacked_states(state, b), lio.sequence_out(
+        torch.stack(rows, 1), esekf.FilterLog(
+            *(torch.stack(x, 1) for x in zip(*logs))) if log else None)
+
+
+def graph_run(states: lio.LioState, batches: lio.ScanBatch, lut: XyzLut, *,
+              cfg: PipelineConfig, log: bool = False, capture: bool = True
+              ) -> tuple[lio.LioState, lio.LioOut]:
+    """:func:`run_sequence_batched`'s graph form (``models.graph
+    .run_scans``, the scan read on axis 1): the batched steps captured once
+    for a configuration, ``log``, ``lut`` and shape, and replayed once a
+    scan. ``capture=False`` runs the same buffers and operations without
+    the capture (the CPU tests)."""
+    b, c = states.kiss.local_map.meta.shape[:2]
+    n = batches.range_m.shape[1]
+    state, (rows, *flog) = graph_mod.run_scans(
+        ("batched", cfg, log, graph_mod.tensor_key(lut)),
+        lambda: sequence_steps(lut, cfg, b, c, n, log), flat_states(states),
+        batches, axis=1, capture=capture)
+    return stacked_states(state, b), lio.sequence_out(rows, *flog)

@@ -46,6 +46,7 @@ import torch.distributed as dist
 
 from .. import kernels
 from ..config import PipelineConfig
+from ..models import graph as graph_mod
 from ..models import kiss, lio
 from ..ops import icp
 from ..ops.projection import XyzLut
@@ -166,6 +167,7 @@ def _rank_main(rank: int, world: int, workdir: str, backend: str,
             seconds.append(time.perf_counter() - t0)
         stats = dict(
             device=str(dev), seconds=seconds,
+            form=graph_mod.LAST_RUN["form"],
             launches={**kernels.LAUNCHES, **kernels.VARIANT_LAUNCHES},
             **icp.REFRESH_COUNTS,
             allreduce_us=_allreduce_us(dev, group) if probe else None)

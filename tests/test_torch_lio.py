@@ -206,6 +206,48 @@ def test_state_carry_over_from_jax(run):
     assert err.max() <= POSE_BAR_M, err
 
 
+@pytest.mark.parametrize("case", ["default", "log", "bootstrap_all",
+                                  "resume", "batched"])
+def test_graph_runner_matches_jax(run, case):
+    """The sequence drivers' graph form (``models.graph``) without the
+    capture, which the CPU cannot make: the same static buffers, scan
+    counter and in-graph copies as on a card, against this module's JAX
+    run, every pose within 0.02 m. The default schedule (3 boot scans, 9
+    steady), with ``log``, ``bootstrap_scans=-1`` on the first 3 scans, the
+    steady step alone from JAX's state after them, and the batched driver
+    at B = 2; the default schedule bit for bit the eager loop."""
+    from ptudes_tpu_torch.models import graph
+    from ptudes_tpu_torch.parallel import batched, replay
+
+    cfg, lut, batches = port_config(), run["lut"], run["batches"]
+    state, rows = lio.init_state(cfg, "cpu"), slice(0, N_SCANS)
+    if case == "bootstrap_all":
+        cfg, rows = port_config(bootstrap_scans=-1), slice(0, 3)
+    elif case == "resume":
+        cfg, rows = port_config(bootstrap_scans=0), slice(3, N_SCANS)
+        state = convert.lio_state_from_numpy(
+            [np.asarray(x) for x in jax.tree.leaves(run["jboot"])], "cpu")
+    batches = lio.scan_at(batches, rows)
+    if case == "batched":
+        _, out = batched.graph_run(
+            replay.stack_bags([state] * 2), replay.stack_bags([batches] * 2),
+            lut, cfg=cfg, capture=False)
+        poses = out.kiss_pose.double().numpy()
+    else:
+        _, out = lio.graph_run(state, batches, lut, cfg=cfg,
+                               log=case == "log", capture=False)
+        poses = out.kiss_pose.double().numpy()[None]
+    assert graph.LAST_RUN["form"] == "static"
+    assert (out.flog is not None) == (case == "log")
+    assert np.isfinite(poses).all() and bool(out.scan_valid.all())
+    for p in poses:
+        err = _pose_err(p, run["jposes"][rows])
+        assert err.max() <= POSE_BAR_M, err
+    if case == "default":
+        for x, y in zip(graph.leaves(out), graph.leaves(run["out"])):
+            assert torch.equal(x, y)
+
+
 def test_cuda_device_is_not_a_fallback():
     """On a machine without a card, asking for CUDA raises, and so do the
     entry points given no device: they default to the card."""

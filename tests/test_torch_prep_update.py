@@ -1,6 +1,7 @@
-"""PyTorch port: the order of work of K3 (``csrc/gn_prep.cu``) and K2
-(``csrc/ekf_update.cu``), transcribed into torch and held to the JAX
-kernels in interpret mode and to the port's twins.
+"""PyTorch port: the order of work of K3 (``csrc/gn_prep.cu``), K7
+(``csrc/plane_moments.cu``) and K2 (``csrc/ekf_update.cu``), transcribed
+into torch and held to the JAX kernels in interpret mode and to the port's
+twins.
 
 K3, one warp a source point and 8 points a CTA: each point's CandidateSet
 row goes into the CTA's swizzled [x, y, z, inf][C][8] tiles, lane k adds
@@ -11,6 +12,11 @@ bit; feat meets tests/test_pallas_gn.py's bars (normal |dot| 1%-quantile
 > 0.999, centroid 2e-3, quality 2e-2) against ``prep_with_plane_torch``
 and ``prep_with_plane_pallas(interpret=True)``, at C = 32, at C = 40 (not
 a multiple of 32) and at a ragged N = 2046.
+
+K7, K3's first half on lane-major rows: the CTA loads its 8 points' rows
+into the same swizzled tiles and takes K3's lane moments; held to
+``plane_moments_torch`` at chip_smoke phase 3's bars (count exact, rows
+1-9 within 1e-5) at C = 32 and a ragged N = 2046.
 
 K2: S factored by a warp, one lower-triangle entry a lane, step by step,
 the pivots' reciprocals in place of divisions; K's eighteen rows solved at
@@ -58,26 +64,13 @@ def tile_at(r, i):
     return r * WARPS + (i ^ ((r >> 2) & (WARPS - 1)))
 
 
-def k3_decomposed(cand, source_mask, q_w, r2: float):
-    """K3's order of work in torch (f32): returns PreppedCandidates."""
-    n, c = cand.valid.shape
-    blocks = -(-n // WARPS)
-    pad = blocks * WARPS - n
-    w = torch.arange(WARPS)
-    # loads: the point's 3C floats of its row, value e to row e // 3 of
-    # tile e % 3 at the point's slot; its validity bytes to the inf tile
-    rows = torch.nn.functional.pad(cand.pts.reshape(n, 3 * c), (0, 0, 0, pad))
-    ok = torch.nn.functional.pad(cand.valid, (0, 0, 0, pad))
-    tile = torch.zeros((blocks, 4, c * WARPS))
-    e = torch.arange(3 * c)
-    k, a = e // 3, e % 3
-    tile[:, a[:, None].expand(-1, WARPS), tile_at(k[:, None], w)] = \
-        rows.reshape(blocks, WARPS, 3 * c).transpose(1, 2)
-    kk = torch.arange(c)
-    tile[:, 3, tile_at(kk[:, None], w)] = torch.where(ok, 0.0, 1e30).reshape(
-        blocks, WARPS, c).transpose(1, 2)
-    # moments: lane l reads candidates l, l + 32, ... of its point's column
-    # and adds each inside the radius (patch_add) in that order
+def lane_moments(tile, n: int, c: int, q_w, r2: float) -> torch.Tensor:
+    """The moments of K3 and K7 (common.cuh:patch_add, patch_warp_sum)
+    from a CTA's [B, 4, C * 8] tiles: warp w is point w, lane l reads
+    candidates l, l + 32, ... of its column and adds each inside the
+    radius in that order, then an xor butterfly sums the lanes; [10, n]."""
+    w, kk = torch.arange(WARPS), torch.arange(c)
+    blocks = tile.shape[0]
     lanes = -(-c // LANES) * LANES
     col = tile[:, :, tile_at(kk[:, None], w)]          # [B, 4, C, W]
     col = col.permute(0, 3, 1, 2).reshape(blocks * WARPS, 4, c)[:n]
@@ -96,7 +89,29 @@ def k3_decomposed(cand, source_mask, q_w, r2: float):
     for off in (16, 8, 4, 2, 1):
         mom = mom + mom[:, :, torch.arange(LANES) ^ off]
     assert torch.equal(mom, mom[:, :, :1].expand_as(mom))
-    s0, sx, sy, sz, sxx, syy, szz, sxy, sxz, syz = mom[:, :, 0]
+    return mom[:, :, 0]
+
+
+def k3_decomposed(cand, source_mask, q_w, r2: float):
+    """K3's order of work in torch (f32): returns PreppedCandidates."""
+    n, c = cand.valid.shape
+    blocks = -(-n // WARPS)
+    pad = blocks * WARPS - n
+    w = torch.arange(WARPS)
+    # loads: the point's 3C floats of its row, value e to row e // 3 of
+    # tile e % 3 at the point's slot; its validity bytes to the inf tile
+    rows = torch.nn.functional.pad(cand.pts.reshape(n, 3 * c), (0, 0, 0, pad))
+    ok = torch.nn.functional.pad(cand.valid, (0, 0, 0, pad))
+    tile = torch.zeros((blocks, 4, c * WARPS))
+    e = torch.arange(3 * c)
+    k, a = e // 3, e % 3
+    tile[:, a[:, None].expand(-1, WARPS), tile_at(k[:, None], w)] = \
+        rows.reshape(blocks, WARPS, 3 * c).transpose(1, 2)
+    kk = torch.arange(c)
+    tile[:, 3, tile_at(kk[:, None], w)] = torch.where(ok, 0.0, 1e30).reshape(
+        blocks, WARPS, c).transpose(1, 2)
+    s0, sx, sy, sz, sxx, syy, szz, sxy, sxz, syz = lane_moments(
+        tile, n, c, q_w, r2)
     # the finish, one point a lane (common.cuh:plane_feat<true>: the sums
     # times the reciprocal of the count)
     inv = 1.0 / torch.clamp(s0, min=1.0)
@@ -119,6 +134,28 @@ def k3_decomposed(cand, source_mask, q_w, r2: float):
     flat = tile[:, a, tile_at(r, i)].reshape(blocks, 4 * c, WARPS)
     out = flat.permute(1, 0, 2).reshape(4, c, blocks * WARPS)[:, :, :n]
     return cuda_gn.PreppedCandidates(feat, *out)
+
+
+def k7_decomposed(ptq, cx, cy, cz, inf, r2: float) -> torch.Tensor:
+    """K7's order of work in torch (csrc/plane_moments.cu): the CTA loads
+    its 8 points' lane-major rows, element e row e // 8 of the four arrays
+    at point e % 8 (0, or 1e30 for inf, past N), into the swizzled tiles;
+    K3's lane moments; rows 0-9 the moments, 10-15 zero. [16, N]."""
+    c, n = cx.shape
+    blocks = -(-n // WARPS)
+    pad = blocks * WARPS - n
+    arrs = torch.stack([torch.nn.functional.pad(x, (0, pad), value=v)
+                        for x, v in ((cx, 0.0), (cy, 0.0), (cz, 0.0),
+                                     (inf, 1e30))])      # [4, C, B * 8]
+    e = torch.arange(4 * c * WARPS)
+    rr, i = e // WARPS, e % WARPS
+    a, r = rr // c, rr % c
+    tile = torch.zeros((blocks, 4 * c * WARPS))
+    p = torch.arange(blocks)[:, None] * WARPS + i
+    tile[:, a * c * WARPS + tile_at(r, i)] = arrs[a, r, p]
+    mom = lane_moments(tile.reshape(blocks, 4, c * WARPS), n, c,
+                       ptq[:3].T, r2)
+    return torch.cat([mom, mom.new_zeros((6, n))])
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +207,33 @@ def test_k3_decomposition_matches_twin_and_pallas(k3_scene, n_voxels, n):
     wrapped = cuda_gn.prep_with_plane(cand, tmask, q_w, 0.6)
     assert kernels.LAUNCHES["gn_prep"] == 0        # CPU tensors: the twin
     assert all(torch.equal(a, b) for a, b in zip(wrapped, twin))
+
+
+@pytest.mark.parametrize("n_voxels, n", [(4, 2048), (4, 2046)],
+                         ids=["C32", "ragged_N2046"])
+def test_k7_decomposition_matches_twin(k3_scene, n_voxels, n):
+    """K7's order of work on the bench-shape candidates (lane-major, as
+    K3 lays them out): the count row exact, rows 1-9 within 1e-5 of each
+    row's largest magnitude (phase 3's bars), rows 10-15 zero; the
+    wrapper on CPU tensors is the twin."""
+    _, (pm, tsrc, _, tguess) = k3_scene
+    q_w = se3.transform(tguess, tsrc)[:n].contiguous()
+    cand = icp.gather_candidates(pm, q_w, voxel_size=0.3, max_probes=2,
+                                 neighborhood=7, n_voxels=n_voxels,
+                                 fit_planes=False)
+    rows = cuda_gn.lane_major(cand)
+    ptq = torch.cat([q_w.T, torch.zeros((5, n))]).contiguous()
+    r2 = cuda_gn._radius2(0.6)
+    got = k7_decomposed(ptq, *rows, r2)
+    twin = cuda_gn.plane_moments_torch(ptq, *rows, r2)
+    assert torch.equal(got[0], twin[0]) and float(twin[0].sum()) > 4 * n
+    for k in range(1, 10):
+        rel = float((got[k] - twin[k]).abs().max() / twin[k].abs().max())
+        assert rel <= 1e-5, (k, rel)
+    assert bool((got[10:] == 0).all())
+    kernels.reset_launches()
+    assert torch.equal(cuda_gn.plane_moments(ptq, *rows, r2), twin)
+    assert kernels.LAUNCHES["plane_moments"] == 0
 
 
 def test_k3_tiles_swizzle_is_conflict_free():

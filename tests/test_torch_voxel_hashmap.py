@@ -157,6 +157,46 @@ def test_map_tables_bit_exact_after_bootstrap_and_steady_inserts():
     assert int(evicted.sum()) > 100 and int(hashmap.num_points(pm)) > 1000
 
 
+@pytest.mark.parametrize("overflow", [True, "cond"])
+def test_shared_octant_counts_past_the_row_as_in_jax(overflow):
+    """A fault of the reference that the port keeps (the map count that
+    passes its row of points). The occupancy-deduped insert takes points
+    unique at half a voxel, but the frame is deduplicated in the sensor
+    frame and inserted in the world frame, so two points can share a world
+    octant. Both then rank 0 in it: both are accepted at the voxel's next
+    row (one point stored, the last writer), the count grows by two, and
+    the octant bit added twice carries into the next bit, which frees the
+    octant for later frames. With the voxel one point short of its row the
+    count passes the row. JAX's insert does the same: the tables are bit
+    for bit JAX's, and the count is one past the row in both."""
+    cap, ppv, vs = 1 << 8, 8, 0.3
+    jins = jax.jit(jhashmap.insert_deduped,
+                   static_argnames=("voxel_size", "max_probes",
+                                    "new_capacity", "overflow"))
+    kw = dict(voxel_size=vs, max_probes=2, new_capacity=16,
+              overflow=overflow)
+    # voxel (0, 0, 0): one point in each of octants 0-6, then a frame with
+    # two points in octant 7 and a point of another voxel
+    octant = np.array([[(k >> i) & 1 for i in range(3)] for k in range(7)])
+    first = (0.05 + 0.15 * octant).astype(np.float32)
+    second = np.array([[0.20, 0.20, 0.20], [0.26, 0.22, 0.21],
+                       [1.05, 0.05, 0.05]], np.float32)
+    jm = jhashmap.create(cap, ppv)
+    pm = hashmap.create(cap, ppv, "cpu")
+    for pts in (first, second, first[:1] + 0.01):
+        keep = np.ones(len(pts), bool)
+        jm = jins(jm, pts, keep, **kw)
+        pm = hashmap.insert_deduped(pm, torch.from_numpy(pts),
+                                    torch.from_numpy(keep), **kw)
+        _eq(pm.meta, jm.meta)
+        _eq(pm.points, jm.points)
+    counts = np.asarray(pm.meta[:, 1])
+    assert counts.max() == ppv + 1 and np.asarray(jm.meta[:, 1]).max() \
+        == ppv + 1
+    assert int(hashmap.num_points(pm)) == int(jhashmap.num_points(jm)) \
+        == ppv + 1 + 1
+
+
 def test_unpack_points_matches_jax():
     rng = np.random.default_rng(7)
     packed = rng.integers(0, 2 ** 30, (100, 8)).astype(np.int32)
