@@ -22,10 +22,18 @@ Phases, each reported on its own line:
      its other launch shapes bit for bit against the default, K4 and K5
      repeating bit for bit and on a scene of exact nearest-row ties
      (lowest row wins); the candidate-refresh ICP loop
-     with the kernel against the loop with the twin; the fused gather
-     (K6, one launch) at the bench and CLI shapes with its selection
-     written out, and K6 -> K4 against the gather -> K3 -> K4 chain; the
-     plane moments (K7), which no path launches;
+     with the kernel against the loop with the twin; the predicate
+     kernel of the graph form's conditional nodes (``csrc/graph_cond.cu``)
+     in one captured graph: a WHILE node counting to a bound set on the
+     card with an IF node in its body, an IF node taken and one not
+     taken, every result read after the replay, again at another bound
+     and flag without a new capture; then, captured with their IF bodies
+     taken, the refresh loop (a re-gather in its WHILE body) and the
+     exact insert (overflow chunks) bit-equal to the eager loops; the
+     fused gather (K6, one launch) at
+     the bench and CLI shapes with its selection written out, and K6 ->
+     K4 against the gather -> K3 -> K4 chain; the plane moments (K7),
+     which no path launches;
   4. the bench path: ``lio.run_sequence`` at ``bench_config()`` on the
      bench scene (rendered by the port's numpy sim, cached in the temp
      dir), once to warm up and once timed with host syncs made errors;
@@ -154,22 +162,34 @@ the fit) bit for bit against its twin, K4 on its point rows and K5 on
 point rows at the CLI shapes; phase 2 prints the SASS instruction count of
 both K3 instances (``cuobjdump``); the scene renders in a child process
 beside phases 2-3.
-The graph form (``models.graph``): phases 4, 6, 7c, 8b-e (8d and 8e on
-their first 25 scans) and 10b also run each cell with ``graph=True``, the
-drivers' default on the card: a first graph call, which captures, then
-the eager loop and the graph in alternation, three timed runs each with
-host syncs made errors, each graph run a later call of the kept runner;
-the graph's rows and final state bit-equal to the eager run's, the same
-launches, the profiled device operations a scan of the steady step's
-replays equal to the eager step's plus the runner's own; both forms' busy
-ms, idle share, wall ms a scan, scans/s, and the graph's first call (its
-capture included), capture ms, break-even scans and graph pool MB. Phase
-9 also runs ``LioOnline`` at ``bench_config()`` in both forms on an
+The graph form (``models.graph``): phases 4, 5, 6, 7a-c, 8a-f (8d and 8e
+on their first 25 scans) and 10b, 10d-e also run each cell with
+``graph=True``, the drivers' default on the card: a first graph call,
+which captures, then the eager loop and the graph in alternation, three
+timed runs each with host syncs made errors (two each in the refresh-loop
+cells 5, 7a-b, 8a, 8f, 10d-e: the time limit), each graph run a later call
+of the kept runner; the graph's rows and final state bit-equal to the
+eager run's, the same hand-kernel launches (K5 once a GN iteration,
+counted on the card), the predicate kernel launched where the graph has
+conditional nodes and never eagerly, no host read in a graph run and the
+eager run's re-gathers; without conditional nodes the profiled device
+operations a scan of the steady step's replays equal to the eager step's
+plus the runner's own; both forms' busy ms, idle share, device
+operations, wall ms a scan, scans/s, and the graph's conditional nodes,
+the bodies' executions, first call (its capture included), capture ms,
+break-even scans and graph pool MB. In the refresh-loop cells the loop is
+a WHILE node, its re-gather an IF node inside it and the exact insert's
+overflow chunks IF nodes (8f: the every-iteration query's loop a WHILE
+node). Phase 9 runs the port command in batch and ``--online`` eagerly
+(the drivers' default resolved to the eager loop) and as graphs, each
+graph run's poses, iterations and final state bit-equal to its eager
+run's, and ``LioOnline`` at ``bench_config()`` in both forms on an
 epoch-scale clock (the graph's rows bit-equal to the batch graph run's,
-latency p50/p95/p99 of both). The phases whose steps
-read the card from the host (5, 7a-b, 8a, 8f, 9's command, 10c-e, 11)
-check that they ran eagerly. One JSON line of the graph forms' figures
-with the card's name and power limit precedes the kernel summary.
+latency p50/p95/p99 of both); 10c each sweep command in both forms, the
+same way; 11d the command's runs as graphs. The point-sharded runs of
+phase 11 (a process group) stay eager. One JSON line of the graph forms'
+figures with the card's name and power limit precedes the kernel
+summary.
 Every kernel's line in the JSON summary carries its launches in graphs
 and its bound: the larger of
 the bytes it must move (each input read once, each output written once)
@@ -185,6 +205,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -226,6 +247,10 @@ REPLACES = {
     # ptudes_tpu/models/esekf.py:457-484, beside the same TPU kernel)
     "ekf_predict_history": ("ekf_predict.cu",
                             "ptudes_tpu/ops/pallas_ekf.py:438"),
+    # the predicate kernel of the graph form's conditional nodes: no Pallas
+    # kernel, the port of the refresh loop's jax.lax.while_loop and its
+    # lax.cond, compiled into the JAX package's scan program
+    "graph_cond": ("graph_cond.cu", "ptudes_tpu/ops/icp.py:519"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -1069,6 +1094,181 @@ def check_refresh_loop(dev):
         f"{counts['regathers']}, host reads {counts['host_reads']}")
 
 
+class OneCall(graph.StepGraph):
+    """A runner whose scan is one call of its step on its state alone
+    (phase 3's checks of the conditional nodes)."""
+
+    def scan_inputs(self):
+        return None, 0
+
+    def emit(self, outs) -> int:
+        return 0
+
+
+def check_graph_cond(dev, results):
+    """The predicate kernel of the conditional nodes (``csrc/
+    graph_cond.cu``, ``models.graph``) in one captured graph: a WHILE node
+    that counts to a bound set on the card, with an IF node inside its
+    body taken at one iteration, then an IF node taken and one not taken
+    on a flag set on the card; every result read after the replay, for a
+    bound of 7 and a true flag and again for a bound of 3 and a false one
+    (no new capture), bodies counted on the card. The predicate kernel's
+    device time from the profiler's records of a replay (else a WHILE
+    iteration's from CUDA events), beside the eager form's host read of a
+    flag (``bool`` of a one-element tensor)."""
+    limit = torch.tensor(7, dtype=torch.int32, device=dev)
+    flag = torch.tensor(True, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def step(state, _):
+        n, hit, miss = (x.clone() for x in state)
+        go = torch.ones((), dtype=torch.bool, device=dev)
+
+        def body():
+            n.add_(1)
+            go.copy_(n < limit)
+            graph.if_node("inner", n == 3, lambda: hit.add_(10))
+
+        graph.while_node("loop", go, body)
+        graph.if_node("taken", flag, lambda: hit.add_(1))
+        graph.if_node("not_taken", ~flag, lambda: miss.copy_(zero + 5))
+        return (n, hit, miss),
+
+    g = OneCall((zero, zero, zero))
+    g.add("s", step)
+    check(g.cond_nodes == {"s": 4}, f"graph_cond: nodes {g.cond_nodes}")
+    errs = []
+    for b, f, want, runs in ((7, True, (7, 11, 0), dict(
+            loop=7, inner=1, taken=1, not_taken=0)), (3, False, (3, 10, 5),
+            dict(loop=3, inner=1, taken=0, not_taken=1))):
+        limit.fill_(b)
+        flag.fill_(f)
+        for x in g.state:
+            x.zero_()
+        kernels.reset_launches()
+        g.begin_counts()
+        g.step("s")
+        g.fold_counts()
+        got = tuple(int(x) for x in g.state)
+        errs += [abs(a - w) for a, w in zip(got, want)]
+        check(got == want and g.cond == runs,
+              f"graph_cond: bound {b}, flag {f}: (n, hit, miss) {got}, want "
+              f"{want}; bodies {g.cond}, want {runs}")
+        # a predicate before each IF node, one at the end of each WHILE
+        # body and one before the inner IF in it: 2 + 2 a WHILE iteration
+        check(kernels.LAUNCHES["graph_cond"] == 2 + 2 * b,
+              f"graph_cond: {kernels.LAUNCHES['graph_cond']} launches")
+    from torch.profiler import ProfilerActivity, profile
+
+    limit.fill_(50)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.step("s")
+        torch.cuda.synchronize()
+    ds = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "graph_cond_kernel" in e.name]
+    if ds:
+        ms = float(np.mean(ds)) / 1e3
+        how = f"{len(ds)} profiler records"
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.step("s")
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop) / 50
+        how = "no profiler record: a WHILE iteration (3 ops) from events"
+    t = time.perf_counter()
+    for _ in range(200):
+        bool(flag)
+    plain = (time.perf_counter() - t) / 200 * 1e3
+    b_ = bound(1 + 4 + 4, 1)      # read the flag and the count, write it
+    results["graph_cond"] = dict(max_abs_err=float(max(errs)), ms=ms,
+                                 plain_ms=plain, **b_)
+    say(f"  graph_cond: a WHILE node counted to 7 and to 3 on a bound set "
+        f"on the card, an IF node in its body taken once, an IF node "
+        f"taken and one not on a flag set on the card, 4 conditional "
+        f"nodes, every result read after the replay; predicate kernel "
+        f"{ms * 1e3:.2f} us ({how}), the eager form's host read of a flag "
+        f"{plain * 1e3:.2f} us")
+    check_taken_bodies(dev)
+
+
+def check_taken_bodies(dev):
+    """The conditional forms with their IF bodies taken, captured on the
+    card, against the eager loops bit for bit (the bench scene's cells
+    take neither): the refresh loop on :func:`icp_scene` (its guess
+    drifts past the refresh threshold, so the re-gather runs inside the
+    WHILE body) and the exact insert of its 0.15 m frame into an empty
+    map in chunks of 8192 (overflow chunks under IF nodes)."""
+    m, src, mask, guess = icp_scene(dev)
+    kw = dict(voxel_size=0.3, max_probes=2, max_iterations=30,
+              convergence=1e-5, plane_min_quality=0.2,
+              prior_rot_weight=0.01, prior_trans_weight=0.01,
+              neighborhood=27, n_voxels=4, plane_radius=0.6,
+              refresh_drift=0.5, form="cuda")
+    args = (src, mask, m, guess, torch.tensor(0.5, device=dev),
+            torch.tensor(0.1667, device=dev))
+
+    def refresh(_state, _):
+        r = icp.register_frame_cached(*args, **kw)
+        return (r.pose, r.num_corr, r.iterations),
+
+    icp.reset_refresh_counts()
+    kernels.reset_launches()
+    r = icp.register_frame_cached(*args, **kw)
+    want = (r.pose, r.num_corr, r.iterations)
+    eager = dict(icp.REFRESH_COUNTS), kernels.LAUNCHES["gn_iter"]
+    g = OneCall(tuple(torch.zeros_like(x) for x in want))
+    g.add("s", refresh)
+    icp.reset_refresh_counts()
+    kernels.reset_launches()
+    g.begin_counts()
+    g.step("s")
+    g.fold_counts()
+    check(same_bits(g.state, want)
+          and g.cond["regathers"] == eager[0]["regathers"] >= 1
+          and kernels.LAUNCHES["gn_iter"] == eager[1]
+          and icp.REFRESH_COUNTS["host_reads"] == 0,
+          f"graph_cond: the captured refresh loop (re-gathers {g.cond}, K5 "
+          f"{kernels.LAUNCHES['gn_iter']}) against the eager one "
+          f"({eager})")
+    regathers = g.cond["regathers"]
+
+    rng = np.random.default_rng(9)
+    raw = torch.tensor(np.stack([rng.uniform(-15, 15, 40000),
+                                 rng.uniform(-15, 15, 40000),
+                                 rng.uniform(-1, 1, 40000)], -1),
+                       dtype=torch.float32, device=dev)
+    frame, keep = voxel.first_in_voxel_sorted(
+        raw, torch.ones(len(raw), dtype=torch.bool, device=dev), 0.15,
+        len(raw))
+    empty = hashmap.create(1 << 16, 20, dev)
+    ins = dict(voxel_size=0.3, max_probes=2, new_capacity=8192,
+               overflow="cond")
+
+    def insert(state, _):
+        return hashmap.insert_deduped(state, frame, keep, **ins),
+
+    want = hashmap.insert_deduped(empty, frame, keep, **ins)
+    g = OneCall(empty)
+    g.add("s", insert)
+    g.begin_counts()
+    g.step("s")
+    g.fold_counts()
+    n_new = int(hashmap.num_points(want))
+    check(same_bits(g.state, want) and g.cond["chunks"] >= 2,
+          f"graph_cond: the captured insert's tables differ from the eager "
+          f"insert's, or its chunks {g.cond} ({n_new} points stored)")
+    say(f"  graph_cond, bodies taken: the refresh loop captured, {regathers}"
+        f" re-gathers in its WHILE body, pose and counts bit-equal to the "
+        f"eager loop's; the exact insert captured, {g.cond['chunks']} "
+        f"overflow chunks under IF nodes ({n_new} points stored), tables "
+        f"bit-equal to the all-chunk insert's")
+
+
 def fit_errors(got, ref, what: str) -> dict:
     """K3's phase-3 bars for the patch plane fit of ``got`` against
     ``ref`` (both PreppedCandidates): where the reference quality > 0.3,
@@ -1330,7 +1530,25 @@ def check_plane_moments(dev, results):
 # ------------------------------------ the graph form (models.graph)
 
 FORM_RUNS = 3   # timed runs of each form a cell, in alternation
+CLI_FORM_RUNS = 2   # the same for the refresh-loop cells (the time limit)
 FORM_SCANS_8DE = 25   # scans of 8d's and 8e's form runs (the time limit)
+
+
+@contextlib.contextmanager
+def eager_drivers():
+    """The drivers' default (``graph=None``) resolved to the eager loop: an
+    eager run of a command, which has no flag for it, to hold its graph
+    run to."""
+    real = graph.use_graph
+
+    def use_graph(g, device, cfg, group=None):
+        return False if g is None else real(g, device, cfg, group)
+
+    graph.use_graph = use_graph
+    try:
+        yield
+    finally:
+        graph.use_graph = real
 
 
 def ran_eagerly(tag: str) -> None:
@@ -1345,6 +1563,7 @@ def timed_form(run, form: bool, state) -> dict:
     the form it ran checked: its final state, outputs, seconds,
     ``graph.LAST_RUN`` and launches."""
     kernels.reset_launches()
+    icp.reset_refresh_counts()
     torch.cuda.synchronize()
     t = time.monotonic()
     torch.cuda.set_sync_debug_mode("error")
@@ -1358,7 +1577,7 @@ def timed_form(run, form: bool, state) -> dict:
     check(rec["form"] == ("graph" if form else "eager"),
           f"graph={form} ran as {rec['form']}")
     return dict(fin=fin, out=out, s=dt, record=rec,
-                launches=launch_counts())
+                launches=launch_counts(), counts=dict(icp.REFRESH_COUNTS))
 
 
 def profiled(fn, n_scans: int) -> dict:
@@ -1381,18 +1600,24 @@ def profiled(fn, n_scans: int) -> dict:
                 idle_share=1.0 - busy / span)
 
 
-def window_forms(tag, step, state, tail, *, axis: int = 0) -> dict:
+def window_forms(tag, step, state, tail, *, axis: int = 0,
+                 scan=None) -> dict:
     """The steady ``step`` over the scans of ``tail`` from ``state``, op by
     op and as replays of its graph (captured before the trace), each under
-    the profiler: device busy us, operations and idle share a scan. The
-    graph's operations a scan must be the eager step's plus the runner's
-    own (its input selects, state copies, output copies and counter):
-    the same work. The profiler can drop records, so a mismatch is
-    profiled again up to twice."""
-    n = tail.range_m.shape[axis]
-    scan = lio.scan_at if axis == 0 else batched.scan_of
+    the profiler: device busy us, operations and idle share a scan
+    (``scan(tail, i)`` picks scan i; by default by ``axis``). Without
+    conditional nodes the graph's operations a scan must be the eager
+    step's plus the runner's own (its input selects, state copies, output
+    copies and counter): the same work. The profiler can drop records, so
+    a mismatch is profiled again up to twice. With conditional nodes the
+    two differ by design (the predicate kernels, the in-place carry, the
+    chunks not taken, the counters read once after the run), so both are
+    printed, not compared."""
+    n = graph.leaves(tail)[0].shape[axis]
+    scan = scan or (lio.scan_at if axis == 0 else batched.scan_of)
     g = graph.SequenceGraph(state, tail, axis=axis)
     g.add("steady", step)
+    exact = not g.cond_nodes["steady"]
 
     def eager():
         s = state
@@ -1403,10 +1628,11 @@ def window_forms(tag, step, state, tail, *, axis: int = 0) -> dict:
         e = profiled(eager, n)
         g.counter.zero_()
         r = profiled(lambda: g.run(["steady"] * n), n)
-        if r["device_ops_per_scan"] == (e["device_ops_per_scan"]
-                                        + g.own_ops):
+        if not exact or r["device_ops_per_scan"] == (
+                e["device_ops_per_scan"] + g.own_ops):
             break
-    check(r["device_ops_per_scan"] == e["device_ops_per_scan"] + g.own_ops,
+    check(not exact
+          or r["device_ops_per_scan"] == e["device_ops_per_scan"] + g.own_ops,
           f"{tag}: {r['device_ops_per_scan']} device operations a replay, "
           f"the eager step {e['device_ops_per_scan']} + the runner's "
           f"{g.own_ops}")
@@ -1414,7 +1640,8 @@ def window_forms(tag, step, state, tail, *, axis: int = 0) -> dict:
 
 
 def graph_cell(tag: str, run, make_state, n_scans: int, window, *,
-               scans_per_run: int | None = None, first: dict | None = None):
+               scans_per_run: int | None = None, first: dict | None = None,
+               form_runs: int | None = None):
     """A cell's graph form against its eager loop (phases 4, 6, 7c, 8b-e,
     10b). ``run(form, state)`` drives the cell with ``graph=form`` and
     returns (final state, outputs); ``make_state()`` makes its start state
@@ -1424,11 +1651,16 @@ def graph_cell(tag: str, run, make_state, n_scans: int, window, *,
     and graph in alternation, ``FORM_RUNS`` timed runs each with host
     syncs made errors, every graph run a kept runner's later call;
     ``first``, the cell's own timed eager run (a :func:`timed_form`
-    record), is the first of them when given. Gates: every graph run's
-    rows and final state (the first call's too) bit-equal to the first
-    eager run's, the eager runs repeating bit for bit, the same kernel
-    launches (a graph's: its capture's launches times its replays), each
-    run's form, and the window's device operations. The break-even is
+    record), is the first of them when given; ``form_runs`` replaces
+    ``FORM_RUNS``. Gates: every graph run's rows and final state (the
+    first call's too) bit-equal to the first eager run's, the eager runs
+    repeating bit for bit, the same hand-kernel launches (a graph's: its
+    capture's launches times its replays, and each conditional body's
+    launches times its executions, counted on the card), the predicate
+    kernel launched exactly where the graph has conditional nodes and
+    never eagerly, no host read of the refresh loop's in a graph run and
+    its re-gathers the eager run's, each run's form, and the window's
+    device operations (without conditional nodes). The break-even is
     the scans a first call needs to beat the eager loop: its capture ms
     over the median eager minus the median graph ms a scan. Returns
     (summary, the graph runs' launches)."""
@@ -1436,7 +1668,8 @@ def graph_cell(tag: str, run, make_state, n_scans: int, window, *,
     warm = timed_form(run, True, make_state())     # warm-up and capture
     check(not warm["record"]["cached"], f"{tag}: the first call was kept")
     runs = {False: [first] if first else [], True: []}
-    for form in ((False, True) * FORM_RUNS)[1 if first else 0:]:
+    for form in ((False, True) * (form_runs or FORM_RUNS))[
+            1 if first else 0:]:
         runs[form].append(timed_form(run, form, make_state()))
     ref = runs[False][0]
     for r in runs[False][1:]:
@@ -1444,18 +1677,32 @@ def graph_cell(tag: str, run, make_state, n_scans: int, window, *,
               f"{tag}: the eager runs do not repeat bit for bit")
     for r in runs[True]:
         check(r["record"]["cached"], f"{tag}: a later call captured again")
+    nodes = sum(warm["record"]["cond_nodes"].values())
+    hand = {k: v for k, v in ref["launches"].items() if k != "graph_cond"}
+    check(ref["launches"]["graph_cond"] == 0,
+          f"{tag}: the eager loop launched the predicate kernel")
     for r in [warm, *runs[True]]:
         check(same_bits(r["out"], ref["out"]),
               f"{tag}: the graph's rows differ from the eager loop's")
         check(same_bits(r["fin"], ref["fin"]),
               f"{tag}: the graph's final state differs from the eager "
               "loop's")
-        check(r["launches"] == ref["launches"],
-              f"{tag}: launches {r['launches']} as a graph, "
+        got = {k: v for k, v in r["launches"].items() if k != "graph_cond"}
+        check(got == hand, f"{tag}: launches {r['launches']} as a graph, "
               f"{ref['launches']} eagerly")
+        check((r["launches"]["graph_cond"] > 0) == (nodes > 0),
+              f"{tag}: {r['launches']['graph_cond']} predicate launches, "
+              f"{nodes} conditional nodes")
+        check(r["counts"]["host_reads"] == 0
+              and r["counts"]["regathers"] == ref["counts"]["regathers"],
+              f"{tag}: refresh counts {r['counts']} as a graph, "
+              f"{ref['counts']} eagerly")
     win = window()
     per = scans_per_run or n_scans
-    summary = dict(runner_ops_per_scan=win["runner_ops_per_scan"])
+    summary = dict(runner_ops_per_scan=win["runner_ops_per_scan"],
+                   cond_nodes=warm["record"]["cond_nodes"],
+                   cond=warm["record"]["cond"],
+                   eager_refresh_counts=ref["counts"])
     for form, name in ((False, "eager"), (True, "graph")):
         wall = [r["s"] for r in runs[form]]
         summary[name] = dict(
@@ -1469,7 +1716,9 @@ def graph_cell(tag: str, run, make_state, n_scans: int, window, *,
              first_call_ms=warm["s"] * 1e3,
              replays=warm["record"]["replays"])
     summary["break_even_scans"] = cap / gain if gain > 0 else None
-    say(f"  {tag} eager / graph: busy {e['busy_us_per_scan'] / 1e3:.3f} / "
+    say(f"  {tag} eager / graph: conditional nodes a graph "
+        f"{warm['record']['cond_nodes']}, bodies run {warm['record']['cond']}"
+        f"; busy {e['busy_us_per_scan'] / 1e3:.3f} / "
         f"{g['busy_us_per_scan'] / 1e3:.3f} ms, idle "
         f"{e['idle_share'] * 100:.1f} / {g['idle_share'] * 100:.1f} %, "
         f"{e['device_ops_per_scan']:.1f} / {g['device_ops_per_scan']:.1f} "
@@ -1492,7 +1741,7 @@ FORM_CELLS: dict[str, dict] = {}   # graph_cell's summaries, by cell
 
 
 def lio_forms(tag, cfg, batches, lut, dev, state=None, *, log=False,
-              window: int = 10, head=None, first=None):
+              window: int = 10, head=None, first=None, form_runs=None):
     """:func:`graph_cell` of ``lio.run_sequence`` of ``cfg`` on
     ``batches`` from ``state`` (default a fresh one), its window the last
     ``window`` scans after the first ones ran eagerly (``head``: the state
@@ -1519,7 +1768,8 @@ def lio_forms(tag, cfg, batches, lut, dev, state=None, *, log=False,
         return window_forms(tag, steady, start,
                             lio.scan_at(batches, slice(n - window, n)))
 
-    return graph_cell(tag, run, make_state, n, win, first=first)
+    return graph_cell(tag, run, make_state, n, win, first=first,
+                      form_runs=form_runs)
 
 
 # --------------------------------------------------------------- phase 4
@@ -1630,8 +1880,8 @@ def run_log_path(scene, n_scans: int, dev, bench_out, bench_rate,
         esekf.process_imu = step
     launches = launch_counts()
     for name, count in launches.items():
-        want = 0 if name in ("gn_iter", "gather_fused", "plane_moments") \
-            else n_scans
+        want = 0 if name in ("gn_iter", "gather_fused", "plane_moments",
+                             "graph_cond") else n_scans
         check(count == want,
               f"{name} launched {count} times in {n_scans} logged scans")
     check(twin_steps[0] == 0, f"{twin_steps[0]} twin predict steps ran")
@@ -1790,7 +2040,8 @@ def run_option_path(scene, dev, cfg, tag: str, ref_name: str, want, *,
                     card: str, batches=None, state=None, rows=None,
                     ate_slack=None, ate_max=None, twins: bool = False,
                     window: int = 10, forms: bool = False,
-                    form_scans: int | None = None):
+                    form_scans: int | None = None,
+                    form_runs: int | None = None):
     """A run of ``cfg`` on the bench scene (phases 5-8): ``batches`` and
     the start ``state`` when given, else the scans the JAX poses
     ``tests/data/<ref_name>_jax_poses.txt`` hold from a fresh state. The
@@ -1803,8 +2054,8 @@ def run_option_path(scene, dev, cfg, tag: str, ref_name: str, want, *,
     ``ate_max`` at most that. With ``twins`` the same run with every kernel
     replaced by its twin (no launch). The timed run is the eager loop:
     with ``forms`` asked for (``graph=False``) and then the graph form
-    held to it (:func:`lio_forms`), else the driver's own choice, which
-    must be the eager loop (the refresh loop's host reads); ``form_scans``
+    held to it (:func:`lio_forms`, ``form_runs`` timed runs of each), else
+    the driver's own choice, which must be the eager loop; ``form_scans``
     cuts the two forms' runs to the first scans. Returns (launches,
     output, summary)."""
     sensor, scans, scan_ts, gt_mid, imu = scene
@@ -1867,10 +2118,10 @@ def run_option_path(scene, dev, cfg, tag: str, ref_name: str, want, *,
            "the driver ran it eagerly") + f"; {card}")
     if forms and form_scans is None:
         lio_forms(tag, cfg, batches, lut, dev, state, window=window,
-                  head=head, first=first)
+                  head=head, first=first, form_runs=form_runs)
     elif forms:
         lio_forms(tag, cfg, lio.scan_at(batches, slice(0, form_scans)), lut,
-                  dev, state, window=window)
+                  dev, state, window=window, form_runs=form_runs)
     if twins:
         tcfg = config.twin_config(cfg)
         lio.run_sequence(lio.init_state(tcfg, dev) if state is None
@@ -1892,12 +2143,15 @@ def run_option_path(scene, dev, cfg, tag: str, ref_name: str, want, *,
 
 def run_cli_path(scene, dev, card: str):
     """Phase 5: ``cli_config(128, 1024)`` through :func:`run_option_path`,
-    with the twins; returns (launches, output)."""
+    with the twins and the graph form (its refresh loop a WHILE node, the
+    re-gather and the overflow chunks IF nodes); returns (launches,
+    output)."""
     h, w = scene[1].shape[1:]
     cli = config.cli_config(h, w)
     launches, out, _ = run_option_path(
         scene, dev, cli, "5 cli", "cli", cli_want(cli), card=card,
-        ate_slack=CLI_ATE_SLACK_M, twins=True)
+        ate_slack=CLI_ATE_SLACK_M, twins=True, forms=True,
+        form_runs=CLI_FORM_RUNS)
     return launches, out
 
 
@@ -1911,12 +2165,14 @@ def run_kiss_paths(scene, dev, card: str):
     launches = {}
     launches["cli_kiss"], _, _ = run_option_path(
         scene, dev, kiss_cfg, "7a cli kiss", "cli_kiss", cli_want(kiss_cfg),
-        card=card, ate_slack=CLI_ATE_SLACK_M, twins=True)
+        card=card, ate_slack=CLI_ATE_SLACK_M, twins=True, forms=True,
+        form_runs=CLI_FORM_RUNS)
     assoc = dataclasses.replace(kiss_cfg, ekf=dataclasses.replace(
         kiss_cfg.ekf, predict_batch="assoc"))
     launches["cli_kiss_assoc"], out, _ = run_option_path(
         scene, dev, assoc, "7b cli kiss assoc", "cli_kiss", cli_want(assoc),
-        card=card, ate_slack=CLI_ATE_SLACK_M)
+        card=card, ate_slack=CLI_ATE_SLACK_M, forms=True,
+        form_runs=CLI_FORM_RUNS)
     return launches, out
 
 
@@ -2013,44 +2269,54 @@ def run_kiss_every(scene, dev, card: str, window: int = 5):
     JAX package), no range-image grid, the constant-velocity guess and
     deskew, on the scans ``tests/data/kiss_every_jax_poses.txt`` holds (the
     JAX run leaves the track after them): no kernel launches, at most one
-    host read a GN iteration, every pose within 0.02 m of JAX's."""
+    host read a GN iteration, every pose within 0.02 m of JAX's. Then its
+    graph form (``graph.run_scans`` of the same step, its every-iteration
+    loop a WHILE node) against that eager loop (:func:`graph_cell`)."""
     sensor, scans, scan_ts, gt_mid, imu = scene
     ref_path, ref = ref_poses("kiss_every")
     n = min(len(ref), len(scans))
     ref, window = ref[:n], min(window, n // 2)
     kcfg = config.KissConfig(nn_mode="every", loss="point")
-    # no driver: the step is kiss.register_scan in a host loop, and its
-    # query every GN iteration reads the card, so it stays eager
-    check(graph.host_read_reason(config.PipelineConfig(kiss=kcfg))
-          is not None, "8f: nn_mode='every' counted as capturable")
+    # no driver: the step is kiss.register_scan, in a host loop or replayed
+    # through graph.run_scans; its query every GN iteration is a WHILE node
+    check(graph.host_read_reason(config.PipelineConfig(kiss=kcfg)) is None,
+          "8f: nn_mode='every' counted as not capturable")
     cap = config.Capacity(max_points=scans.shape[1] * scans.shape[2])
     lut = convert.lut_from_numpy(sensor.lut, dev)
     ranges = torch.tensor(scans[:n], dtype=torch.float32, device=dev)
+
+    def step(state, rng):
+        state, pose, aux = kiss.register_scan(
+            state, *scan_to_points(lut, rng), cfg=kcfg, cap=cap)
+        return state, pose, aux.iterations
 
     def run(k0, k1, state=None):
         state = kiss.init_state(kcfg, cap, dev) if state is None else state
         poses, iters = [], []
         for i in range(k0, k1):
-            state, pose, aux = kiss.register_scan(
-                state, *scan_to_points(lut, ranges[i]), cfg=kcfg, cap=cap)
+            state, pose, it = step(state, ranges[i])
             poses.append(pose)
-            iters.append(aux.iterations)
+            iters.append(it)
         return state, torch.stack(poses), torch.stack(iters)
+
+    def run_form(form, st):
+        if form:
+            return graph.run_scans(
+                ("kiss_every", kcfg, cap, graph.tensor_key(lut)),
+                lambda: (None, step, 0), st, ranges)
+        fin, poses, iters = run(0, n, st)
+        graph.ran_eagerly()
+        return fin, (poses, iters)
+
+    def make_state():
+        return kiss.init_state(kcfg, cap, dev)
 
     state, _, _ = run(0, n - window)
     busy = profiled(lambda: run(n - window, n, state), window)
-    kernels.reset_launches()
-    icp.reset_refresh_counts()
-    torch.cuda.synchronize()
-    t = time.monotonic()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        _, poses, iters = run(0, n)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    dt = time.monotonic() - t
-    launches, reads = launch_counts(), icp.REFRESH_COUNTS["host_reads"]
+    first = timed_form(run_form, False, make_state())
+    poses, iters = first["out"]
+    dt = first["s"]
+    launches, reads = first["launches"], first["counts"]["host_reads"]
     n_it = int(iters.sum())
     check(sum(launches.values()) == 0, f"8f: kernels launched {launches}")
     check(reads <= n_it, f"8f: {reads} host reads, {n_it} iterations")
@@ -2073,6 +2339,9 @@ def run_kiss_every(scene, dev, card: str, window: int = 5):
         f"{err.max():.4f} m (<= {POSE_GATE_M}), {n_it} GN iterations, "
         f"{reads} host reads (one a GN iteration at most), no kernel; "
         f"{card}")
+    graph_cell("8f kiss every", run_form, make_state, n, lambda: window_forms(
+        "8f kiss every", step, state, ranges[n - window:],
+        scan=lambda t, i: t[i]), first=first, form_runs=CLI_FORM_RUNS)
     return launches, summary
 
 
@@ -2094,7 +2363,8 @@ def run_phase8(scene, dev, bench_out, card: str
     cli = config.cli_config(h, w)
     by_path["cli_point"], _, sm = run_option_path(
         scene, dev, kiss_cfg(cli, loss="point"), "8a cli point",
-        "cli_point", cli_want(cli), card=card, ate_slack=CLI_ATE_SLACK_M)
+        "cli_point", cli_want(cli), card=card, ate_slack=CLI_ATE_SLACK_M,
+        forms=True, form_runs=CLI_FORM_RUNS)
     summaries.append(sm)
     outs = []
     for fused, name in ((False, "bench_point"), (True, "bench_point_fused")):
@@ -2203,27 +2473,41 @@ def run_recording_path(scene, dev, card: str) -> dict[str, dict[str, int]]:
         base = ["ekf-bench", "ouster", rec, "-m", meta,
                 "--use-imu-prediction", "-g", gt]
         runs, launches, outs = {}, {}, {}
-        for mode in ("batch", "online"):
-            kitti = os.path.join(tmp, f"{mode}.txt")
+        for mode in ("batch eager", "batch", "online eager", "online"):
+            eager = mode.endswith("eager")
+            kitti = os.path.join(tmp, f"{mode.replace(' ', '_')}.txt")
             kernels.reset_launches()
             icp.reset_refresh_counts()
             t = time.monotonic()
-            res = cli.run(base + ["--save-kitti-poses", kitti]
-                          + (["--online"] if mode == "online" else []))
+            with eager_drivers() if eager else contextlib.nullcontext():
+                res = cli.run(base + ["--save-kitti-poses", kitti]
+                              + (["--online"] if "online" in mode else []))
             wall = time.monotonic() - t
             launches[mode] = launch_counts()
-            ran_eagerly(f"9 {mode}")
+            check(graph.LAST_RUN["form"] == ("eager" if eager else "graph"),
+                  f"9 {mode}: ran as {graph.LAST_RUN['form']}")
             reads = icp.REFRESH_COUNTS["host_reads"]
             check(native.backend() == "native",
                   f"9 {mode}: the command decoded with {native.backend()}")
             iters = int(res["iterations"].sum()) + (
-                int(res["iterations_first"].sum()) if mode == "batch"
+                int(res["iterations_first"].sum()) if "batch" in mode
                 else 0)
-            k = 2 if mode == "batch" else 1     # the batch command runs twice
+            k = 2 if "batch" in mode else 1  # the batch command runs twice
             expect = {"ekf_predict": k * n, "gn_iter": iters}
             check(all(c == expect.get(name, 0)
-                      for name, c in launches[mode].items()),
-                  f"9 {mode}: launches {launches[mode]}, want {expect}")
+                      for name, c in launches[mode].items()
+                      if name != "graph_cond")
+                  and (launches[mode]["graph_cond"] > 0) != eager
+                  and (reads == 0) != eager,
+                  f"9 {mode}: launches {launches[mode]}, want {expect}; "
+                  f"{reads} host reads")
+            if not eager:
+                ref_ = outs[f"{mode} eager"]
+                check(all(np.array_equal(res[key], ref_[key]) for key in (
+                    "ekf_poses", "kiss_poses", "iterations"))
+                    and same_bits(res["state"], ref_["state"]),
+                    f"9 {mode}: the graph form's poses or final state "
+                    "differ from the eager run's")
             kp = np.loadtxt(kitti).reshape(-1, 3, 4)
             check(kp.shape == (n, 3, 4) and bool(np.isfinite(kp).all()),
                   f"9 {mode}: saved poses {kp.shape}")
@@ -2239,13 +2523,18 @@ def run_recording_path(scene, dev, card: str) -> dict[str, dict[str, int]]:
             runs[mode] = dict(
                 wall_s=wall, max_pose_vs_jax_m=float(err.max()),
                 ate_rmse_m=ate, jax_ate_rmse_m=jax_ate, gn_iterations=iters,
-                host_reads=reads, kernel_launches=launches[mode])
-            if mode == "batch":
+                host_reads=reads, kernel_launches=launches[mode],
+                cond=graph.LAST_RUN.get("cond"),
+                cond_nodes=graph.LAST_RUN.get("cond_nodes"))
+            if "batch" in mode:
                 runs[mode].update(first_s=res["first_s"],
                                   steady_s=res["steady_s"],
                                   scans_per_s=n / res["steady_s"])
             else:
-                lat = np.asarray(res["latencies_s"][1:]) * 1e3
+                # the graph form captures its boot and steady steps at
+                # scans 0 and 1 (cli_config boots one scan): left out
+                lat = np.asarray(res["latencies_s"][1 if eager else 2:]) \
+                    * 1e3
                 runs[mode].update(
                     first_scan_s=res["latencies_s"][0],
                     latency_ms={f"p{q}": float(np.percentile(lat, q))
@@ -2268,6 +2557,17 @@ def run_recording_path(scene, dev, card: str) -> dict[str, dict[str, int]]:
                 "differently between runs (phase 3 repeats each kernel bit "
                 "for bit), not the online run's windowing")
         runs["online"]["max_pose_vs_batch"] = gap
+        b, o = runs["batch eager"], runs["batch"]
+        e, g = runs["online eager"], runs["online"]
+        say(f"  9 cli_pcap eager / graph: batch {b['scans_per_s']:.2f} / "
+            f"{o['scans_per_s']:.2f} scans/s steady, first run "
+            f"{b['first_s']:.3f} / {o['first_s']:.3f} s; online latency p50 "
+            f"{e['latency_ms']['p50']:.3f} / {g['latency_ms']['p50']:.3f} ms,"
+            f" p95 {e['latency_ms']['p95']:.3f} / "
+            f"{g['latency_ms']['p95']:.3f}, p99 {e['latency_ms']['p99']:.3f}"
+            f" / {g['latency_ms']['p99']:.3f}; conditional nodes "
+            f"{o['cond_nodes']}; poses, iterations and final state of each "
+            f"graph run bit-equal to its eager run's; {card}")
         st = cli.run(["stat", rec, "-m", meta])["tracker"]
         check(st._scans_num == n and st._imu_num == len(imu),
               f"9 stat: {st._scans_num} scans, {st._imu_num} IMU samples")
@@ -2278,8 +2578,10 @@ def run_recording_path(scene, dev, card: str) -> dict[str, dict[str, int]]:
                        write_s=t_write),
         native_build_s=native_build_s, decode_s=decode, **runs, card=card))
     say(json.dumps(summary))
-    return {"cli_pcap": launches["batch"],
-            "cli_pcap_online": launches["online"]}
+    return {"cli_pcap": launches["batch eager"],
+            "cli_pcap graph": launches["batch"],
+            "cli_pcap_online": launches["online eager"],
+            "cli_pcap_online graph": launches["online"]}
 
 
 ONLINE_EPOCH = 1.7e9   # phase 9's online clock: a recording's epoch scale
@@ -2644,7 +2946,7 @@ def timed_batched(cfg, states, batches, lut, form=False):
 
 
 def batched_forms(tag, cfg, bags, lut, dev, head, first,
-                  window: int = 10):
+                  window: int = 10, form_runs: int | None = None):
     """:func:`graph_cell` of ``run_sequence_batched`` of ``cfg`` on the
     stacked ``bags`` from fresh states, its window the last ``window``
     scans from ``head``, the states after the first ones (the scan read on
@@ -2668,7 +2970,7 @@ def batched_forms(tag, cfg, bags, lut, dev, head, first,
                             axis=1)
 
     return graph_cell(tag, run, make_state, n, win, scans_per_run=b * n,
-                      first=first)
+                      first=first, form_runs=form_runs)
 
 
 def run_batched_path(scene, dev, bench_out, card: str):
@@ -2785,15 +3087,19 @@ def run_batched_refresh_cell(tag, cfg, bags, refs, lut, single, *,
     finite and within 0.02 m of its JAX poses ``refs``; identical
     replicas bit-equal; with ``self_gate`` replica 0 within 1e-4 m of
     ``single`` (the single run of the same cell; the difference and the
-    first scan where it passes 1e-6 m are printed in any case). Returns
-    (launches, out, summary, seconds)."""
+    first scan where it passes 1e-6 m are printed in any case). The timed
+    run is the eager loop; then its graph form is held to it
+    (:func:`batched_forms`: the refresh loop a WHILE node, the re-gather
+    and the overflow chunks IF nodes). Returns (launches, out, summary,
+    seconds)."""
     b, n = bags.range_m.shape[:2]
-    states = replay.stack_bags([lio.init_state(cfg, lut.direction.device)]
-                               * b)
-    win, _ = batched_window(cfg, states, bags, lut, min(window, n // 2))
+    dev = lut.direction.device
+    states = replay.stack_bags([lio.init_state(cfg, dev)] * b)
+    window = min(window, n // 2)
+    win, head = batched_window(cfg, states, bags, lut, window)
     kernels.reset_launches()
     icp.reset_refresh_counts()
-    r = timed_batched(cfg, states, bags, lut, form=None)
+    r = timed_batched(cfg, states, bags, lut, form=False)
     out, dt = r["out"], r["s"]
     launches, counts = launch_counts(), dict(icp.REFRESH_COUNTS)
     k5 = refresh_launches(out.aux.iterations)
@@ -2846,6 +3152,10 @@ def run_batched_refresh_cell(tag, cfg, bags, refs, lut, single, *,
         f" max |replica 0 - single run| {vs1:.3e} m"
         + (f" (<= {SELF_GATE_M})" if self_gate else "")
         + f", above 1e-6 m from scan {first}; identical replicas bit-equal")
+    forms, _ = batched_forms(tag, cfg, bags, lut, dev, head, r,
+                             window=window, form_runs=CLI_FORM_RUNS)
+    summary["aggregate_scans_per_s"] = {
+        k: forms[k]["scans_per_s"] for k in ("eager", "graph")}
     return launches, out, summary, dt
 
 
@@ -2853,15 +3163,15 @@ def run_batched_refresh_path(scene, dev, cli_out, assoc_out, card: str):
     """Phases 10d and 10e. 10d: ``run_sequence_batched`` at
     ``cli_config(128, 1024)`` (the EKF guess; K1 and K5) on B = 1, 2, 4
     replicas of the bench scene over its 50 scans, B = 1 against phase 5's
-    run; aggregate scans/s from alternating timed runs (B = 1, 2, 4, 4, 2,
-    1). 10e: B = 2 at cli_kiss_assoc (the constant-velocity guess, the
-    associative predict, the refresh loop; the 15 scans of
+    run; aggregate scans/s of each form from the graph cell's alternating
+    timed runs. 10e: B = 2 at cli_kiss_assoc (the constant-velocity guess,
+    the associative predict, the refresh loop; the 15 scans of
     ``cli_kiss_jax_poses.txt``) against phase 7b's single run. Returns
     (launches by run, summary)."""
     sensor, scans, scan_ts, gt_mid, imu = scene
     h, w = scans.shape[1:]
     lut = convert.lut_from_numpy(sensor.lut, dev)
-    launches, summary, timed = {}, {}, {}
+    launches, summary = {}, {}
     cli = config.cli_config(h, w)
     _, ref = ref_poses("cli")
     n = min(len(scans), len(ref))
@@ -2870,24 +3180,15 @@ def run_batched_refresh_path(scene, dev, cli_out, assoc_out, card: str):
         slice(0, n))
     for b in REPLICAS:
         tag = f"cli_x{b}"
-        launches[tag], _, summary[tag], dt = run_batched_refresh_cell(
+        launches[tag], _, summary[tag], _ = run_batched_refresh_cell(
             f"10d {tag}", cli, replay.stack_bags([one] * b), [ref] * b, lut,
             cli_out, self_gate=b == 1)
-        timed[tag] = [dt]
-    for b in (*REPLICAS, *reversed(REPLICAS)):
-        states = replay.stack_bags([lio.init_state(cli, dev)] * b)
-        dt = timed_batched(cli, states, replay.stack_bags([one] * b), lut,
-                           form=None)["s"]
-        timed[f"cli_x{b}"].append(dt)
-    for tag, dts in timed.items():
-        b = summary[tag]["replicas"]
-        summary[tag]["aggregate_scans_per_s"] = [b * n / t for t in dts]
-    say("  10d aggregate scans/s (alternating runs B = 1, 2, 4, 4, 2, 1; "
-        "the first of each B its checked run): " + "; ".join(
-            f"B = {b}: " + ", ".join(
-                f"{x:.2f}" for x in summary[f"cli_x{b}"][
-                    "aggregate_scans_per_s"]) for b in REPLICAS)
-        + f"; {card}")
+    say("  10d aggregate scans/s eager / graph (the graph cells' "
+        "alternating runs): " + "; ".join(
+            f"B = {b}: " + " / ".join(
+                ", ".join(f"{x:.2f}" for x in summary[f"cli_x{b}"][
+                    "aggregate_scans_per_s"][f]) for f in ("eager", "graph"))
+            for b in REPLICAS) + f"; {card}")
 
     kiss_cfg = config.cli_config(h, w, guess="kiss")
     assoc = dataclasses.replace(kiss_cfg, ekf=dataclasses.replace(
@@ -2898,10 +3199,9 @@ def run_batched_refresh_path(scene, dev, cli_out, assoc_out, card: str):
         assoc, scans, scan_ts, imu.lacc, imu.avel, imu.ts, device=dev),
         slice(0, k))
     tag = "cli_kiss_assoc_x2"
-    launches[tag], _, summary[tag], dt = run_batched_refresh_cell(
+    launches[tag], _, summary[tag], _ = run_batched_refresh_cell(
         f"10e {tag}", assoc, replay.stack_bags([kone] * 2), [kref] * 2, lut,
         assoc_out, self_gate=True, window=5)
-    summary[tag]["aggregate_scans_per_s"] = [2 * k / dt]
     return launches, summary
 
 
@@ -2927,8 +3227,10 @@ def run_sweep_path(scene, dev, card: str):
     on scans 0-20, every variant within 0.02 m of its JAX poses
     (``sweep_bacc_z_jax_poses.txt``, ``sweep_beams_jax_poses.txt``). K5
     once a GN iteration for all variants (each scan's largest iteration
-    count, summed over the command's two runs), K1-K4 and K6 never.
-    Returns (launches by command, summary)."""
+    count, summed over the command's two runs), K1-K4 and K6 never. Each
+    command runs eagerly and then as graphs (the drivers' default on the
+    card), whose poses, iterations and final states must be the eager
+    run's bit for bit. Returns (launches by command, summary)."""
     sys.path.insert(0, os.path.join(HERE, "tools"))
     import make_torch_fixture
     from ptudes_tpu_torch.cli import main as cli
@@ -2943,42 +3245,56 @@ def run_sweep_path(scene, dev, card: str):
     serial = {"sweep_replicas": "7.35 / 8.41",
               "sweep_bacc_z": "4.62 / 9.11", "sweep_beams": "4.53 / 8.03"}
     tmp = tempfile.mkdtemp(prefix="ptudes_sweep_")
-    launches, summary = {}, {}
+    launches, summary, outs = {}, {}, {}
     try:
         rec, meta, gt = make_torch_fixture.bench(tmp, scene=scene)
-        for tag, flags in (
+        for (cmd, flags), eager in itertools.product((
                 ("sweep_replicas", ["--replicas", "2"]),
                 ("sweep_bacc_z", ["--bacc-z", "-0.1,0,0.1", "--end-scan",
                                   "20"]),
-                ("sweep_beams", ["--beams", "128,64", "--end-scan", "20"])):
+                ("sweep_beams", ["--beams", "128,64", "--end-scan", "20"])),
+                (True, False)):
+            tag = cmd if eager else f"{cmd} graph"
             kernels.reset_launches()
             icp.reset_refresh_counts()
             t = time.monotonic()
-            res = cli.run(["ekf-bench", "sweep", rec, "-m", meta, "-g", gt,
-                           *flags])
+            with eager_drivers() if eager else contextlib.nullcontext():
+                res = cli.run(["ekf-bench", "sweep", rec, "-m", meta, "-g",
+                               gt, *flags])
             wall = time.monotonic() - t
             launches[tag] = launch_counts()
-            ran_eagerly(f"10c {tag}")
+            check(graph.LAST_RUN["form"] == ("eager" if eager else "graph"),
+                  f"10c {tag}: ran as {graph.LAST_RUN['form']}")
             n = res["n_scans"]
             k5 = refresh_launches(torch.as_tensor(res["iterations"])) \
                 + refresh_launches(torch.as_tensor(res["iterations_first"]))
             check(all(c == (k5 if k_ == "gn_iter" else 0)
-                      for k_, c in launches[tag].items()),
+                      for k_, c in launches[tag].items()
+                      if k_ != "graph_cond")
+                  and (launches[tag]["graph_cond"] > 0) != eager,
                   f"10c {tag}: launches {launches[tag]}, want gn_iter {k5} "
                   "(each scan's largest iteration count, summed over the "
                   "two runs)")
+            if not eager:
+                ref_ = outs[cmd]
+                check(all(np.array_equal(res[key], ref_[key]) for key in (
+                    "ekf_poses", "iterations", "iterations_first"))
+                    and same_bits(res["state"], ref_["state"]),
+                    f"10c {tag}: the graph form's poses, iterations or "
+                    "final states differ from the eager run's")
+            outs[tag] = res
             ek = res["ekf_poses"]
             check(bool(np.isfinite(ek).all()), f"10c {tag}: poses")
-            check(list(refs[tag]) == res["variants"],
+            check(list(refs[cmd]) == res["variants"],
                   f"10c {tag}: variants {res['variants']}, references "
-                  f"{list(refs[tag])}")
+                  f"{list(refs[cmd])}")
             errs = {v: float(np.linalg.norm(
-                ek[i, :, :3, 3] - refs[tag][v][:n, :, 3], axis=1).max())
+                ek[i, :, :3, 3] - refs[cmd][v][:n, :, 3], axis=1).max())
                 for i, v in enumerate(res["variants"])}
             check(max(errs.values()) <= POSE_GATE_M,
                   f"10c {tag}: pose vs JAX {errs} > {POSE_GATE_M} m")
             rows = res["rows"]
-            if tag == "sweep_replicas":
+            if cmd == "sweep_replicas":
                 check(np.array_equal(ek[0], ek[1]),
                       "10c: the two replicas differ")
                 # the JAX ATE is over the reference's scans: comparable
@@ -2999,7 +3315,7 @@ def run_sweep_path(scene, dev, card: str):
                 jax_ate_rmse_m=jax_ate, kernel_launches=launches[tag])
             say(f"  10c {tag}: {len(rows)} x {n} scans as one batched "
                 f"program, {rate:.2f} scans/s aggregate steady (the bags "
-                f"one after another: {serial[tag]}); max |pose - JAX| "
+                f"one after another: {serial[cmd]}); max |pose - JAX| "
                 + ", ".join(f"{v} {e:.5f}" for v, e in errs.items())
                 + f" m (<= {POSE_GATE_M}); rows "
                 + "; ".join(f"{r_['variant']}: drift {r_['drift']:.3f}, "
@@ -3297,19 +3613,21 @@ def run_debug_scene_path(scene, dev, card: str):
                        "--save-debug-scene", sdir] + DEBUG_SCENE_FLAGS)
         wall = time.monotonic() - t
         launches = launch_counts()
-        ran_eagerly("11d")
+        check(graph.LAST_RUN["form"] == "graph",
+              f"11d: the command ran as {graph.LAST_RUN['form']}")
         n = res["n_scans"]
         cmd_iters = int(res["iterations"].sum()
                         + res["iterations_first"].sum())
-        # K1 once a scan in each of the command's two runs and twice a
-        # scan in the export (its step, and the prediction it writes as
-        # pred_pose); K5 once a GN iteration of each (the export's
-        # iterations are not the command's: its whole-frame insert makes
-        # other maps)
+        # K1 once a scan in each of the command's two runs (graphs) and
+        # twice a scan in the export (its step, and the prediction it
+        # writes as pred_pose); K5 once a GN iteration of each (the
+        # export's iterations are not the command's: its whole-frame
+        # insert makes other maps); the graphs' predicate kernel
         check(launches["ekf_predict"] == 4 * n
               and launches["gn_iter"] > cmd_iters
+              and launches["graph_cond"] > 0
               and all(launches[k] == 0 for k in launches
-                      if k not in ("ekf_predict", "gn_iter")),
+                      if k not in ("ekf_predict", "gn_iter", "graph_cond")),
               f"11d: launches {launches} ({n} scans, {cmd_iters} command "
               "GN iterations)")
         kp = np.loadtxt(kitti).reshape(-1, 3, 4)
@@ -3480,6 +3798,7 @@ def run_phases(args, want, dev, card: str, render) -> int:
             phase("phase 3: kernels against their twins")
             check_ekf(dev, np.random.default_rng(0), results)
             check_icp(dev, results)
+            check_graph_cond(dev, results)
             check_plane_moments(dev, results)
         if 4 in want:
             phase("phase 4: bench path")
@@ -3516,6 +3835,7 @@ def run_phases(args, want, dev, card: str, render) -> int:
     check_gn_iter(dev, results)
     check_ties(dev)
     check_refresh_loop(dev)
+    check_graph_cond(dev, results)
     check_gather(dev, results)
     check_fused_registration(dev)
     phase3 = {"plane_moments": check_plane_moments(dev, results)}

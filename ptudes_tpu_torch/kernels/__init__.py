@@ -16,7 +16,10 @@ last :func:`reset_launches`; a run shows it went through the kernels by
 reading them. A launch with a replica axis (K1-K5 on the batched driver's
 paths: all replicas in one grid) counts once. A launch of a kernel's variant also counts in
 ``VARIANT_LAUNCHES`` (``ekf_predict_history``: K1 writing the filter
-history).
+history). ``graph_cond`` is the graph form's predicate kernel
+(``csrc/graph_cond.cu``, driven by ``models.graph``), which sets a CUDA
+graph conditional node from a flag on the card; the host functions beside
+it that build the nodes are in ``_HOST_SIGNATURES`` (:func:`host_call`).
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U64 = ctypes.c_ulonglong
 # entry point -> argument types, the stream last
 # (K1-K5 take a replica count, and K3-K5 a replica stride, last; K5 also
 # a replica mask before its sizes)
@@ -50,9 +54,18 @@ _SIGNATURES = {
     "ptudes_gn_iter": [_P] * 11 + [_I, _I, _F, _I, _I, _P],
     "ptudes_gather_fused": [_P] * 10 + [_I] * 6 + [_F] * 3 + [_I, _P],
     "ptudes_plane_moments": [_P] * 6 + [_I, _I, _F, _P],
+    "ptudes_graph_cond": [_P, _I, _P, _I, _U64, _P],
+}
+# host functions (no launch): the conditional nodes' construction
+_HOST_SIGNATURES = {
+    "ptudes_graph_cond_load": [],
+    "ptudes_stream_create": [ctypes.POINTER(_P)],
+    "ptudes_cond_handle": [_P, _I, ctypes.POINTER(_U64)],
+    "ptudes_cond_open": [_P, _P, _I, _U64],
+    "ptudes_cond_close": [_P],
 }
 KERNELS = ("ekf_predict", "ekf_update", "gn_prep", "icp_loop", "gn_iter",
-           "gather_fused", "plane_moments")
+           "gather_fused", "plane_moments", "graph_cond")
 LAUNCHES = {name: 0 for name in KERNELS}
 VARIANT_LAUNCHES = {"ekf_predict_history": 0}
 
@@ -153,7 +166,8 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in (*_SIGNATURES.items(),
+                               *_HOST_SIGNATURES.items()):
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -189,6 +203,16 @@ def launch(name: str, *args, variant: str | None = None) -> None:
     LAUNCHES[name] += 1
     if variant is not None:
         VARIANT_LAUNCHES[variant] += 1
+
+
+def host_call(name: str, *args) -> None:
+    """Call the host function ``ptudes_<name>`` of the library; raises
+    ``RuntimeError`` on a nonzero status."""
+    handle = lib()
+    err = getattr(handle, f"ptudes_{name}")(*args)
+    if err != 0:
+        msg = handle.ptudes_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: {msg}")
 
 
 def device_kind(t: torch.Tensor, what: str) -> str:

@@ -30,20 +30,46 @@ scan. Here one step is captured once over static buffers and replayed:
   The last ``CACHE_SIZE`` runners are kept, each with its pool (73 MB at
   ``bench_config``, 280 MB with four replicas, on an H100).
 
-A step can be captured only if it never reads the card from the host:
-:func:`host_read_reason` names the configurations that do, which run
-eagerly. With ``capture=False`` a runner runs the same code on the same
-buffers, counter, ``index_select`` and ``index_copy_`` with only the
-capture skipped (the CPU tests); the drivers never use it on a card.
+The step's loops and branches whose trip count or path depend on the data
+(the JAX package's ``lax.while_loop``, ``lax.cond`` and ``fori_loop`` in
+the scan program) are CUDA graph conditional nodes
+(``csrc/graph_cond.cu``): the ops call :func:`while_node` and
+:func:`if_node` where :func:`conditional_form` says a runner runs them,
+with the loop's carry in tensors allocated before the loop and updated in
+place. Inside a capture each opens a WHILE or IF node whose body is
+captured on a body stream of its own (one a nesting depth, created once),
+its allocations routed to a memory pool of the runner's (one a depth);
+the predicate kernel sets the node from a flag on the card (the last node
+of a WHILE body, the node before an IF node), so a replay reads nothing
+from the card. In the warm-up each body runs on its body stream, IF bodies
+whatever their flag says (both branches warmed up: any buffer a body
+allocates at first use exists before the capture), WHILE bodies until the
+host reads their flag false. With ``capture=False`` they are a host
+``while`` and ``if`` on the same flags and the same body code.
+
+Only a process group keeps a step off the graph (:func:`host_read_reason`:
+the point-sharded step's all-reduces); it runs eagerly. With
+``capture=False`` a runner runs the same code on the same buffers,
+counter, ``index_select`` and ``index_copy_`` with only the capture
+skipped (the CPU tests); the drivers never use it on a card.
 
 ``kernels.LAUNCHES`` counts on the host, so a replay counts nothing
 itself: each graph's launches are taken at its capture and added once a
-replay. The warm-up's and the capture's own launches are not counted.
+replay. A conditional body runs a number of times a replay that only the
+card knows, so its launches are taken apart at its capture and the
+predicate kernel counts the body's executions in an int32 on the card
+(:func:`count` adds other counts there, such as the re-gathered
+replicas); the runner reads those counters once after a run and adds
+each body's launches times its executions (``LAUNCHES["gn_iter"]``, the
+K5 builds, among them), the re-gathers to ``ops.icp.REFRESH_COUNTS`` and
+all of them to ``LAST_RUN["cond"]``. The warm-up's and the capture's own
+launches are not counted.
 """
 from __future__ import annotations
 
+import ctypes
 import time
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 
 import torch
 
@@ -62,16 +88,11 @@ RUNNERS: OrderedDict = OrderedDict()   # run_scans' runners by key
 
 
 def host_read_reason(cfg: PipelineConfig, group=None) -> str | None:
-    """Why the step of ``cfg`` reads the card from the host, or None when it
-    never does and can be captured."""
+    """Why the step of ``cfg`` cannot be captured, or None when it can:
+    every single-card configuration can (its loops and branches are
+    conditional nodes); a process group cannot."""
     if group is not None:
         return "a process group (the point-sharded step's all-reduces)"
-    if cfg.kiss.nn_mode == "every":
-        return ("nn_mode='every' (a convergence flag read every GN "
-                "iteration)")
-    if cfg.kiss.nn_refresh_drift > 0:
-        return ("nn_refresh_drift > 0 (the candidate-refresh loop reads its "
-                "flags every GN iteration)")
     return None
 
 
@@ -153,6 +174,79 @@ def copy_back(dst_tree, src_tree) -> int:
     return ops + len(todo)
 
 
+# ------------------------------------------------- conditional nodes
+
+IF, WHILE = 0, 1          # csrc/graph_cond.cu's node kinds
+MAX_COUNTERS = 64         # int32 counters on the card a runner
+_ACTIVE = None            # the runner running a step now, if any
+_BODY_STREAMS: dict[int, list] = {}   # by device: a body stream a depth
+
+
+def conditional_form() -> bool:
+    """True while a runner runs a step (its warm-up, its capture, or its
+    run with ``capture=False``): the ops then keep their loop carries in
+    tensors updated in place and run their data-dependent loops and
+    branches through :func:`while_node` and :func:`if_node`."""
+    return _ACTIVE is not None
+
+
+def _active() -> "Conditionals":
+    if _ACTIVE is None:
+        raise RuntimeError("a conditional node outside a graph runner's step")
+    return _ACTIVE
+
+
+def while_node(name: str, go: torch.Tensor, body) -> None:
+    """``body()`` at least once, then again while the flag ``go`` (a bool
+    or int32 tensor of one element, which the body updates in place) is
+    true: a WHILE node in a capture, a host loop otherwise. Its executions
+    are counted under ``name``. The body writes its results into tensors
+    that exist before it (nothing it allocates outlives it)."""
+    _active()._cond(WHILE, name, go, body)
+
+
+def if_node(name: str, pred: torch.Tensor, body) -> None:
+    """``body()`` where the flag ``pred`` (a bool or int32 tensor of one
+    element) is true: an IF node in a capture, a host ``if`` otherwise
+    (the warm-up runs it whatever ``pred`` says). Its executions are
+    counted under ``name``. The body writes its results in place, into
+    tensors that exist before it: a body not taken leaves them as they
+    were."""
+    _active()._cond(IF, name, pred, body)
+
+
+def count(name: str, amount) -> None:
+    """Add ``amount`` (an int, or an int32 tensor of one element on the
+    card) to the running step's counter ``name`` (on the card in a
+    capture, so a body adds it each time it runs)."""
+    _active()._count(name, amount)
+
+
+def body_stream(device: torch.device, depth: int) -> torch.cuda.Stream:
+    """The stream the bodies at nesting ``depth`` are captured on, created
+    once a process (``cudaStreamCreateWithFlags``, not PyTorch's stream
+    pool, whose streams come round again and could be the capturing
+    one)."""
+    streams = _BODY_STREAMS.setdefault(device.index or 0, [])
+    while len(streams) <= depth:
+        raw = ctypes.c_void_p()
+        kernels.host_call("stream_create", ctypes.byref(raw))
+        streams.append(torch.cuda.ExternalStream(raw.value, device=device))
+    return streams[depth]
+
+
+def _route_to_pool(device_index: int, pool) -> None:
+    """The current stream's allocations go to ``pool`` until
+    :func:`_unroute`: the caching allocator serves a capture only from the
+    pool of a capture it knows, and a body's capture is not one."""
+    torch._C._cuda_beginAllocateCurrentStreamToPool(device_index, pool.id)
+
+
+def _unroute(device_index: int, pool) -> None:
+    torch._C._cuda_endAllocateToPool(device_index, pool.id)
+    torch._C._cuda_releasePool(device_index, pool.id)
+
+
 def _counts() -> tuple[dict, dict]:
     return dict(kernels.LAUNCHES), dict(kernels.VARIANT_LAUNCHES)
 
@@ -162,7 +256,182 @@ def _set_counts(saved: tuple[dict, dict]) -> None:
     kernels.VARIANT_LAUNCHES.update(saved[1])
 
 
-class StepGraph:
+class Conditionals:
+    """The conditional nodes of the steps run on ``device``: while a step
+    runs (``_mode`` "warm", "capture" or "static") :func:`while_node`,
+    :func:`if_node` and :func:`count` come here; the counters on the card
+    and the captured nodes' launches are kept for :meth:`fold_counts`."""
+
+    def __init__(self, device: torch.device, capture: bool):
+        self.device = device
+        self.capture = capture
+        self._mode = None     # "warm", "capture" or "static" in a step
+        self._depth = 0       # conditional bodies open around the op now
+        self._slots: dict = {}      # counter key -> slot of self.counters
+        self._nodes: list = []      # captured nodes: name, slot, launches
+        self._body_pools: list = []  # a memory pool a nesting depth
+        self.cond_nodes: dict[str, int] = {}   # conditional nodes a graph
+        self.counters = torch.zeros(MAX_COUNTERS, dtype=torch.int32,
+                                    device=device)
+        self._host_counts: Counter = Counter()
+        self.cond: dict[str, int] = {}   # the last run's counts by name
+
+    def _slot(self, key) -> int:
+        if key not in self._slots:
+            if len(self._slots) == MAX_COUNTERS:
+                raise RuntimeError(f"more than {MAX_COUNTERS} conditional "
+                                   "counters in one runner")
+            self._slots[key] = len(self._slots)
+        return self._slots[key]
+
+    def _count(self, name: str, amount) -> None:
+        if self._mode == "capture":
+            slot = self._slot(("count", name))
+            self.counters[slot:slot + 1].add_(amount)
+        elif self._mode == "static":
+            self._host_counts[name] += int(amount)
+
+    def _cond(self, kind: int, name: str, pred, body) -> None:
+        if pred.numel() != 1 or pred.dtype not in (torch.bool, torch.int32):
+            raise ValueError(f"{name}: a flag is one bool or int32, not "
+                             f"{pred.dtype} {tuple(pred.shape)}")
+        if self._mode == "capture":
+            self._capture_cond(kind, name, pred, body)
+        elif self._mode == "warm":
+            self._warm_cond(kind, pred, body)
+        elif kind == IF:
+            if bool(pred):
+                self._host_counts[name] += 1
+                body()
+        else:
+            while True:
+                body()
+                self._host_counts[name] += 1
+                if not bool(pred):
+                    break
+
+    def _warm_cond(self, kind: int, pred, body) -> None:
+        """Set-up: the body on its body stream, an IF body whatever its
+        flag says, a WHILE body until the host reads its flag false."""
+        cur = torch.cuda.current_stream(self.device)
+        bs = body_stream(self.device, self._depth)
+        bs.wait_stream(cur)
+        self._depth += 1
+        try:
+            with torch.cuda.stream(bs):
+                body()
+                while kind == WHILE and bool(pred):
+                    body()
+        finally:
+            self._depth -= 1
+            cur.wait_stream(bs)
+
+    def _set_cond(self, pred, slot: int, kind: int, handle: int) -> None:
+        kernels.launch(
+            "graph_cond", kernels.ptr(pred, "pred", pred.dtype),
+            int(pred.dtype == torch.int32),
+            self.counters.data_ptr() + 4 * slot, kind, handle)
+
+    def _capture_cond(self, kind: int, name: str, pred, body) -> None:
+        """A WHILE or IF node in the graph being captured, its body
+        captured on the body stream of this depth with its allocations in
+        this depth's pool; the body's launches are taken out of the
+        graph's and kept with the node. A failure raises."""
+        idx = self.device.index or 0
+        cur = torch.cuda.current_stream(self.device)
+        bs = body_stream(self.device, self._depth)
+        while len(self._body_pools) <= self._depth:
+            self._body_pools.append(torch.cuda.MemPool())
+        pool = self._body_pools[self._depth]
+        slot = self._slot(("node", len(self._slots)))
+        handle = ctypes.c_ulonglong()
+        kernels.host_call("cond_handle", cur.cuda_stream, kind,
+                          ctypes.byref(handle))
+        if kind == IF:
+            self._set_cond(pred, slot, kind, handle.value)
+        saved = _counts()
+        kernels.host_call("cond_open", cur.cuda_stream, bs.cuda_stream, kind,
+                          handle.value)
+        self._depth += 1
+        ok = False
+        try:
+            with torch.cuda.stream(bs):
+                _route_to_pool(idx, pool)
+                try:
+                    body()
+                    if kind == WHILE:
+                        self._set_cond(pred, slot, kind, handle.value)
+                finally:
+                    _unroute(idx, pool)
+            ok = True
+        finally:
+            self._depth -= 1
+            try:
+                kernels.host_call("cond_close", bs.cuda_stream)
+            except RuntimeError:
+                if ok:
+                    raise
+        got = _counts()
+        self._nodes.append(dict(
+            name=name, slot=slot,
+            delta=({k: v - saved[0][k] for k, v in got[0].items()},
+                   {k: v - saved[1][k] for k, v in got[1].items()})))
+        _set_counts(saved)
+
+    def begin_counts(self) -> None:
+        """Zero the conditional counters before a run."""
+        if self._slots:
+            self.counters.zero_()
+        self._host_counts = Counter()
+
+    def fold_counts(self) -> None:
+        """After a run: read the counters on the card once (a host sync,
+        which ``set_sync_debug_mode`` allows here), add each captured
+        body's launches times its executions to ``kernels.LAUNCHES``, the
+        re-gathers to ``ops.icp.REFRESH_COUNTS``, and keep the counts by
+        name in ``self.cond``."""
+        from ..ops import icp
+        cond = Counter(self._host_counts)
+        if self.capture and self._slots:
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                vals = self.counters.tolist()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            for key, slot in self._slots.items():
+                if key[0] == "count":
+                    cond[key[1]] += vals[slot]
+            for node in self._nodes:
+                n = vals[node["slot"]]
+                cond[node["name"]] += n
+                for counts, delta in zip(
+                        (kernels.LAUNCHES, kernels.VARIANT_LAUNCHES),
+                        node["delta"]):
+                    for k, v in delta.items():
+                        counts[k] += n * v
+        icp.REFRESH_COUNTS["regathers"] += cond["regathers"]
+        self.cond = dict(cond)
+
+
+def run_static(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with the ops in their conditional forms and
+    every loop and branch a host ``while`` and ``if`` (a runner's
+    ``capture=False`` form), outside a runner: returns (``fn``'s result,
+    the counts by name, as ``LAST_RUN["cond"]``)."""
+    global _ACTIVE
+    dev = next((x.device for x in leaves(tuple(args))), torch.device("cpu"))
+    runner = Conditionals(dev, capture=False)
+    runner._mode, _ACTIVE = "static", runner
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        runner._mode, _ACTIVE = None, None
+    runner.fold_counts()
+    return out, runner.cond
+
+
+class StepGraph(Conditionals):
     """Static buffers for one carried state and the steps captured over
     them; :meth:`scan_inputs` and :meth:`emit` (in the subclasses) say where
     a scan's inputs come from and where its outputs go. ``state`` is
@@ -172,8 +441,7 @@ class StepGraph:
         dev = leaves(state)[0].device
         if capture and dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not {dev}")
-        self.device = dev
-        self.capture = capture
+        super().__init__(dev, capture)
         self.state = tree_map(torch.clone, state)
         self._steps: dict = {}
         self._graphs: dict = {}
@@ -200,11 +468,16 @@ class StepGraph:
         first warm-up allocated on the capture stream (every graph then
         writes the same ones)."""
 
-    def _body(self, step) -> None:
-        batch, ops = self.scan_inputs()
-        new_state, *outs = step(self.state, batch)
-        ops += copy_back(self.state, new_state)
-        ops += self.emit(outs)
+    def _body(self, step, mode: str) -> None:
+        global _ACTIVE
+        self._mode, _ACTIVE = mode, self
+        try:
+            batch, ops = self.scan_inputs()
+            new_state, *outs = step(self.state, batch)
+            ops += copy_back(self.state, new_state)
+            ops += self.emit(outs)
+        finally:
+            self._mode, _ACTIVE = None, None
         self.own_ops = ops
 
     def add(self, name: str, step) -> None:
@@ -224,10 +497,11 @@ class StepGraph:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
                 self._stream = torch.cuda.Stream(self.device)
+            kernels.host_call("graph_cond_load")
             snap = [x.clone() for x in self.mutable()]
             self._stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(self._stream):
-                self._body(step)
+                self._body(step, "warm")
             torch.cuda.current_stream().wait_stream(self._stream)
             for x, s in zip(self.mutable(), snap):
                 x.copy_(s)
@@ -239,8 +513,10 @@ class StepGraph:
             base = torch.cuda.memory_allocated(self.device)
             torch.cuda.reset_peak_memory_stats(self.device)
             g = torch.cuda.CUDAGraph()
+            nodes = len(self._nodes)
             with torch.cuda.graph(g, pool=self._pool, stream=self._stream):
-                self._body(step)
+                self._body(step, "capture")
+            self.cond_nodes[name] = len(self._nodes) - nodes
             got = _counts()
             delta = ({k: v - saved[0][k] for k, v in got[0].items()},
                      {k: v - saved[1][k] for k, v in got[1].items()})
@@ -268,7 +544,7 @@ class StepGraph:
             for k, v in var.items():
                 kernels.VARIANT_LAUNCHES[k] += v
         else:
-            self._body(self._steps[name])
+            self._body(self._steps[name], "static")
         self.replays[name] = self.replays.get(name, 0) + 1
 
     def record(self) -> dict:
@@ -277,7 +553,8 @@ class StepGraph:
                     capture_ms=self.capture_ms if self.capture else None,
                     pool_mb=self.pool_bytes / 2 ** 20 if self.capture
                     else None, replays=dict(self.replays),
-                    own_ops_per_scan=self.own_ops)
+                    own_ops_per_scan=self.own_ops,
+                    cond_nodes=dict(self.cond_nodes), cond=dict(self.cond))
 
 
 class SequenceGraph(StepGraph):
@@ -325,8 +602,10 @@ class SequenceGraph(StepGraph):
         returns the outputs stacked on the scan axis. ``replays`` counts
         this call's."""
         self.replays = {}
+        self.begin_counts()
         for name in schedule:
             self.step(name)
+        self.fold_counts()
         return self.outs
 
     def load(self, state, batches) -> None:
@@ -399,6 +678,14 @@ class OnlineGraph(StepGraph):
 
     def scan_inputs(self):
         return self.inputs, 0
+
+    def step(self, name: str) -> None:
+        """One scan, its conditional counts read after it (a host sync
+        where the graph has conditional nodes; the caller reads the scan's
+        row anyway)."""
+        self.begin_counts()
+        super().step(name)
+        self.fold_counts()
 
     def own_outputs(self) -> None:
         self.row = torch.empty_like(self.row)

@@ -7,9 +7,11 @@ without a grid, two scatter-table first-in-voxel passes with compaction ->
 evenly decimated ICP source -> adaptive threshold -> robust ICP
 (cached candidates, or a map query every iteration) -> model-deviation
 statistics -> map insert with fused eviction (none on a frozen map). Every
-stage has a static shape; the step synchronises with the host only in the
-ICP's candidate-refresh loop and in the every-iteration query loop (one
-read per GN iteration, ``icp.read_flags``), never with frozen candidates.
+stage has a static shape; run op by op, the step synchronises with the
+host only in the ICP's candidate-refresh loop and in the every-iteration
+query loop (one read per GN iteration, ``icp.read_flags``), never with
+frozen candidates; inside a graph runner those loops are conditional
+nodes and it never does (``models.graph``).
 
 :func:`register_scan_batched` registers B replicas' scans in the launches
 of one: the front end with a leading replica axis, one candidate gather of

@@ -8,10 +8,12 @@ insert -> EKF pose update -> one packed output row. Scans with no IMU
 samples are skipped as masked updates. The same entry points as the JAX
 package: :func:`init_state`, :func:`build_batches`, :func:`run_sequence`
 (with ``log=True`` also the IMU-rate filter history), and the host-side
-:func:`flatten_filter_log`; here ``run_sequence`` is a Python loop over
-scans whose steps synchronise with the host only in the ICP's
-candidate-refresh loop (``nn_refresh_drift > 0``: one small read per GN
-iteration).
+:func:`flatten_filter_log`. On a card ``run_sequence`` replays each step
+as a CUDA graph (``models.graph``), the ICP's candidate-refresh loop and
+every-iteration query as conditional nodes, with no host read; its eager
+form (``graph=False``, and the CPU) is a Python loop over scans whose
+steps synchronise with the host only in those loops (one small read per
+GN iteration).
 """
 from __future__ import annotations
 
@@ -271,10 +273,11 @@ def run_sequence(state: LioState, batches: ScanBatch, lut: XyzLut, *,
 
     ``graph``: each step captured once as a CUDA graph and replayed once a
     scan (``models.graph``; the counterpart of the JAX package's compiled
-    scan), the same bits as the eager loop. None takes the graph on a CUDA
-    device where the step never reads the card from the host (no refresh
-    loop, no every-iteration query, no ``group``), else the eager loop;
-    True raises ``ValueError`` where a graph cannot run; False is the eager
+    scan), the same bits as the eager loop; the refresh loop, the every-
+    iteration query and the insert's overflow chunks are conditional nodes
+    in it. None takes the graph on a CUDA device for every configuration
+    without a ``group``, else the eager loop; True raises ``ValueError``
+    where a graph cannot run (the CPU, a ``group``); False is the eager
     loop. ``graph.LAST_RUN`` records the form that ran. The first call of a
     configuration and shape pays the capture (``graph.LAST_RUN
     ["capture_ms"]``, tens of ms to about a second on an H100); later calls

@@ -21,12 +21,13 @@ host, and only the rebased time becomes a float32 tensor: float32 spacing
 at 1.7e9 s is 128 s. The state can be checkpointed at any scan boundary
 with ``utils.checkpoint``.
 
-On a card, a configuration whose step never reads the card from the host
-runs as the JAX online driver's jitted step does: each step (boot and
-steady) is captured as a CUDA graph at the first scan that takes it
-(``models.graph.OnlineGraph``) and replayed once a scan over static input
-buffers, which each scan fills from pinned host memory without a host
-sync.
+On a card every configuration runs as the JAX online driver's jitted step
+does: each step (boot and steady) is captured as a CUDA graph at the first
+scan that takes it (``models.graph.OnlineGraph``; the refresh loop and the
+overflow chunks as conditional nodes) and replayed once a scan over static
+input buffers, which each scan fills from pinned host memory without a
+host sync; a graph with conditional nodes reads its counters on the card
+after each scan (one small read, beside the caller's read of the pose).
 """
 from __future__ import annotations
 
@@ -55,9 +56,8 @@ class LioOnline:
         (the seam rule of ``lio.build_batches(prev_scan_ts=...)``).
 
         ``graph``: as in ``lio.run_sequence``: None captures the steps on a
-        CUDA device where they never read the card from the host, True
-        raises ``ValueError`` where they cannot be captured, False runs
-        them op by op."""
+        CUDA device, True raises ``ValueError`` where they cannot be
+        captured (the CPU), False runs them op by op."""
         self.cfg = cfg
         self.lut = lut
         self.device = lut.direction.device

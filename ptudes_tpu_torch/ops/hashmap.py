@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..models import graph
 from .voxel import (INT_MAX, compact_with_payload, coord_hash, mix32,
                     recip, to_i32, voxel_coords)
 META_W = 8
@@ -350,7 +351,13 @@ def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
     ``ceil(len(pts) / new_capacity) - 1`` of them always run, each masked
     to its slice of the new points, so the step never reads the count on
     the host; a chunk with no points writes only to the spare rows, so the
-    tables are the same, and ``True`` and ``"cond"`` are one path.
+    tables are the same, and ``True`` and ``"cond"`` are one path. In a
+    graph runner's step (``models.graph.conditional_form()``) chunk c >= 1
+    runs under an IF node on ``c < needed``, ``needed`` the chunks the new
+    points fill (per replica in a flat table: the most any replica fills),
+    as JAX's ``fori_loop(1, min(needed, n_chunks))``
+    (``ptudes_tpu/ops/hashmap.py:505-518``), and writes the tables in
+    place: the same tables again, counted on the card as ``"chunks"``.
 
     Flat B-map table (``slot_base`` [N] int32, ``logical_capacity``,
     ``batch_rows`` = B; see :func:`insert_deduped_batched`): the points are
@@ -422,13 +429,26 @@ def insert_deduped(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
     kw = dict(voxel_size=voxel_size, max_probes=max_probes,
               new_capacity=new_capacity, logical_capacity=cap)
     state = _insert_chunk(state, pts, payload, first, **kw)
-    if overflow is not False:
+
+    def chunk(lo):
+        return _insert_chunk(
+            state, pts, payload,
+            is_new & (new_pos >= lo) & (new_pos < lo + chunk_den), **kw)
+
+    def chunk_in_place(lo):
+        for dst, src in zip(state, chunk(lo)):
+            dst.copy_(src)
+
+    if overflow is not False and graph.conditional_form() and n_chunks > 1:
+        n_new = (pos_b[:, -1].max() + 1 if per_row
+                 else is_new.sum(dtype=torch.int32))
         for c in range(1, n_chunks):
             lo = c * chunk_den
-            state = _insert_chunk(
-                state, pts, payload,
-                is_new & (new_pos >= lo) & (new_pos < lo + chunk_den),
-                **kw)
+            graph.if_node("chunks", n_new > lo,
+                          lambda lo=lo: chunk_in_place(lo))
+    elif overflow is not False:
+        for c in range(1, n_chunks):
+            state = chunk(c * chunk_den)
 
     fps, counts, occ_col, reps, points = (x[:cap_total] for x in state)
     if evict_origin is not None:

@@ -35,6 +35,14 @@ kiss-icp's own registration, ``hashmap.query`` at the current pose each GN
 iteration, the plane fitted per matched voxel. The JAX package has no
 kernel on this path; here it is plain torch with one host read a GN
 iteration (:func:`read_flags`) for the early exit.
+
+Inside a graph runner's step (``models.graph.conditional_form()``) the
+refresh loops and the every-iteration loop take their graph forms: the
+loop's carry in tensors allocated before it and updated in place, the
+iteration count on the card, the loop a WHILE node on JAX's predicate and
+the re-gather an IF node on the stale test (``models.graph.while_node``,
+``if_node``), so no step reads the card from the host. Each runs the
+eager loop's ops in its order, so both forms give the same bits.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ import torch.distributed as dist
 
 from ..geom import se3, so3
 from ..geom.linalg import solve_spd6
+from ..models import graph
 from . import hashmap
 from .hashmap import neighbor_offsets
 from .plane import smallest_eigvec_sym3, voxel_plane
@@ -459,22 +468,49 @@ def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
     Here the loop is on the host, and from the second iteration on it
     reads both predicates ("not converged", "stale") from the card at once
     through :func:`read_flags`: at most one read per iteration. Everything
-    else stays on the card. The candidates are prepped once per gather."""
+    else stays on the card. The candidates are prepped once per gather.
+
+    In a graph runner's step (:func:`_refresh_graph`) the loop is a WHILE
+    node and the re-gather an IF node, with no host read."""
     from . import cuda_gn
     gn = cuda_gn.gn_prepped if form == "cuda" else cuda_gn.gn_prepped_torch
     refresh_th = refresh_drift * voxel_size
 
-    def fetch(t_at):
+    def fetch_rows(t_at):
         cand = gather_candidates(
             vmap_, se3.transform(t_at, source), voxel_size=voxel_size,
             max_probes=max_probes, neighborhood=neighborhood,
             n_voxels=n_voxels, fit_planes=loss == "plane",
             plane_radius=plane_radius, slot_base=slot_base,
             logical_capacity=logical_capacity)
-        return cuda_gn.prep_candidates(cand, source_mask, loss=loss)
+        return cuda_gn.lane_major_rows(cand, source_mask, loss=loss)
+
+    def fetch(t_at):
+        return cuda_gn.split_rows(fetch_rows(t_at),
+                                  n_voxels * vmap_.points.shape[1])
 
     guess_inv = se3.inv(guess)
+
+    def gn_step(t_cur, prepped):
+        """One GN iteration at ``t_cur``: (the updated pose, n_corr,
+        converged)."""
+        jtj, jtr, n_corr, total_w = gn(t_cur, source, prepped, kernel,
+                                       max_d2,
+                                       plane_min_quality=plane_min_quality)
+        if group is not None:
+            jtj, jtr, n_corr, total_w = all_reduce_system(
+                jtj, jtr, n_corr, total_w, group)
+        dx = gn_twist(t_cur, guess_inv, jtj, jtr, total_w,
+                      prior_rot_weight=prior_rot_weight,
+                      prior_trans_weight=prior_trans_weight)
+        return (se3.exp_twist(dx) @ t_cur, n_corr,
+                torch.linalg.vector_norm(dx) < convergence)
+
     refresh = refresh_drift > 0.0
+    if refresh and group is None and graph.conditional_form():
+        return _refresh_graph(
+            gn_step, fetch_rows, n_voxels * vmap_.points.shape[1], guess,
+            guess_inv, max_iterations=max_iterations, refresh_th=refresh_th)
     if refresh:
         prepped = fetch(guess)
     t_cur = t_gather = guess
@@ -492,22 +528,54 @@ def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
                 prepped = fetch(t_cur)
                 t_gather = t_cur
                 REFRESH_COUNTS["regathers"] += 1
-        jtj, jtr, n_corr, total_w = gn(t_cur, source, prepped, kernel,
-                                       max_d2,
-                                       plane_min_quality=plane_min_quality)
-        if group is not None:
-            jtj, jtr, n_corr, total_w = all_reduce_system(
-                jtj, jtr, n_corr, total_w, group)
-        dx = gn_twist(t_cur, guess_inv, jtj, jtr, total_w,
-                      prior_rot_weight=prior_rot_weight,
-                      prior_trans_weight=prior_trans_weight)
-        t_cur = se3.exp_twist(dx) @ t_cur
-        converged = torch.linalg.vector_norm(dx) < convergence
+        t_cur, n_corr, converged = gn_step(t_cur, prepped)
         iters += 1
     dev_pose = guess_inv @ t_cur
     return IcpResult(
         t_cur, n_corr,
         torch.full((), iters, dtype=torch.int32, device=source.device),
+        torch.linalg.vector_norm(se3.trans(dev_pose)),
+        torch.linalg.vector_norm(so3.log_rotmat(se3.rot(dev_pose))))
+
+
+def _refresh_graph(gn_step, fetch_rows, c, guess, guess_inv, *,
+                   max_iterations, refresh_th) -> IcpResult:
+    """:func:`_register_refresh`'s graph form (JAX's ``while_loop`` around
+    its ``lax.cond``, ``ptudes_tpu/ops/icp.py:505-520``): the carry (pose,
+    the pose gathered at, the prepped rows, the correspondence count, the
+    iteration count, the flag) in tensors updated in place; the loop a
+    WHILE node on ``~converged & (iterations < max_iterations)``; from the
+    second iteration on an IF node on the stale test re-gathers at the
+    current pose (counted as ``"regathers"``); then the eager loop's
+    ``gn_step`` (K5, the solve, the update). ``fetch_rows(pose)`` gathers
+    and lays out the [8 + 4C, N] rows at a pose (``c`` = C)."""
+    from . import cuda_gn
+    dev = guess.device
+    t_cur, t_gather = guess.clone(), guess.clone()
+    rows = fetch_rows(guess)
+    prepped = cuda_gn.split_rows(rows, c)
+    n_corr = torch.zeros((), dtype=torch.int32, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    go = torch.ones((), dtype=torch.bool, device=dev)
+
+    def regather():
+        rows.copy_(fetch_rows(t_cur))
+        t_gather.copy_(t_cur)
+
+    def step():
+        stale = (iters > 0) & (drift_metric(t_gather, t_cur) > refresh_th)
+        graph.if_node("regathers", stale, regather)
+        pose, corr_n, converged = gn_step(t_cur, prepped)
+        t_cur.copy_(pose)
+        n_corr.copy_(corr_n)
+        iters.add_(1)
+        go.copy_(~converged & (iters < max_iterations))
+
+    if max_iterations > 0:
+        graph.while_node("gn_iter", go, step)
+    dev_pose = guess_inv @ t_cur
+    return IcpResult(
+        t_cur, n_corr, iters,
         torch.linalg.vector_norm(se3.trans(dev_pose)),
         torch.linalg.vector_norm(so3.log_rotmat(se3.rot(dev_pose))))
 
@@ -540,7 +608,15 @@ def register_frames_refresh_batched(
     (``REFRESH_COUNTS["regathers"]`` counts one a replica). Replica b's
     iteration count, re-gathers and correspondence count are
     :func:`_register_refresh`'s on its own inputs. The result's leaves
-    carry the leading [B]."""
+    carry the leading [B].
+
+    In a graph runner's step the loop is a WHILE node on ``any(active) &
+    (iterations < max_iterations)`` and the host's pick a mask on the card:
+    under an IF node on ``any(active & stale)`` all B replicas are gathered
+    at their current poses and the stale replicas' rows and poses taken
+    from it (the gather and the layout work point by point, so a replica's
+    rows are the subset gather's); the re-gathered replicas are counted on
+    the card as ``"regathers"``."""
     from . import cuda_gn
     if form not in ("cuda", "torch"):
         raise ValueError(f"unknown icp form {form!r}")
@@ -575,11 +651,33 @@ def register_frames_refresh_batched(
     everyone = list(range(b))
     rows = fetch(everyone, guess)
     prepped = cuda_gn.split_rows(rows, n_voxels * vmap_.points.shape[-1])
-    t_cur = t_gather = guess
     out = torch.zeros((b, cuda_gn.GN_OUT), dtype=torch.float32, device=dev)
     n_corr = torch.zeros((b,), dtype=torch.int32, device=dev)
     iters = torch.zeros((b,), dtype=torch.int32, device=dev)
     active = torch.ones((b,), dtype=torch.bool, device=dev)
+
+    def gn_step(t_cur, n_corr, iters, active):
+        """One GN iteration of the active replicas: the new (poses,
+        n_corr, iterations, active)."""
+        jtj, jtr, corr_n, total_w = gn(
+            t_cur, source, prepped, kernel, max_d2,
+            plane_min_quality=plane_min_quality, active=active, out=out)
+        dx = gn_twist(t_cur, guess_inv, jtj, jtr, total_w,
+                      prior_rot_weight=prior_rot_weight,
+                      prior_trans_weight=prior_trans_weight)
+        dx = torch.where(active[:, None], dx, 0.0)
+        return (torch.where(active[:, None, None],
+                            se3.exp_twist(dx) @ t_cur, t_cur),
+                torch.where(active, corr_n, n_corr),
+                iters + active.to(torch.int32),
+                active & ~(torch.linalg.vector_norm(dx, dim=-1)
+                           < convergence))
+
+    if graph.conditional_form():
+        return _refresh_batched_graph(
+            gn_step, fetch, rows, n_corr, iters, active, guess, guess_inv,
+            max_iterations=max_iterations, refresh_th=refresh_th)
+    t_cur = t_gather = guess
     it = 0
     while it < max_iterations:
         if it > 0:
@@ -598,25 +696,54 @@ def register_frames_refresh_batched(
                 t_gather = torch.where((active & stale)[:, None, None],
                                        t_cur, t_gather)
                 REFRESH_COUNTS["regathers"] += len(redo)
-        jtj, jtr, corr_n, total_w = gn(
-            t_cur, source, prepped, kernel, max_d2,
-            plane_min_quality=plane_min_quality, active=active, out=out)
-        dx = gn_twist(t_cur, guess_inv, jtj, jtr, total_w,
-                      prior_rot_weight=prior_rot_weight,
-                      prior_trans_weight=prior_trans_weight)
-        dx = torch.where(active[:, None], dx, 0.0)
-        t_cur = torch.where(active[:, None, None],
-                            se3.exp_twist(dx) @ t_cur, t_cur)
-        n_corr = torch.where(active, corr_n, n_corr)
-        iters = iters + active.to(torch.int32)
-        active = active & ~(torch.linalg.vector_norm(dx, dim=-1)
-                            < convergence)
+        t_cur, n_corr, iters, active = gn_step(t_cur, n_corr, iters, active)
         it += 1
+    return _batched_result(guess_inv, t_cur, n_corr, iters)
+
+
+def _batched_result(guess_inv, t_cur, n_corr, iters) -> IcpResult:
     dev_pose = guess_inv @ t_cur
     return IcpResult(
         t_cur, n_corr, iters,
         torch.linalg.vector_norm(se3.trans(dev_pose), dim=-1),
         torch.linalg.vector_norm(so3.log_rotmat(se3.rot(dev_pose)), dim=-1))
+
+
+def _refresh_batched_graph(gn_step, fetch, rows, n_corr, iters, active,
+                           guess, guess_inv, *, max_iterations,
+                           refresh_th) -> IcpResult:
+    """:func:`register_frames_refresh_batched`'s graph form: the carry
+    (``rows``, ``n_corr``, ``iters``, ``active`` as the caller made them,
+    the poses, the loop's iteration count, the flag) updated in place; the
+    loop a WHILE node, the re-gather of the stale replicas that go an IF
+    node on ``any`` of them (all replicas gathered, the stale ones' rows
+    and poses taken), counted on the card as ``"regathers"``; then the
+    eager loop's ``gn_step``."""
+    b, dev = active.shape[0], active.device
+    everyone = list(range(b))
+    t_cur, t_gather = guess.clone(), guess.clone()
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    go = torch.ones((), dtype=torch.bool, device=dev)
+
+    def regather(redo):
+        fresh = fetch(everyone, t_cur)
+        rows.copy_(torch.where(redo[:, None, None], fresh, rows))
+        t_gather.copy_(torch.where(redo[:, None, None], t_cur, t_gather))
+        graph.count("regathers", redo.sum(dtype=torch.int32))
+
+    def step():
+        stale = drift_metric(t_gather, t_cur) > refresh_th
+        redo = (it > 0) & active & stale
+        graph.if_node("regather_calls", redo.any(), lambda: regather(redo))
+        for dst, src in zip((t_cur, n_corr, iters, active),
+                            gn_step(t_cur, n_corr, iters, active)):
+            dst.copy_(src)
+        it.add_(1)
+        go.copy_(active.any() & (it < max_iterations))
+
+    if max_iterations > 0:
+        graph.while_node("gn_iter", go, step)
+    return _batched_result(guess_inv, t_cur, n_corr, iters)
 
 
 def register_frame(source: torch.Tensor, source_mask: torch.Tensor,
@@ -640,18 +767,19 @@ def register_frame(source: torch.Tensor, source_mask: torch.Tensor,
     the solve and the SE(3) update; it stops once the update is shorter
     than ``convergence``. The JAX package's ``while_loop`` reads that
     flag on the device; here the host reads it through :func:`read_flags`,
-    once an iteration from the second on."""
+    once an iteration from the second on; in a graph runner's step the
+    loop is a WHILE node on ``~converged & (iterations <
+    max_iterations)`` (``ptudes_tpu/ops/icp.py:670``), its carry updated
+    in place, with no host read."""
     if loss not in ("plane", "point"):
         raise ValueError(f"unknown loss {loss!r}")
     max_d2 = max_distance * max_distance
     guess = initial_guess.to(torch.float32)
     guess_inv = se3.inv(guess)
-    t_cur = guess
-    n_corr = torch.zeros((), dtype=torch.int32, device=source.device)
-    iters = 0
-    while iters < max_iterations:
-        if iters > 0 and not read_flags((~converged)[None])[0]:
-            break
+
+    def gn_step(t_cur):
+        """One GN iteration at ``t_cur``: (the updated pose, n_corr,
+        converged)."""
         pts_w = se3.transform(t_cur, source)
         res = hashmap.query(vmap_, pts_w, voxel_size=voxel_size,
                             max_probes=max_probes, approx=approx,
@@ -673,12 +801,35 @@ def register_frame(source: torch.Tensor, source_mask: torch.Tensor,
         dx = gn_twist(t_cur, guess_inv, jtj, jtr, total_w,
                       prior_rot_weight=prior_rot_weight,
                       prior_trans_weight=prior_trans_weight)
-        t_cur = se3.exp_twist(dx) @ t_cur
-        converged = torch.linalg.vector_norm(dx) < convergence
-        iters += 1
+        return (se3.exp_twist(dx) @ t_cur, n_corr,
+                torch.linalg.vector_norm(dx) < convergence)
+
+    n_corr = torch.zeros((), dtype=torch.int32, device=source.device)
+    if graph.conditional_form():
+        t_cur = guess.clone()
+        iters = torch.zeros((), dtype=torch.int32, device=source.device)
+        go = torch.ones((), dtype=torch.bool, device=source.device)
+
+        def step():
+            pose, corr_n, converged = gn_step(t_cur)
+            t_cur.copy_(pose)
+            n_corr.copy_(corr_n)
+            iters.add_(1)
+            go.copy_(~converged & (iters < max_iterations))
+
+        if max_iterations > 0:
+            graph.while_node("every_iter", go, step)
+    else:
+        t_cur = guess
+        it = 0
+        while it < max_iterations:
+            if it > 0 and not read_flags((~converged)[None])[0]:
+                break
+            t_cur, n_corr, converged = gn_step(t_cur)
+            it += 1
+        iters = torch.full((), it, dtype=torch.int32, device=source.device)
     dev_pose = guess_inv @ t_cur
     return IcpResult(
-        t_cur, n_corr,
-        torch.full((), iters, dtype=torch.int32, device=source.device),
+        t_cur, n_corr, iters,
         torch.linalg.vector_norm(se3.trans(dev_pose)),
         torch.linalg.vector_norm(so3.log_rotmat(se3.rot(dev_pose))))

@@ -13,9 +13,11 @@ all replicas, as a ``pallas_call`` under ``jax.vmap`` gains a grid axis:
 K1 predict and K2 pose update once a scan, K3 candidate prep and K4 GN
 loop once a scan with frozen candidates, K5 once a GN iteration in the
 candidate-refresh loop (whose replicas that have converged take no work in
-it). So a scan costs about the same number of launches at any B. The
-frozen-candidate step never reads the card from the host; the refresh loop
-reads all replicas' flags once a GN iteration (``icp.read_flags``).
+it). So a scan costs about the same number of launches at any B. On a
+card the step is a replayed CUDA graph (``models.graph``), the refresh
+loop a WHILE node and its re-gather an IF node, with no host read; in its
+eager form the refresh loop reads all replicas' flags once a GN iteration
+(``icp.read_flags``).
 
 It runs every configuration the JAX package's batched driver runs
 (:func:`check_config`): either candidate form, every predict form (K1, its
@@ -185,8 +187,8 @@ def run_sequence_batched(states: lio.LioState, batches: lio.ScanBatch,
 
     ``graph``: as in ``lio.run_sequence``, the batched step captured once
     and replayed once a scan (``models.graph``), the scan read on axis 1;
-    None takes it on a CUDA device without the refresh loop's reads; the
-    graph is kept for later calls of the same shapes (:func:`graph_run`)."""
+    None takes it on a CUDA device; the graph is kept for later calls of
+    the same shapes (:func:`graph_run`)."""
     check_config(cfg)
     if graph_mod.use_graph(graph, batches.range_m.device, cfg):
         return graph_run(states, batches, lut, cfg=cfg, log=log)

@@ -24,8 +24,10 @@ The eager loops these runs equal are held to JAX's: the runners' own
 schedules against JAX's ``run_sequence`` on one module's JAX run in
 tests/test_torch_lio.py (``test_graph_runner_matches_jax``), the frozen
 map in tests/test_torch_online.py, the batched driver in
-tests/test_torch_batched.py. ``graph=True`` raises on the CPU and for the
-configurations that read the card from the host.
+tests/test_torch_batched.py. ``graph=True`` raises on the CPU and for a
+process group. The conditional forms (the refresh loop, the every-
+iteration query, the IF-gated insert chunks) are in
+tests/test_torch_cond.py and tests/test_torch_refresh.py.
 """
 import dataclasses
 from typing import NamedTuple
@@ -231,7 +233,7 @@ def test_online_runner_equals_batch_runner(scene):
 
 def test_graph_true_raises(scene):
     """``graph=True`` where no graph can run: on the CPU (each driver),
-    and for a step that reads the card from the host."""
+    and for a process group; the refresh loop is capturable."""
     s = scene
     cfg, lut = s["cfg"], s["lut"]
     with pytest.raises(ValueError, match="CUDA device"):
@@ -248,22 +250,25 @@ def test_graph_true_raises(scene):
         graph.SequenceGraph(lio.init_state(cfg, "cpu"), s["batches"])
     cuda = torch.device("cuda", 0)
     refresh = R(cfg, kiss=R(cfg.kiss, nn_refresh_drift=0.15))
-    with pytest.raises(ValueError, match="refresh"):
-        graph.use_graph(True, cuda, refresh)
-    with pytest.raises(ValueError, match="refresh"):
+    assert graph.use_graph(True, cuda, refresh)
+    with pytest.raises(ValueError, match="CUDA device"):
         lio.run_sequence(lio.init_state(refresh, "cpu"), s["batches"], lut,
                          cfg=refresh, graph=True)
+    with pytest.raises(ValueError, match="process group"):
+        graph.use_graph(True, cuda, cfg, object())
 
 
 @pytest.mark.parametrize("kw, group, capturable", [
     ({}, None, True),
-    (dict(nn_refresh_drift=0.15), None, False),
-    (dict(nn_mode="every"), None, False),
+    (dict(nn_refresh_drift=0.15), None, True),
+    (dict(nn_mode="every"), None, True),
     ({}, object(), False),
 ])
 def test_use_graph_resolves(kw, group, capturable):
-    """None takes the graph on a card exactly where the step has no host
-    read, never on the CPU; False is always the eager loop."""
+    """None takes the graph on a card for every single-card configuration
+    (the refresh loop and the every-iteration query too, as conditional
+    nodes), not for a process group, never on the CPU; False is always
+    the eager loop."""
     cfg = port_config()
     cfg = R(cfg, kiss=R(cfg.kiss, **kw))
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")

@@ -11,7 +11,11 @@ What ``config.cli_config`` adds to the bench path, each held to JAX:
 - a 12-scan 32 x 256 sequence at ``cli_config``'s structure with the
   capacities cut so that steady scans overflow the insert budget: every
   pose within 0.02 m of JAX, also after carrying the JAX state over after
-  the bootstrap scan.
+  the bootstrap scan; the same sequence through the graph runner's
+  ``capture=False`` form (the refresh loop and the every-iteration
+  re-gather as WHILE and IF forms, the overflow chunks under IF forms):
+  the eager loop's bits, so within 0.02 m of JAX, and with B = 2 through
+  the batched driver's runner.
 """
 import dataclasses
 from functools import partial
@@ -30,8 +34,9 @@ from ptudes_tpu.ops import icp as jicp
 from ptudes_tpu.ops import voxel as jvoxel
 from ptudes_tpu.ops.projection import XyzLut as JXyzLut
 from ptudes_tpu_torch import config, kernels
-from ptudes_tpu_torch.models import lio
+from ptudes_tpu_torch.models import graph, lio
 from ptudes_tpu_torch.ops import hashmap, icp
+from ptudes_tpu_torch.parallel import batched, replay
 from ptudes_tpu_torch.utils import convert
 from test_pallas_icp import _setup
 from test_torch_lio import N_SCANS, POSE_BAR_M, render_scene
@@ -236,6 +241,13 @@ def run():
                 counts=dict(icp.REFRESH_COUNTS))
 
 
+def _equal(a, b):
+    la, lb = graph.leaves(a), graph.leaves(b)
+    assert len(la) == len(lb) > 0
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and torch.equal(x, y), i
+
+
 def _pose_err(a, b):
     return np.linalg.norm(np.asarray(a)[:, :3, 3] - np.asarray(b)[:, :3, 3],
                           axis=1)
@@ -273,3 +285,53 @@ def test_cli_state_carry_over_from_jax(run):
                               run["lut"], cfg=cfg)
     err = _pose_err(out.kiss_pose.double().numpy(), run["jposes"][1:])
     assert err.max() <= POSE_BAR_M, err
+
+
+def test_cli_sequence_graph_form(run):
+    """tests/test_torch_refresh.py's 12-scan sequence at ``cli_config``'s
+    structure (the refresh loop, the exact chunked insert) through the
+    runner's ``capture=False`` form: rows and final state the eager loop's
+    bit for bit, and so within 0.02 m of JAX's ``run_sequence``; the GN
+    iterations, re-gathers and overflow chunks counted."""
+    cfg, batches, lut = run["cfg"], run["batches"], run["lut"]
+    assert graph.host_read_reason(cfg) is None
+    fin, out = lio.run_sequence(lio.init_state(cfg, "cpu"), batches, lut,
+                                cfg=cfg, graph=False)
+    _equal(out, run["out"])
+    icp.reset_refresh_counts()
+    gfin, gout = lio.graph_run(lio.init_state(cfg, "cpu"), batches, lut,
+                               cfg=cfg, capture=False)
+    rec = dict(graph.LAST_RUN)
+    _equal(gout, out)
+    _equal(gfin, fin)
+    assert _pose_err(gout.kiss_pose.double().numpy(),
+                     run["jposes"]).max() <= POSE_BAR_M
+    assert rec["form"] == "static" and rec["replays"] == {
+        "boot": 1, "steady": N_SCANS - 1}
+    cond = rec["cond"]
+    assert cond["gn_iter"] == int(out.aux.iterations.sum())
+    assert cond["regathers"] == run["counts"]["regathers"] \
+        == icp.REFRESH_COUNTS["regathers"]
+    assert cond["chunks"] >= 1
+    assert icp.REFRESH_COUNTS["host_reads"] == 0
+
+
+def test_cli_sequence_batched_graph_form(run):
+    """``run_sequence_batched`` at the same structure on B = 2 (the scene
+    and its first 8 scans' IMU-gap copy) through the runner's
+    ``capture=False`` form: bit for bit the eager loop."""
+    cfg, batches, lut = run["cfg"], run["batches"], run["lut"]
+    n = 6
+    one = lio.scan_at(batches, slice(0, n))
+    gap = one._replace(imu_valid=one.imu_valid.clone())
+    gap.imu_valid[3] = False
+    states = replay.stack_bags([lio.init_state(cfg, "cpu")] * 2)
+    bags = replay.stack_bags([one, gap])
+    fin, out = batched.run_sequence_batched(states, bags, lut, cfg=cfg,
+                                            graph=False)
+    gfin, gout = batched.graph_run(states, bags, lut, cfg=cfg,
+                                   capture=False)
+    _equal(gout, out)
+    _equal(gfin, fin)
+    assert graph.LAST_RUN["cond"]["gn_iter"] == int(
+        out.aux.iterations.max(0).values.sum())

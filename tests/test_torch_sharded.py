@@ -47,8 +47,6 @@ from ptudes_tpu_torch.models import lio, sim
 from ptudes_tpu_torch.parallel import mesh, sharded
 from ptudes_tpu_torch.utils import convert
 
-torch.set_num_threads(1)
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_SCANS, H, W = 6, 32, 256
 POSE_BAR_M = 0.02
@@ -103,6 +101,20 @@ def tiny_config(max_source: int = 2048, **kiss) -> config.PipelineConfig:
                             max_source=max_source, map_capacity=1 << 14,
                             dedup_table=1 << 15),
         ekf=config.EkfConfig(), max_imu_per_scan=16, guess="ekf")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's in-process runs, as each rank
+    child has (``sharded._rank_main``), and the count before it put back
+    after: set at import, it held for every test collected after this
+    file in the same process (under ``-n 4 --dist loadfile`` each worker
+    collects every file, so a batched refresh test elsewhere ran on one
+    thread and its rounding moved)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
