@@ -141,17 +141,29 @@ Phases, each reported on its own line:
  11. point-sharded LIO (``parallel.sharded``) and the viz paths: (a) K3
      and K5 at the shard shapes (N = 1024, C = 32 and N = 4096, C = 80)
      against their twins at phase 3's bars, repeating bit for bit, with
-     device us and bounds; (b) ``run_sharded`` at ``bench_config()`` over
-     the 50 scans at world size 1 with NCCL on the card (host syncs made
-     errors but the counted reads) and (c) at world size 2 with gloo, both
-     ranks on the one card, for ``bench_config()``, the same with
-     ``fused_gather=True`` (K6 on each shard) and ``cli_config(128,
-     1024)`` on the first 25 scans (NCCL across two
-     cards too where there are two): every rank bit-equal, within 0.02 m
-     of ``bench_jax_poses.txt`` / ``cli_jax_poses.txt``, K4 never, K5 once
-     a GN iteration with one all-reduce after it, K3 (bench) and K1 once a
-     scan; scans/s, all-reduces a scan and us an all-reduce; (d) on the
-     scene written as phase 9's pcap, ``ekf-bench ouster --save-map-ply
+     device us and bounds; (b) ``run_sharded`` at world size 1 with NCCL
+     on the card for ``bench_config()`` over the 50 scans, the same with
+     ``fused_gather=True`` (K6) and ``cli_config(128, 1024)`` on the first
+     25 scans (the refresh loop), each in both forms: a warm-up of each
+     (the graph's captures), then eager and graph alternating, two timed
+     runs each, host syncs made errors throughout (but the eager loop's
+     counted reads and the graph's one read of its counters), every graph
+     run a later call of the kept runner: the GN loop a WHILE node with
+     K5 and the all-reduce in its body (the re-gather an IF node in it),
+     the graph runs bit-equal to the eager runs, no host read, K5
+     launches, GN iterations and all-reduces equal, counted on the card;
+     and (c) at world size 2 with gloo, both ranks on the one card, for
+     the same three configurations on the first 25 scans, eagerly
+     (``graph=True`` with gloo raises ``ValueError``; NCCL across two
+     cards in both forms too where there are two): every rank bit-equal,
+     within 0.02 m of
+     ``bench_jax_poses.txt`` / ``bench_fused_jax_poses.txt`` /
+     ``cli_jax_poses.txt``, K4 never, K5 once a GN iteration with one
+     all-reduce after it, K3 (bench; K6 fused) and K1 once a scan;
+     scans/s, ms a scan of each form, capture ms, pool MB, all-reduces a
+     scan and us an all-reduce (host-timed, and with NCCL captured into
+     one graph); the rank processes run under a wall-clock limit; (d) on
+     the scene written as phase 9's pcap, ``ekf-bench ouster --save-map-ply
      --save-debug-scene`` on scans 0-10 (the knots within 0.02 m of
      ``tests/data/debug_scene_jax_poses.txt``), ``flyby --kitti-poses``,
      ``viz --stream-dir`` and a plot flag refused without matplotlib; one
@@ -186,8 +198,8 @@ graph run's poses, iterations and final state bit-equal to its eager
 run's, and ``LioOnline`` at ``bench_config()`` in both forms on an
 epoch-scale clock (the graph's rows bit-equal to the batch graph run's,
 latency p50/p95/p99 of both); 10c each sweep command in both forms, the
-same way; 11d the command's runs as graphs. The point-sharded runs of
-phase 11 (a process group) stay eager. One JSON line of the graph forms'
+same way; 11d the command's runs as graphs; 11b the NCCL sharded cells
+(the gloo cells of 11c stay eager). One JSON line of the graph forms'
 figures with the card's name and power limit precedes the kernel
 summary.
 Every kernel's line in the JSON summary carries its launches in graphs
@@ -3353,7 +3365,13 @@ def run_phase10(scene, dev, bench_out, cli_out, assoc_out, card: str,
 # (cell, source points of one shard, scene): the sharded paths' shard
 # shapes at n_pt = 2, bench_config (C = 4 x 8) and cli_config (C = 4 x 20)
 SHARD_SHAPES = (("bench_pt2", 1024, "bench"), ("cli_pt2", 4096, "cli"))
-CLI_PT_SCANS = 25   # scans of the sharded CLI cell (cli_jax_poses.txt's first)
+CLI_PT_SCANS = 25   # scans of the sharded CLI cells (cli_jax_poses.txt's first)
+# the timed runs of an NCCL cell, by run_sharded's graph argument: the
+# eager loop and the replayed graph alternating
+SHARD_FORMS = (False, True, True, False)
+SHARD_TIMEOUT_S = 420.0   # run_sharded's wall-clock limit a phase-11 cell
+# scans of the gloo cells (eager, ~0.1 s a scan; the script's time limit)
+GLOO_PT_SCANS = 25
 # a sharded bench cell's correspondence count a scan against phase 4's:
 # within this share (+1), the bar of tests/test_torch_sharded.py against
 # JAX; a reduction that gave the ranks a wrong sum misses it
@@ -3443,23 +3461,86 @@ def check_shard_kernels(dev, results) -> dict:
     return out
 
 
+def sharded_gates(tag, cfg, n, run, backend) -> dict:
+    """Phase 11's gates on one ``run_sharded`` call: the backend and world
+    size, every rank bit-equal, each rank's timed runs bit-equal to one
+    another (eager and graph), the form each run took (NCCL: the form
+    asked; gloo: eager), K4 never, K5 once a GN iteration (the summed
+    iterations) with one all-reduce each, K1 (and K2, K3 or K6 for the
+    frozen form) once a scan, the predicate kernel only in a graph, the
+    same re-gathers in both forms; eagerly one host read a GN iteration
+    but those at the iteration cap, in a graph none, its all-reduces and
+    K5 builds counted on the card and every timed graph run a kept
+    runner's. Returns each form's last run record of rank 0."""
+    check((run.backend, run.world_size) == (backend, len(
+        run.rank_stats)), f"11 {tag}: ran {run.backend} x {run.world_size}")
+    check(run.ranks_equal, f"11 {tag}: the ranks' outputs differ")
+    check(all(st["runs_equal"] for st in run.rank_stats),
+          f"11 {tag}: a rank's timed runs differ (eager against graph)")
+    iters = run.out.aux.iterations
+    total = int(iters.sum())
+    capped = int((iters == cfg.kiss.max_iterations).sum())
+    want = {"ekf_predict": n, "gn_iter": total}
+    if cfg.kiss.nn_refresh_drift == 0.0:
+        want.update(ekf_update=n)
+        want["gather_fused" if cfg.kiss.fused_gather else "gn_prep"] = n
+    by_form = {}
+    for rank, st in enumerate(run.rank_stats):
+        for rec in st["runs"]:
+            form = "graph" if rec["asked"] else "eager"
+            what = f"11 {tag} rank {rank} {form}"
+            check(rec["form"] == form, f"{what}: ran as {rec['form']}")
+            got = {k: v for k, v in rec["launches"].items()
+                   if k != "graph_cond"}
+            check(all(c == want.get(k, 0) for k, c in got.items()),
+                  f"{what}: launches {got}, want {want}")
+            check((rec["launches"]["graph_cond"] > 0) == (form == "graph"),
+                  f"{what}: {rec['launches']['graph_cond']} predicate "
+                  "launches")
+            check(rec["allreduces"] == total,
+                  f"{what}: {rec['allreduces']} all-reduces, {total} builds")
+            check(rec["host_reads"] == (total - capped if form == "eager"
+                                        else 0),
+                  f"{what}: {rec['host_reads']} host reads")
+            if form == "graph":
+                cond = rec["graph"]["cond"]
+                check(cond.get("gn_iter") == cond.get("allreduces")
+                      == rec["launches"]["gn_iter"] == total,
+                      f"{what}: counted on the card {cond}, K5 "
+                      f"{rec['launches']['gn_iter']}, {total} iterations")
+                check(rec["graph"]["cached"],
+                      f"{what}: a timed graph run captured")
+            if rank == 0:
+                by_form[form] = rec
+    regathers = [r["regathers"] for st in run.rank_stats for r in st["runs"]]
+    check(len(set(regathers)) == 1, f"11 {tag}: re-gathers {regathers}")
+    return by_form
+
+
 def run_sharded_path(scene, dev, bench_out, card: str):
     """11b-c: ``parallel.sharded.run_sharded`` on the bench scene, a rank a
-    process, each run twice from a fresh state (a warm-up, then the timed
-    run, whose launches and reads are counted): ``bench_config`` at world
-    size 1 with NCCL on the card (host syncs made errors but the counted
-    reads), ``bench_config``, the same with ``fused_gather=True`` (K6 on
-    each rank's shard) and ``cli_config(128, 1024)`` (the refresh loop,
-    the first ``CLI_PT_SCANS`` scans) at world size 2 with gloo, both
-    ranks on the one card (gloo stages each all-reduce through host
-    memory); with two cards also NCCL across them. Every rank bit-equal,
-    every pose within 0.02 m of the JAX reference, K4 never, K5 once a GN
-    iteration (the summed iterations) with one all-reduce after each, K3
-    (bench; K6 fused) and K1 once a scan. The bench cells also against
-    phase 4's single run (K4): each scan's correspondence count within
+    process. World size 1 with NCCL on the card for ``bench_config``
+    (``bench_pt1``: K3 once a scan, then the K5 loop), the same with
+    ``fused_gather=True`` (``bench_fused_pt1``: K6) and ``cli_config(128,
+    1024)`` on the first ``CLI_PT_SCANS`` scans (``cli_pt1``: the refresh
+    loop), each in both forms: each rank warms up each form once (the
+    graph's run captures its steps), then ``SHARD_FORMS``, eager and graph
+    alternating, timed with host syncs made errors throughout (but the
+    eager loop's counted reads and the graph's one read of its counters),
+    every graph run a later call of the kept runner. World size 2 with
+    gloo, both ranks on the one card (gloo stages each all-reduce through
+    host memory, so its step stays eager; ``graph=True`` raises
+    ``ValueError``), for the same three configurations, a warm-up and a
+    timed run, on the first ``GLOO_PT_SCANS`` scans (``CLI_PT_SCANS`` for
+    the CLI configuration); with two cards also NCCL across them in both
+    forms, on every scan. Gates
+    (:func:`sharded_gates`): every rank bit-equal, graph runs bit-equal to
+    eager ones, every pose within 0.02 m of the JAX reference, the
+    launches and counts. The bench cells also against phase 4's single
+    run (K4): each scan's correspondence count within
     ``SHARD_CORR_FRAC``, and, printed, the scans whose GN iteration count
     differs and the pose gap before the first of them. Returns (cells,
-    launches by cell)."""
+    launches by cell, a graph run's under ``"<cell> graph"``)."""
     from ptudes_tpu_torch.parallel import sharded
 
     sensor, scans, scan_ts, gt_mid, imu = scene
@@ -3469,12 +3550,16 @@ def run_sharded_path(scene, dev, bench_out, card: str):
     bench, cli = config.bench_config(), config.cli_config(h, w)
     fused = dataclasses.replace(bench, kiss=dataclasses.replace(
         bench.kiss, fused_gather=True))
+    n_cli = min(CLI_PT_SCANS, n_all)
+    n_gloo = min(GLOO_PT_SCANS, n_all)
     plan = [("bench_pt1", bench, n_all, ["cuda:0"], "nccl", "bench"),
-            ("bench_pt2", bench, n_all, ["cuda:0"] * 2, "gloo", "bench"),
-            ("bench_fused_pt2", fused, n_all, ["cuda:0"] * 2, "gloo",
+            ("bench_fused_pt1", fused, n_all, ["cuda:0"], "nccl",
              "bench_fused"),
-            ("cli_pt2", cli, min(CLI_PT_SCANS, n_all), ["cuda:0"] * 2,
-             "gloo", "cli")]
+            ("cli_pt1", cli, n_cli, ["cuda:0"], "nccl", "cli"),
+            ("bench_pt2", bench, n_gloo, ["cuda:0"] * 2, "gloo", "bench"),
+            ("bench_fused_pt2", fused, n_gloo, ["cuda:0"] * 2, "gloo",
+             "bench_fused"),
+            ("cli_pt2", cli, n_cli, ["cuda:0"] * 2, "gloo", "cli")]
     if torch.cuda.device_count() >= 2:
         plan.append(("bench_pt2_nccl", bench, n_all, ["cuda:0", "cuda:1"],
                      "nccl", "bench"))
@@ -3482,35 +3567,29 @@ def run_sharded_path(scene, dev, bench_out, card: str):
     corr4 = bench_out.aux.num_corr.cpu().numpy().astype(np.int64)
     iters4 = bench_out.aux.iterations.cpu().numpy()
     cells, launches = {}, {}
+    refused = False
+    try:
+        sharded.run_sharded(lio.init_state(bench, dev), lio.scan_at(
+            lio.build_batches(bench, scans, scan_ts, imu.lacc, imu.avel,
+                              imu.ts, device=dev), slice(0, 2)), lut, bench,
+            devices=["cuda:0"] * 2, backend="gloo", graph=True)
+    except ValueError as e:
+        refused = "gloo" in str(e)
+    check(refused, "11: graph=True with gloo did not raise ValueError")
     for tag, cfg, n, devices, backend, ref_name in plan:
         batches = lio.scan_at(lio.build_batches(
             cfg, scans, scan_ts, imu.lacc, imu.avel, imu.ts, device=dev),
             slice(0, n))
+        forms = SHARD_FORMS if backend == "nccl" else (None,)
         t0 = time.monotonic()
         run = sharded.run_sharded(
             lio.init_state(cfg, dev), batches, lut, cfg, devices=devices,
-            backend=backend, probe=True)
+            backend=backend, probe=forms, timeout=SHARD_TIMEOUT_S)
         wall = time.monotonic() - t0
-        check((run.backend, run.world_size) == (backend, len(devices)),
-              f"11 {tag}: ran {run.backend} x {run.world_size}")
-        check(run.ranks_equal, f"11 {tag}: the ranks' outputs differ")
-        check(all(r["form"] == "eager" for r in run.rank_stats),
-              f"11 {tag}: a rank ran as a graph")
+        by_form = sharded_gates(tag, cfg, n, run, backend)
         st = run.rank_stats[0]
         iters = run.out.aux.iterations
         total = int(iters.sum())
-        want = {"ekf_predict": n, "gn_iter": total}
-        if cfg.kiss.nn_refresh_drift == 0.0:
-            want.update(ekf_update=n)
-            want["gather_fused" if cfg.kiss.fused_gather else "gn_prep"] = n
-        check(all(c == want.get(name, 0)
-                  for name, c in st["launches"].items()),
-              f"11 {tag}: launches {st['launches']}, want {want}")
-        check(st["allreduces"] == total,
-              f"11 {tag}: {st['allreduces']} all-reduces, {total} builds")
-        capped = int((iters == cfg.kiss.max_iterations).sum())
-        check(st["host_reads"] == total - capped,
-              f"11 {tag}: {st['host_reads']} host reads")
         kp = run.out.kiss_pose.double().numpy()
         check(bool(np.isfinite(kp).all()), f"11 {tag}: non-finite poses")
         _, ref = ref_poses(ref_name)
@@ -3541,22 +3620,48 @@ def run_sharded_path(scene, dev, bench_out, card: str):
                                                if first else 0.0),
                 max_trans_from_first_m=float(gap[first:].max()
                                              if first < n else 0.0))
+        ms = {form: [1e3 * r["seconds"] / n for r in st["runs"]
+                     if ("graph" if r["asked"] else "eager") == form]
+              for form in by_form}
+        g = by_form.get("graph", {}).get("graph")
         cells[tag] = dict(
             backend=backend, world_size=len(devices), devices=devices,
-            scans=n, seconds=st["seconds"],
-            scans_per_s=n / st["seconds"][-1], wall_s=wall,
+            scans=n, seconds=st["seconds"], warm_seconds=st["warm_seconds"],
+            forms=[r["form"] for r in st["runs"]],
+            ms_per_scan=ms,
+            scans_per_s={f: [1e3 / x for x in v] for f, v in ms.items()},
+            capture_ms=None if g is None else g["capture_ms"],
+            pool_mb=None if g is None else g["pool_mb"],
+            cond_nodes=None if g is None else g["cond_nodes"],
+            cond=None if g is None else g["cond"], wall_s=wall,
             gn_iterations=total, allreduces_per_scan=total / n,
-            allreduce_us=st["allreduce_us"], host_reads=st["host_reads"],
+            allreduce_us=st["allreduce_us"],
+            captured_allreduce_us=st["captured_allreduce_us"],
+            host_reads={f: r["host_reads"] for f, r in by_form.items()},
+            regathers=st["regathers"],
             max_pose_vs_jax_m=float(err.max()),
-            vs_phase4=vs_single, launches=st["launches"],
+            vs_phase4=vs_single,
+            launches={f: r["launches"] for f, r in by_form.items()},
             ranks_equal=run.ranks_equal, card=card)
-        launches[f"sharded_{tag}"] = st["launches"]
+        launches[f"sharded_{tag}"] = by_form["eager"]["launches"]
+        if "graph" in by_form:
+            launches[f"sharded_{tag} graph"] = by_form["graph"]["launches"]
+        forms_txt = "; ".join(
+            f"{f} " + ", ".join(f"{x:.3f}" for x in v) + " ms a scan"
+            for f, v in ms.items())
         say(f"  11 {tag}: {backend} x {len(devices)} on {devices}: "
-            f"{cells[tag]['scans_per_s']:.2f} scans/s (timed run "
-            f"{st['seconds'][-1]:.3f} s, warm-up {st['seconds'][0]:.3f} s), "
-            f"{total / n:.2f} all-reduces a scan, "
-            f"{st['allreduce_us']:.1f} us an all-reduce (probe), ranks "
-            f"bit-equal, max |pose - JAX| {err.max():.4f} m"
+            f"{forms_txt} (warm-ups "
+            + ", ".join(f"{x:.3f}" for x in st["warm_seconds"]) + " s"
+            + ("" if g is None else
+               f"; graph capture {g['capture_ms']:.1f} ms, pool "
+               f"{g['pool_mb']:.1f} MB, nodes {g['cond_nodes']}, counted "
+               f"on the card {g['cond']}")
+            + f"), {total / n:.2f} all-reduces a scan, "
+            f"{st['allreduce_us']:.1f} us an all-reduce (probe, host-timed)"
+            + ("" if st["captured_allreduce_us"] is None else
+               f", {st['captured_allreduce_us']:.3f} us captured")
+            + f", ranks bit-equal, forms bit-equal, max |pose - JAX| "
+            f"{err.max():.4f} m"
             + ("" if vs_single is None else
                f"; against phase 4: max |pose - phase 4| "
                f"{vs_single['max_pose_m']:.3e}, num_corr differs on "
@@ -3572,7 +3677,7 @@ def run_sharded_path(scene, dev, bench_out, card: str):
                f"{vs_single['max_trans_from_first_m']:.3e} m from it; "
                f"first scan more than 1e-5 m off "
                f"{vs_single['first_scan_trans_above_1e5_m']}")
-            + f"; launches {st['launches']}")
+            + f"; launches {cells[tag]['launches']}")
         if vs_single is not None:
             check(bool(np.all(np.abs(d_corr)
                               <= SHARD_CORR_FRAC * corr4[:n] + 1)),

@@ -47,11 +47,16 @@ allocates at first use exists before the capture), WHILE bodies until the
 host reads their flag false. With ``capture=False`` they are a host
 ``while`` and ``if`` on the same flags and the same body code.
 
-Only a process group keeps a step off the graph (:func:`host_read_reason`:
-the point-sharded step's all-reduces); it runs eagerly. With
-``capture=False`` a runner runs the same code on the same buffers,
-counter, ``index_select`` and ``index_copy_`` with only the capture
-skipped (the CPU tests); the drivers never use it on a card.
+The point-sharded step (a process group, ``parallel.sharded``) is
+captured too where its group is NCCL's: each all-reduce of the GN system
+sits in the GN loop's WHILE body, on the card like the rest of the body,
+and every rank replays the same number of iterations, since the loop's
+flag comes from the all-reduced system and the shared pose. A gloo group
+stages each all-reduce through host memory, which no graph can hold:
+:func:`host_read_reason` keeps that step eager. With ``capture=False`` a
+runner runs the same code on the same buffers, counter, ``index_select``
+and ``index_copy_`` with only the capture skipped (the CPU tests, with a
+gloo group too); the drivers never use it on a card.
 
 ``kernels.LAUNCHES`` counts on the host, so a replay counts nothing
 itself: each graph's launches are taken at its capture and added once a
@@ -61,8 +66,9 @@ predicate kernel counts the body's executions in an int32 on the card
 (:func:`count` adds other counts there, such as the re-gathered
 replicas); the runner reads those counters once after a run and adds
 each body's launches times its executions (``LAUNCHES["gn_iter"]``, the
-K5 builds, among them), the re-gathers to ``ops.icp.REFRESH_COUNTS`` and
-all of them to ``LAST_RUN["cond"]``. The warm-up's and the capture's own
+K5 builds, among them), the re-gathers and the sharded step's
+all-reduces to ``ops.icp.REFRESH_COUNTS`` and all of them to
+``LAST_RUN["cond"]``. The warm-up's and the capture's own
 launches are not counted.
 """
 from __future__ import annotations
@@ -72,6 +78,7 @@ import time
 from collections import Counter, OrderedDict
 
 import torch
+import torch.distributed as dist
 
 from .. import kernels
 from ..config import PipelineConfig
@@ -90,17 +97,35 @@ RUNNERS: OrderedDict = OrderedDict()   # run_scans' runners by key
 def host_read_reason(cfg: PipelineConfig, group=None) -> str | None:
     """Why the step of ``cfg`` cannot be captured, or None when it can:
     every single-card configuration can (its loops and branches are
-    conditional nodes); a process group cannot."""
-    if group is not None:
-        return "a process group (the point-sharded step's all-reduces)"
-    return None
+    conditional nodes), and so can the point-sharded step of an NCCL
+    group (its all-reduces are captured in the GN loop's body); a group of
+    any other backend (gloo) cannot."""
+    if group is None:
+        return None
+    backend = dist.get_backend(group)
+    if backend == "nccl":
+        return None
+    return (f"a {backend} process group (it stages each all-reduce of the "
+            f"point-sharded step through host memory)")
+
+
+def group_key(group) -> tuple | None:
+    """The part of a runner's key a process group makes: its backend, this
+    process's rank and the world size (the rank's slice of the source is
+    baked into the captured step) and the group itself, which the kept
+    runner's steps hold alive; None without a group."""
+    if group is None:
+        return None
+    return (dist.get_backend(group), dist.get_rank(group),
+            dist.get_world_size(group), id(group))
 
 
 def use_graph(graph: bool | None, device: torch.device,
               cfg: PipelineConfig, group=None) -> bool:
     """A driver's ``graph`` argument resolved: None means a graph on a CUDA
-    device for a configuration without a host read; True raises
-    ``ValueError`` where a graph cannot run; False is the eager loop."""
+    device for a step without a host read (every single-card step, the
+    step of an NCCL group); True raises ``ValueError`` where a graph cannot
+    run (the CPU, a gloo group); False is the eager loop."""
     reason = host_read_reason(cfg, group)
     if graph is None:
         return device.type == "cuda" and reason is None
@@ -388,8 +413,8 @@ class Conditionals:
         """After a run: read the counters on the card once (a host sync,
         which ``set_sync_debug_mode`` allows here), add each captured
         body's launches times its executions to ``kernels.LAUNCHES``, the
-        re-gathers to ``ops.icp.REFRESH_COUNTS``, and keep the counts by
-        name in ``self.cond``."""
+        re-gathers and all-reduces to ``ops.icp.REFRESH_COUNTS``, and keep
+        the counts by name in ``self.cond``."""
         from ..ops import icp
         cond = Counter(self._host_counts)
         if self.capture and self._slots:
@@ -410,7 +435,8 @@ class Conditionals:
                         node["delta"]):
                     for k, v in delta.items():
                         counts[k] += n * v
-        icp.REFRESH_COUNTS["regathers"] += cond["regathers"]
+        for name in ("regathers", "allreduces"):
+            icp.REFRESH_COUNTS[name] += cond[name]
         self.cond = dict(cond)
 
 

@@ -275,16 +275,17 @@ def run_sequence(state: LioState, batches: ScanBatch, lut: XyzLut, *,
     scan (``models.graph``; the counterpart of the JAX package's compiled
     scan), the same bits as the eager loop; the refresh loop, the every-
     iteration query and the insert's overflow chunks are conditional nodes
-    in it. None takes the graph on a CUDA device for every configuration
-    without a ``group``, else the eager loop; True raises ``ValueError``
-    where a graph cannot run (the CPU, a ``group``); False is the eager
-    loop. ``graph.LAST_RUN`` records the form that ran. The first call of a
+    in it, and with an NCCL ``group`` each GN iteration's all-reduce too.
+    None takes the graph on a CUDA device for every configuration without
+    a ``group`` or with an NCCL one, else the eager loop; True raises
+    ``ValueError`` where a graph cannot run (the CPU, a gloo ``group``);
+    False is the eager loop. ``graph.LAST_RUN`` records the form that ran. The first call of a
     configuration and shape pays the capture (``graph.LAST_RUN
     ["capture_ms"]``, tens of ms to about a second on an H100); later calls
-    with the same ``cfg``, ``log``, ``lut`` and shapes reuse the kept graph
-    (:func:`graph_run`)."""
+    with the same ``cfg``, ``log``, ``lut``, ``group`` and shapes reuse the
+    kept graph (:func:`graph_run`)."""
     if graph_mod.use_graph(graph, batches.range_m.device, cfg, group):
-        return graph_run(state, batches, lut, cfg=cfg, log=log)
+        return graph_run(state, batches, lut, cfg=cfg, log=log, group=group)
     n = batches.range_m.shape[0]
     boot, steady, k = sequence_steps(lut, cfg, n, log, group)
     rows, logs = [], []
@@ -299,16 +300,19 @@ def run_sequence(state: LioState, batches: ScanBatch, lut: XyzLut, *,
 
 
 def graph_run(state: LioState, batches: ScanBatch, lut: XyzLut, *,
-              cfg: PipelineConfig, log: bool = False, capture: bool = True
-              ) -> tuple[LioState, LioOut]:
+              cfg: PipelineConfig, log: bool = False, group=None,
+              capture: bool = True) -> tuple[LioState, LioOut]:
     """:func:`run_sequence`'s graph form (``models.graph.run_scans``): its
-    steps captured once for a configuration, ``log``, ``lut`` and shape,
-    and replayed once a scan. ``capture=False`` runs the same buffers and
-    operations without the capture (the CPU tests)."""
+    steps captured once for a configuration, ``log``, ``lut``, process
+    ``group`` (its backend, this rank and the world size:
+    ``models.graph.group_key``) and shape, and replayed once a scan.
+    ``capture=False`` runs the same buffers and operations without the
+    capture (the CPU tests)."""
     n = batches.range_m.shape[0]
     state, (rows, *flog) = graph_mod.run_scans(
-        ("lio", cfg, log, graph_mod.tensor_key(lut)),
-        lambda: sequence_steps(lut, cfg, n, log), state, batches,
+        ("lio", cfg, log, graph_mod.tensor_key(lut),
+         graph_mod.group_key(group)),
+        lambda: sequence_steps(lut, cfg, n, log, group), state, batches,
         capture=capture)
     return state, sequence_out(rows, *flog)
 

@@ -19,9 +19,9 @@ point-to-point (``loss="point"``). Two forms:
 Point-sharded across ranks (``group``, a ``torch.distributed`` process
 group: ``parallel.sharded``), each rank registers its slice of the source
 and the GN system is all-reduced once a GN iteration: the frozen form
-preps once (K3, or K6) and runs a host loop of K5 builds instead of K4,
-which cannot reduce across ranks; the refresh form adds the all-reduce
-after its K5 build.
+preps once (K3, or K6) and runs a loop of K5 builds instead of K4, which
+cannot reduce across ranks; the refresh form adds the all-reduce after
+its K5 build.
 
 Both forms also run B registrations against a flat B-map table in the
 launches of one (:func:`register_frames_cached_batched`,
@@ -37,12 +37,14 @@ kernel on this path; here it is plain torch with one host read a GN
 iteration (:func:`read_flags`) for the early exit.
 
 Inside a graph runner's step (``models.graph.conditional_form()``) the
-refresh loops and the every-iteration loop take their graph forms: the
-loop's carry in tensors allocated before it and updated in place, the
-iteration count on the card, the loop a WHILE node on JAX's predicate and
-the re-gather an IF node on the stale test (``models.graph.while_node``,
-``if_node``), so no step reads the card from the host. Each runs the
-eager loop's ops in its order, so both forms give the same bits.
+refresh loops, the point-sharded loops (refresh and frozen) and the
+every-iteration loop take their graph forms: the loop's carry in tensors
+allocated before it and updated in place, the iteration count on the
+card, the loop a WHILE node on JAX's predicate and the re-gather an IF
+node on the stale test (``models.graph.while_node``, ``if_node``), the
+sharded all-reduce inside the WHILE body, so no step reads the card from
+the host. Each runs the eager loop's ops in its order, so both forms give
+the same bits.
 """
 from __future__ import annotations
 
@@ -245,7 +247,8 @@ def gn_twist(t_cur: torch.Tensor, guess_inv: torch.Tensor,
 
 # the refresh loop's device-to-host reads (read_flags), re-gathers and,
 # point-sharded, all-reduces of the GN system (all_reduce_system) since the
-# last reset_refresh_counts()
+# last reset_refresh_counts(); a graph's re-gathers and all-reduces are
+# counted on the card and added by models.graph after its run
 REFRESH_COUNTS = {"host_reads": 0, "regathers": 0, "allreduces": 0}
 
 
@@ -282,11 +285,17 @@ def all_reduce_system(jtj: torch.Tensor, jtr: torch.Tensor,
     [6], n_corr int32, total weight) as ONE all-reduce of a packed f32
     [36 + 6 + 1 + 1] buffer (the JAX package's four ``psum``s,
     ``ptudes_tpu/ops/icp.py:479-484``). The count travels as f32, exact
-    below 2^24, and comes back int32. Every rank gets the same bits."""
+    below 2^24, and comes back int32. Every rank gets the same bits.
+    Counted in ``REFRESH_COUNTS["allreduces"]``; in a graph runner's step
+    on the card (``models.graph.count``), once each time the body that
+    holds it runs."""
     buf = torch.cat([jtj.reshape(36), jtr, n_corr.to(torch.float32)[None],
                      total_w.reshape(1)])
     dist.all_reduce(buf, group=group)
-    REFRESH_COUNTS["allreduces"] += 1
+    if graph.conditional_form():
+        graph.count("allreduces", 1)
+    else:
+        REFRESH_COUNTS["allreduces"] += 1
     return (buf[:36].reshape(6, 6), buf[36:42], buf[42].to(torch.int32),
             buf[43])
 
@@ -339,10 +348,11 @@ def register_frame_cached(source: torch.Tensor, source_mask: torch.Tensor,
     the map and the guess are the same on every rank, and each GN build is
     summed over the ranks by :func:`all_reduce_system` before the solve,
     so every rank returns the same result. The frozen form then preps
-    once as above (K6 or K3) and runs :func:`_register_refresh`'s host
-    loop without its re-gather: K5 (``cuda_gn.gn_prepped``) a GN
-    iteration, never K4, which cannot reduce across ranks (as the JAX
-    package routes it, ``ptudes_tpu/ops/icp.py:365-377``)."""
+    once as above (K6 or K3) and runs :func:`_register_refresh`'s loop
+    without its re-gather: K5 (``cuda_gn.gn_prepped``) a GN iteration,
+    never K4, which cannot reduce across ranks (as the JAX package routes
+    it, ``ptudes_tpu/ops/icp.py:365-377``); a host loop eagerly, a WHILE
+    node with the all-reduce in its body in a graph runner's step."""
     from . import cuda_gather, cuda_gn, cuda_icp
     if form not in ("cuda", "torch"):
         raise ValueError(f"unknown icp form {form!r}")
@@ -471,7 +481,9 @@ def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
     else stays on the card. The candidates are prepped once per gather.
 
     In a graph runner's step (:func:`_refresh_graph`) the loop is a WHILE
-    node and the re-gather an IF node, with no host read."""
+    node, the re-gather an IF node and, with ``group``, the all-reduce
+    inside the WHILE body, with no host read; the frozen form's loop is
+    the WHILE node alone over ``prepped``."""
     from . import cuda_gn
     gn = cuda_gn.gn_prepped if form == "cuda" else cuda_gn.gn_prepped_torch
     refresh_th = refresh_drift * voxel_size
@@ -507,10 +519,11 @@ def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
                 torch.linalg.vector_norm(dx) < convergence)
 
     refresh = refresh_drift > 0.0
-    if refresh and group is None and graph.conditional_form():
+    if graph.conditional_form():
         return _refresh_graph(
-            gn_step, fetch_rows, n_voxels * vmap_.points.shape[1], guess,
-            guess_inv, max_iterations=max_iterations, refresh_th=refresh_th)
+            gn_step, guess, guess_inv, max_iterations=max_iterations,
+            prepped=prepped, fetch_rows=fetch_rows if refresh else None,
+            c=n_voxels * vmap_.points.shape[1], refresh_th=refresh_th)
     if refresh:
         prepped = fetch(guess)
     t_cur = t_gather = guess
@@ -538,8 +551,9 @@ def _register_refresh(source, source_mask, vmap_, guess, max_d2, kernel, *,
         torch.linalg.vector_norm(so3.log_rotmat(se3.rot(dev_pose))))
 
 
-def _refresh_graph(gn_step, fetch_rows, c, guess, guess_inv, *,
-                   max_iterations, refresh_th) -> IcpResult:
+def _refresh_graph(gn_step, guess, guess_inv, *, max_iterations,
+                   prepped=None, fetch_rows=None, c=0,
+                   refresh_th=0.0) -> IcpResult:
     """:func:`_register_refresh`'s graph form (JAX's ``while_loop`` around
     its ``lax.cond``, ``ptudes_tpu/ops/icp.py:505-520``): the carry (pose,
     the pose gathered at, the prepped rows, the correspondence count, the
@@ -547,13 +561,19 @@ def _refresh_graph(gn_step, fetch_rows, c, guess, guess_inv, *,
     WHILE node on ``~converged & (iterations < max_iterations)``; from the
     second iteration on an IF node on the stale test re-gathers at the
     current pose (counted as ``"regathers"``); then the eager loop's
-    ``gn_step`` (K5, the solve, the update). ``fetch_rows(pose)`` gathers
-    and lays out the [8 + 4C, N] rows at a pose (``c`` = C)."""
+    ``gn_step`` (K5, with a group its all-reduce, the solve, the update).
+    ``fetch_rows(pose)`` gathers and lays out the [8 + 4C, N] rows at a
+    pose (``c`` = C). Without ``fetch_rows`` (the point-sharded frozen
+    form) the loop runs on the candidates ``prepped`` as they are, with no
+    stale test and no IF node. The flag is computed from the all-reduced
+    system and the shared pose alone, so every rank of a group runs the
+    same iterations."""
     from . import cuda_gn
     dev = guess.device
     t_cur, t_gather = guess.clone(), guess.clone()
-    rows = fetch_rows(guess)
-    prepped = cuda_gn.split_rows(rows, c)
+    if fetch_rows is not None:
+        rows = fetch_rows(guess)
+        prepped = cuda_gn.split_rows(rows, c)
     n_corr = torch.zeros((), dtype=torch.int32, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     go = torch.ones((), dtype=torch.bool, device=dev)
@@ -563,8 +583,10 @@ def _refresh_graph(gn_step, fetch_rows, c, guess, guess_inv, *,
         t_gather.copy_(t_cur)
 
     def step():
-        stale = (iters > 0) & (drift_metric(t_gather, t_cur) > refresh_th)
-        graph.if_node("regathers", stale, regather)
+        if fetch_rows is not None:
+            stale = ((iters > 0)
+                     & (drift_metric(t_gather, t_cur) > refresh_th))
+            graph.if_node("regathers", stale, regather)
         pose, corr_n, converged = gn_step(t_cur, prepped)
         t_cur.copy_(pose)
         n_corr.copy_(corr_n)

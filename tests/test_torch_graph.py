@@ -18,14 +18,17 @@ drivers' eager loops bit for bit:
   scene with scan 5's IMU samples removed), the scan read on axis 1;
 - ``LioOnline`` with its runner against the batch runner;
 - a kept runner's later calls (``graph.RUNNERS``), loaded with a new start
-  state and new batches.
+  state and new batches; a point-sharded call (a gloo group of one rank
+  in this process) of the same configuration and shapes takes a runner
+  of its own, its rows bit-equal to the eager sharded loop's.
 
 The eager loops these runs equal are held to JAX's: the runners' own
 schedules against JAX's ``run_sequence`` on one module's JAX run in
 tests/test_torch_lio.py (``test_graph_runner_matches_jax``), the frozen
 map in tests/test_torch_online.py, the batched driver in
 tests/test_torch_batched.py. ``graph=True`` raises on the CPU and for a
-process group. The conditional forms (the refresh loop, the every-
+gloo process group; an NCCL group's step is capturable (the group's
+backend read through ``dist.get_backend``). The conditional forms (the refresh loop, the every-
 iteration query, the IF-gated insert chunks) are in
 tests/test_torch_cond.py and tests/test_torch_refresh.py.
 """
@@ -35,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from ptudes_tpu_torch.models import graph, lio
 from ptudes_tpu_torch.models.online import LioOnline
@@ -67,6 +71,19 @@ def scene():
                                  cfg=cfg, graph=False)
     return dict(raw=raw, cfg=cfg, lut=lut, batches=batches, fin=fin,
                 out=out, booted=booted)
+
+
+@pytest.fixture
+def gloo(tmp_path):
+    """A gloo process group of one rank (this process), destroyed after
+    the test with the runners that hold it."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        graph.RUNNERS.clear()
+        dist.destroy_process_group()
 
 
 def _equal(a, b):
@@ -204,6 +221,31 @@ def test_kept_runner_later_calls(scene):
     assert not graph.LAST_RUN["cached"] and len(graph.RUNNERS) == 2
 
 
+def test_kept_runner_not_reused_for_a_group(scene, gloo):
+    """A kept single-card runner is not replayed for a point-sharded call
+    of the same configuration and shapes: the group's backend, rank and
+    world size are in the key (the rank's slice of the source is baked
+    into the captured step). The sharded runner's rows and state equal the
+    eager sharded loop's bit for bit, and a later sharded call reuses
+    it."""
+    s = scene
+    cfg, lut = R(s["cfg"], bootstrap_scans=0), s["lut"]
+    batches = lio.scan_at(s["batches"], slice(3, 5))
+    graph.RUNNERS.clear()
+    _runner(cfg, lut, s["booted"], batches)
+    assert graph.group_key(gloo)[:3] == ("gloo", 0, 1)
+    fin, out = _eager(cfg, lut, s["booted"], batches, group=gloo)
+    for cached in (False, True):
+        gfin, gout = lio.graph_run(s["booted"], batches, lut, cfg=cfg,
+                                   group=gloo, capture=False)
+        assert graph.LAST_RUN["cached"] == cached
+        assert len(graph.RUNNERS) == 2
+        assert graph.LAST_RUN["cond"]["allreduces"] == int(
+            gout.aux.iterations.sum())
+        _equal(gout, out)
+        _equal(gfin, fin)
+
+
 def test_online_runner_equals_batch_runner(scene):
     """``LioOnline`` with its runner (static inputs filled from the host
     buffers each scan), the IMU samples and scans pushed in time order:
@@ -231,9 +273,9 @@ def test_online_runner_equals_batch_runner(scene):
     assert odo.state.kiss.pose is not odo._graph.state.kiss.pose
 
 
-def test_graph_true_raises(scene):
+def test_graph_true_raises(scene, gloo):
     """``graph=True`` where no graph can run: on the CPU (each driver),
-    and for a process group; the refresh loop is capturable."""
+    and for a gloo process group; the refresh loop is capturable."""
     s = scene
     cfg, lut = s["cfg"], s["lut"]
     with pytest.raises(ValueError, match="CUDA device"):
@@ -254,21 +296,38 @@ def test_graph_true_raises(scene):
     with pytest.raises(ValueError, match="CUDA device"):
         lio.run_sequence(lio.init_state(refresh, "cpu"), s["batches"], lut,
                          cfg=refresh, graph=True)
-    with pytest.raises(ValueError, match="process group"):
-        graph.use_graph(True, cuda, cfg, object())
+    with pytest.raises(ValueError, match="gloo process group"):
+        graph.use_graph(True, cuda, cfg, gloo)
+    with pytest.raises(ValueError, match="gloo process group"):
+        lio.run_sequence(lio.init_state(cfg, "cpu"), s["batches"], lut,
+                         cfg=cfg, group=gloo, graph=True)
 
 
-@pytest.mark.parametrize("kw, group, capturable", [
+@pytest.mark.parametrize("kw, backend, capturable", [
     ({}, None, True),
     (dict(nn_refresh_drift=0.15), None, True),
     (dict(nn_mode="every"), None, True),
-    ({}, object(), False),
+    ({}, "gloo", False),
+    ({}, "nccl", True),
+    (dict(nn_refresh_drift=0.15), "nccl", True),
 ])
-def test_use_graph_resolves(kw, group, capturable):
+def test_use_graph_resolves(kw, backend, capturable, request, monkeypatch):
     """None takes the graph on a card for every single-card configuration
     (the refresh loop and the every-iteration query too, as conditional
-    nodes), not for a process group, never on the CPU; False is always
-    the eager loop."""
+    nodes) and for an NCCL group's point-sharded step (its all-reduces
+    captured in the GN loop's body), not for a gloo group, never on the
+    CPU; False is always the eager loop. The backend is read from the
+    group: a real gloo group of one rank, and for NCCL (which needs a
+    card a rank) a group object whose backend ``dist.get_backend``
+    reports as nccl."""
+    group = None
+    if backend == "gloo":
+        group = request.getfixturevalue("gloo")
+    elif backend == "nccl":
+        group = object()
+        real = dist.get_backend
+        monkeypatch.setattr(dist, "get_backend", lambda g=None: (
+            "nccl" if g is group else real(g)))
     cfg = port_config()
     cfg = R(cfg, kiss=R(cfg.kiss, **kw))
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")

@@ -31,8 +31,17 @@ port's too, have ``max_source`` 4096.
   single runs (K4's twin), at the same two bars;
 - ``log=True``: the filter history, and the carried poses equal to the
   unlogged run's;
-- ``ValueError`` for ``max_source % n_pt != 0``, ``nn_mode="every"`` and
-  a backend that does not fit the devices; ``make_mesh(2, 2)``.
+- the graph form (``models.graph``'s runner without the capture,
+  ``capture=False``: the GN loop's WHILE body, with the all-reduce in it,
+  and the re-gather's IF body as host loops) of the refresh, frozen and
+  fused forms at world size 2: rows, final state, GN iterations,
+  all-reduces (counted as the card counts them) and re-gathers equal to
+  the eager sharded run's, no host read, within 0.02 m of JAX's sharded
+  run;
+- ``ValueError`` for ``max_source % n_pt != 0``, ``nn_mode="every"``, a
+  backend that does not fit the devices and ``graph=True`` with gloo;
+  ``TimeoutError`` once the ranks outlast ``run_sharded``'s wall-clock
+  limit (they are killed); ``make_mesh(2, 2)``.
 """
 import os
 import subprocess
@@ -173,20 +182,24 @@ def single(cfg, scene, log=False):
                             cfg=cfg, log=log)[1]
 
 
-def sharded_run(cfg, scene, n_pt, log=False):
+def sharded_run(cfg, scene, n_pt, log=False, capture=True):
+    """``run_sharded`` on CPU ranks with gloo: eagerly, or with
+    ``capture=False`` the graph form's code without the capture."""
     batches, lut = scene[:2]
     run = sharded.run_sharded(lio.init_state(cfg, "cpu"), batches, lut, cfg,
                               devices=["cpu"] * n_pt, backend="gloo",
-                              log=log)
+                              log=log, capture=capture)
     assert (run.backend, run.world_size) == ("gloo", n_pt)
     assert run.ranks_equal
     st = run.rank_stats[0]
+    assert all(s["form"] == ("eager" if capture else "static")
+               for s in run.rank_stats)
     iters = run.out.aux.iterations
-    # one all-reduce a GN build; one read of "not converged" after each
-    # build but the one at the iteration cap
+    # one all-reduce a GN build; eagerly one read of "not converged" after
+    # each build but the one at the iteration cap, none in the graph form
     assert st["allreduces"] == int(iters.sum())
-    assert st["host_reads"] == int(iters.sum()) - int(
-        (iters == cfg.kiss.max_iterations).sum())
+    assert st["host_reads"] == (int(iters.sum()) - int(
+        (iters == cfg.kiss.max_iterations).sum()) if capture else 0)
     assert all(s["allreduces"] == st["allreduces"] for s in run.rank_stats)
     return run
 
@@ -201,6 +214,21 @@ def pose_err(a, b) -> np.ndarray:
 def port_runs(scene):
     cfg = tiny_config()
     return {n: sharded_run(cfg, scene, n) for n in (1, 2, 4)}
+
+
+def form_config(form: str) -> config.PipelineConfig:
+    """The configuration of one of ``JAX_FORMS``."""
+    if form == "refresh":
+        return tiny_config()
+    return tiny_config(max_source=FROZEN_SOURCE, nn_refresh_drift=0.0,
+                       fused_gather=form == "fused")
+
+
+@pytest.fixture(scope="module")
+def frozen_runs(scene):
+    """The eager sharded runs of the frozen forms at world size 2."""
+    return {form: sharded_run(form_config(form), scene, 2)
+            for form in ("frozen", "fused")}
 
 
 def test_world_size_one_matches_run_sequence(scene, port_runs):
@@ -226,21 +254,47 @@ def check_close(out, poses, corr, what: str) -> None:
 
 
 @pytest.mark.parametrize("fused", [False, True])
-def test_frozen_and_fused_forms(scene, jax_ref, fused):
+def test_frozen_and_fused_forms(scene, jax_ref, frozen_runs, fused):
     """The frozen form at world size 2 (K3's twin or K6's once a scan,
     then the K5 loop) against JAX's sharded run of the same configuration
     and the port's single run, where the whole loop is K4's twin."""
-    cfg = tiny_config(max_source=FROZEN_SOURCE, nn_refresh_drift=0.0,
-                      fused_gather=fused)
+    form = "fused" if fused else "frozen"
+    cfg = form_config(form)
     ref = single(cfg, scene)
-    run = sharded_run(cfg, scene, 2)
-    jref = jax_ref["fused" if fused else "frozen"]
+    run = frozen_runs[form]
+    jref = jax_ref[form]
     check_close(run.out, jref["sharded"], jref["sharded_corr"],
                 f"frozen fused={fused} against JAX's sharded run")
     check_close(run.out, ref.kiss_pose, ref.aux.num_corr,
                 f"frozen fused={fused} against the port's single run")
     assert np.isfinite(run.out.ekf_pose.numpy()).all()
     assert int(run.out.aux.map_points[-1]) > 0
+
+
+@pytest.mark.parametrize("form", JAX_FORMS)
+def test_graph_form_matches_eager(scene, jax_ref, port_runs, frozen_runs,
+                                  form):
+    """The graph form's code at world size 2 with gloo (``capture=False``:
+    the WHILE body with K5's twin and the all-reduce, the re-gather's IF
+    body, as host loops): rows and final state bit-equal to the eager
+    sharded run, the same GN iterations, all-reduces and re-gathers, the
+    all-reduces counted where the card counts them (``graph.count`` in the
+    body, one an iteration), no host read; within 0.02 m of JAX's sharded
+    run."""
+    eager = port_runs[2] if form == "refresh" else frozen_runs[form]
+    run = sharded_run(form_config(form), scene, 2, capture=False)
+    assert sharded._same_bits((run.out, run.state), (eager.out, eager.state))
+    total = int(run.out.aux.iterations.sum())
+    for st, ref in zip(run.rank_stats, eager.rank_stats):
+        assert st["host_reads"] == 0
+        for name in ("allreduces", "regathers"):
+            assert st[name] == ref[name], (name, st[name], ref[name])
+        cond = st["graph"]["cond"]
+        assert cond["gn_iter"] == cond["allreduces"] == total
+        assert cond.get("regathers", 0) == st["regathers"]
+    jref = jax_ref[form]
+    check_close(run.out, jref["sharded"], jref["sharded_corr"],
+                f"{form} graph form against JAX's sharded run")
 
 
 def test_log_history(scene, port_runs):
@@ -276,6 +330,21 @@ def test_refuses_what_cannot_shard(scene):
     with pytest.raises(ValueError, match="nccl needs one card a rank"):
         sharded.run_sharded(lio.init_state(cfg, "cpu"), batches, lut, cfg,
                             devices=["cpu"] * 2, backend="nccl")
+    with pytest.raises(ValueError, match="gloo group's step cannot be"):
+        sharded.run_sharded(lio.init_state(cfg, "cpu"), batches, lut, cfg,
+                            devices=["cpu"] * 2, backend="gloo", graph=True)
+
+
+def test_wall_clock_limit(scene):
+    """The ranks outlasting ``timeout`` (here before they have even
+    joined the group) are killed and ``run_sharded`` raises: a captured
+    collective that hung would have no timeout of its own."""
+    batches, lut = scene[:2]
+    cfg = tiny_config()
+    with pytest.raises(TimeoutError, match="did not finish within"):
+        sharded.run_sharded(lio.init_state(cfg, "cpu"), batches, lut, cfg,
+                            devices=["cpu"] * 2, backend="gloo",
+                            timeout=0.5)
 
 
 def test_make_mesh_pt_axis():
