@@ -129,6 +129,32 @@ def bench_config() -> PipelineConfig:
     )
 
 
+def long_config() -> PipelineConfig:
+    """The endurance run's configuration (``bench_long.py:82-106``'s
+    values): 64x512 scans clipped at 25 m, 2048-point ICP source, a 2^19-
+    slot map with 8 points per voxel, a 2^17-slot dedup table, 16384-point
+    frames and at most 1024 new points a steady scan, K = 16 IMU samples,
+    EKF guess, 3 bootstrap scans then the decimated steady insert — with
+    all four kernels in their CUDA form."""
+    h, w = 64, 512
+    return PipelineConfig(
+        kiss=KissConfig(max_range=25.0, min_range=1.0,
+                        max_points_per_voxel=8, max_iterations=20,
+                        deskew=True, loss="plane", voxel_size=0.3,
+                        plane_fit_radius=0.6, nn_mode="cached",
+                        nn_voxels=4, nn_neighborhood=7,
+                        nn_refresh_drift=0.0, icp_form="cuda"),
+        cap=Capacity(max_points=h * w, max_frame=16384, max_source=2048,
+                     map_capacity=1 << 19, dedup_table=1 << 17,
+                     max_new_per_scan=1024, max_probes=1),
+        ekf=EkfConfig(predict_batch="cuda", update_form="cuda"),
+        max_imu_per_scan=16,
+        guess="ekf",
+        bootstrap_scans=3,
+        steady_insert_mode=False,
+    )
+
+
 def cli_config(h: int, w: int, guess: str = "ekf") -> PipelineConfig:
     """The flagship command's configuration, ``ptudes ekf-bench ouster``
     (``ptudes_tpu/cli/main.py:428-452``) for an ``h`` x ``w`` sensor, with

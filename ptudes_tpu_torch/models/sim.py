@@ -3,15 +3,19 @@ of ``ptudes_tpu.models.sim``): the analytic raycast world, the sensor LUT,
 range-image rendering with a true rotosweep, the speed-ramped circle
 trajectory and its exact IMU, the seeded IMU streams of ``ekf-bench
 sim`` (:func:`sim_imu_arrays`, the only one that returns tensors) and the
-point-cloud world of :func:`make_world`. The
+point-cloud world of :func:`make_world`, and the two scenes of the
+repo's runs, :func:`bench_scene` and :func:`long_scene` (rendered over a
+process pool where asked, :func:`render_frames`). The
 rest returns numpy, so the card's machine (which has no JAX) can make the
 same scenes as the JAX package; ``utils.convert.lut_from_numpy`` moves a
 sensor's LUT to a device.
 """
 from __future__ import annotations
 
+import multiprocessing as mp
 import os
 import tempfile
+from concurrent.futures import ProcessPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -283,32 +287,109 @@ BENCH_SCANS, BENCH_H, BENCH_W = 50, 128, 1024
 BENCH_DT, BENCH_RADIUS, BENCH_SPEED, BENCH_RAMP = 0.1, 8.0, 2.0, 1.0
 
 
-def bench_scene(n_scans: int = BENCH_SCANS, cache_dir: str | None = None):
+def _render_span(world: SimWorld, sweep: np.ndarray, sensor: SimSensor,
+                 first: int, max_range: float) -> np.ndarray:
+    """Frames ``first`` .. ``first + len(sweep) - 2`` (1 cm noise, frame
+    i seeded with i, each a rotosweep from ``sweep[j]`` to ``sweep[j +
+    1]``): one task of :func:`render_frames`."""
+    return np.stack([
+        render_range_image(world, sweep[j], sensor, max_range=max_range,
+                           noise_std=0.01, seed=first + j,
+                           end_pose=sweep[j + 1])
+        for j in range(len(sweep) - 1)])
+
+
+def render_frames(world: SimWorld, sweep: np.ndarray, sensor: SimSensor,
+                  n: int, max_range: float, workers: int = 1) -> np.ndarray:
+    """Frames 0 .. n-1 of a scene [n, H, W]: frame i rendered from
+    ``sweep[i]`` to ``sweep[i + 1]`` with seed i. ``workers`` > 1 renders
+    spans of frames over a ``spawn`` process pool (safe after CUDA is
+    initialised); every frame is computed alone, so the bytes are the
+    serial render's."""
+    if workers <= 1 or n <= 1:
+        return _render_span(world, sweep[:n + 1], sensor, 0, max_range)
+    bounds = np.linspace(0, n, min(n, 4 * workers) + 1).astype(int)
+    spans = [(world, sweep[lo:hi + 1], sensor, int(lo), max_range)
+             for lo, hi in zip(bounds[:-1], bounds[1:]) if hi > lo]
+    with ProcessPoolExecutor(min(workers, len(spans)),
+                             mp_context=mp.get_context("spawn")) as pool:
+        return np.concatenate(list(pool.map(_render_span, *zip(*spans))))
+
+
+def _cached_frames(cache: str, render) -> np.ndarray:
+    """The frames saved at ``cache``, else ``render()``'s, saved there."""
+    if os.path.exists(cache):
+        with np.load(cache) as z:
+            return z["scans"]
+    scans = render()
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    tmp = cache + f".{os.getpid()}.npz"
+    np.savez(tmp, scans=scans)
+    os.replace(tmp, cache)
+    return scans
+
+
+def bench_scene(n_scans: int = BENCH_SCANS, cache_dir: str | None = None,
+                workers: int = 1):
     """Render (or load from the temp-dir cache) the bench scene; returns
     (sensor, scans [N, H, W], scan_ts [N], gt_mid [N, 4, 4], imu SimImu).
-    ``gt_mid`` are the exact mid-sweep poses (the deskew anchor)."""
+    ``gt_mid`` are the exact mid-sweep poses (the deskew anchor);
+    ``workers``: processes rendering (:func:`render_frames`)."""
     sensor = make_sim_sensor(h=BENCH_H, w=BENCH_W, fov_deg=90.0)
     cache = os.path.join(cache_dir or tempfile.gettempdir(),
                          f"ptudes_torch_bench_{n_scans}_{BENCH_H}x"
                          f"{BENCH_W}_v1.npz")
     kin = dict(radius=BENCH_RADIUS, speed=BENCH_SPEED, ramp=BENCH_RAMP)
     ts = np.arange(n_scans + 1) * BENCH_DT
-    if os.path.exists(cache):
-        with np.load(cache) as z:
-            scans = z["scans"]
-    else:
-        sweep = circle_poses_at(ts, **kin)
+    sweep = circle_poses_at(ts, **kin)
+
+    def render():
         world = make_sim_world(seed=0, extent=30.0, n_boxes=40,
                                keepout_points=sweep[:, :3, 3])
-        scans = np.stack([
-            render_range_image(world, sweep[i], sensor, max_range=70.0,
-                               noise_std=0.01, seed=i,
-                               end_pose=sweep[i + 1])
-            for i in range(n_scans)])
-        tmp = cache + f".{os.getpid()}.npz"
-        np.savez_compressed(tmp, scans=scans)
-        os.replace(tmp, cache)
+        return render_frames(world, sweep, sensor, n_scans, 70.0, workers)
+
+    scans = _cached_frames(cache, render)
     scan_ts = ts[:n_scans] + BENCH_DT
     gt_mid = circle_poses_at(ts[:n_scans] + BENCH_DT / 2, **kin)
+    imu = imu_for_circle(np.arange(1, n_scans * 10 + 2) * 0.01, **kin)
+    return sensor, scans, scan_ts, gt_mid, imu
+
+
+# the endurance scene (bench_long.py:make_data): 1000 scans of a 64 x 512
+# sensor with a 45 degree vertical field of view on a 30 m circle at 2 m/s
+# (one lap and a re-entry into the mapped start), starting at rest with a
+# 1 s speed ramp, through a 70 m world of 300 boxes
+LONG_SCANS, LONG_H, LONG_W = 1000, 64, 512
+LONG_DT, LONG_RADIUS, LONG_SPEED, LONG_RAMP = 0.1, 30.0, 2.0, 1.0
+
+
+def long_scene(n_scans: int = LONG_SCANS, cache_dir: str | None = None,
+               workers: int | None = None):
+    """Render (or load from the temp-dir cache) the first ``n_scans``
+    frames of the endurance scene; returns what :func:`bench_scene`
+    returns. The world keeps out of the whole 1000-scan trajectory
+    whatever ``n_scans`` is, so frame i is the same for every ``n_scans``.
+    ``workers``: processes rendering (default ``os.cpu_count()``;
+    :func:`render_frames`)."""
+    if not 0 < n_scans <= LONG_SCANS:
+        raise ValueError(f"n_scans {n_scans}: the endurance scene has "
+                         f"{LONG_SCANS}")
+    sensor = make_sim_sensor(h=LONG_H, w=LONG_W, fov_deg=45.0)
+    cache = os.path.join(cache_dir or tempfile.gettempdir(),
+                         f"ptudes_torch_long_{n_scans}_{LONG_H}x"
+                         f"{LONG_W}_v1.npz")
+    kin = dict(radius=LONG_RADIUS, speed=LONG_SPEED, ramp=LONG_RAMP)
+    ts = np.arange(LONG_SCANS + 1) * LONG_DT
+    sweep = circle_poses_at(ts, **kin)
+
+    def render():
+        world = make_sim_world(seed=0, extent=70.0, n_boxes=300,
+                               keepout_points=sweep[:, :3, 3])
+        return render_frames(world, sweep, sensor, n_scans, 60.0,
+                             workers or os.cpu_count() or 1)
+
+    scans = _cached_frames(cache, render)
+    scan_ts = ts[:n_scans] + LONG_DT
+    gt_mid = circle_poses_at(ts[:n_scans] + LONG_DT / 2, **kin)
     imu = imu_for_circle(np.arange(1, n_scans * 10 + 2) * 0.01, **kin)
     return sensor, scans, scan_ts, gt_mid, imu
