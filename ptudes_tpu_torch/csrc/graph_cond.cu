@@ -30,6 +30,19 @@
 // predicate before an IF node (the executions of its body). It is the
 // last node of each WHILE body and the node before each IF node. Bound:
 // one launch's latency; it moves 1-4 bytes in and 4 bytes out.
+//
+// Device side, stage_stamp_kernel: the stage clock (models/graph.py:
+// StageClock). One thread reads %globaltimer (ns) and keeps, in an int64
+// buffer on the card, each stage's ns and executions: a stamp closes the
+// stage that is open (adding now - last to its ns) and opens `stage`
+// (counting it unless kNoCount). kStart (a step's first stamp) also adds
+// the gap from the previous step's end to a last accumulator and writes
+// the gap's two ends into a ring; kEnd closes the step. The stamps sit
+// between the nodes of a step, never inside a conditional body, so one
+// interval holds every repeat of a WHILE or IF node. While the buffer's
+// enabled word is 0 the kernel returns at once. kRead only writes the
+// timer (the host's calibration against its own clock). Bound: one
+// launch's latency; it moves a few words.
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,6 +57,47 @@ __global__ void graph_cond_kernel(const void* pred, int pred_int,
   *count += add_value ? static_cast<int>(value) : 1;
 }
 
+// the stage clock's layout (models/graph.py: StageClock's indices)
+constexpr int kEnabled = 0, kLast = 1, kOpen = 2, kStepEnd = 3, kGaps = 4,
+              kRead = 5, kAcc = 8;
+constexpr int kStartFlag = 1, kEndFlag = 2, kNoCount = 4, kReadFlag = 8;
+
+__device__ __forceinline__ long long global_timer() {
+  long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  return now;
+}
+
+__global__ void stage_stamp_kernel(long long* clk, int stage, int flags,
+                                   int n_stages, int ring) {
+  if (flags & kReadFlag) {
+    clk[kRead] = global_timer();
+    return;
+  }
+  if (clk[kEnabled] == 0) return;
+  const long long now = global_timer();
+  long long* acc = clk + kAcc;             // ns by stage, the gap last
+  long long* cnt = acc + n_stages + 1;     // executions, the same order
+  long long* gaps = cnt + n_stages + 1;    // ring of (end of step, start)
+  const long long open = clk[kOpen];
+  if (open >= 0) acc[open] += now - clk[kLast];
+  if ((flags & kStartFlag) && clk[kStepEnd] > 0) {
+    acc[n_stages] += now - clk[kStepEnd];
+    cnt[n_stages] += 1;
+    const long long slot = clk[kGaps]++ % ring;
+    gaps[2 * slot] = clk[kStepEnd];
+    gaps[2 * slot + 1] = now;
+  }
+  if (flags & kEndFlag) {
+    clk[kStepEnd] = now;
+    clk[kOpen] = -1;
+  } else {
+    clk[kOpen] = stage;
+    if (!(flags & kNoCount)) cnt[stage] += 1;
+  }
+  clk[kLast] = now;
+}
+
 }  // namespace
 
 // kind: 0 IF, 1 WHILE (models/graph.py:IF, WHILE)
@@ -56,11 +110,22 @@ extern "C" int ptudes_graph_cond(const void* pred, int pred_int, int* count,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Loads the predicate kernel's code now, outside any capture (lazy module
-// loading would otherwise load it at its first launch, inside one).
+extern "C" int ptudes_stage_stamp(long long* clk, int stage, int flags,
+                                  int n_stages, int ring,
+                                  cudaStream_t stream) {
+  if (stage < 0 || stage >= n_stages || ring < 1) return cudaErrorInvalidValue;
+  stage_stamp_kernel<<<1, 1, 0, stream>>>(clk, stage, flags, n_stages, ring);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Loads the predicate and stamp kernels' code now, outside any capture
+// (lazy module loading would otherwise load each at its first launch,
+// inside one).
 extern "C" int ptudes_graph_cond_load() {
   cudaFuncAttributes attr;
-  return static_cast<int>(cudaFuncGetAttributes(&attr, graph_cond_kernel));
+  cudaError_t err = cudaFuncGetAttributes(&attr, graph_cond_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaFuncGetAttributes(&attr, stage_stamp_kernel));
 }
 
 extern "C" int ptudes_stream_create(cudaStream_t* out) {

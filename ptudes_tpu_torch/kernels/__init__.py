@@ -20,6 +20,9 @@ history). ``graph_cond`` is the graph form's predicate kernel
 (``csrc/graph_cond.cu``, driven by ``models.graph``), which sets a CUDA
 graph conditional node from a flag on the card; the host functions beside
 it that build the nodes are in ``_HOST_SIGNATURES`` (:func:`host_call`).
+``stage_stamp`` beside it is the stage clock's stamp (``models.graph.
+StageClock``): it is not one of ``KERNELS``, so no count here moves with
+it.
 """
 from __future__ import annotations
 
@@ -56,6 +59,8 @@ _SIGNATURES = {
     "ptudes_plane_moments": [_P] * 6 + [_I, _I, _F, _P],
     "ptudes_graph_cond": [_P, _I, _P, _I, _U64, _P],
 }
+# launched, never counted: the stage clock's stamp
+_UNCOUNTED_SIGNATURES = {"ptudes_stage_stamp": [_P, _I, _I, _I, _I, _P]}
 # host functions (no launch): the conditional nodes' construction
 _HOST_SIGNATURES = {
     "ptudes_graph_cond_load": [],
@@ -167,6 +172,7 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         handle = ctypes.CDLL(build())
         for name, argtypes in (*_SIGNATURES.items(),
+                               *_UNCOUNTED_SIGNATURES.items(),
                                *_HOST_SIGNATURES.items()):
             fn = getattr(handle, name)
             fn.argtypes = argtypes
@@ -192,14 +198,16 @@ def ptr(t: torch.Tensor, what: str, dtype: torch.dtype = torch.float32,
 
 
 def launch(name: str, *args, variant: str | None = None) -> None:
-    """Launch kernel ``name`` on the current stream; count it, and its
-    ``variant`` too when given."""
+    """Launch kernel ``name`` on the current stream; count it (one of
+    ``KERNELS``), and its ``variant`` too when given."""
     handle = lib()
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(handle, f"ptudes_{name}")(*args, stream)
     if err != 0:
         msg = handle.ptudes_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg}")
+    if name not in LAUNCHES:
+        return
     LAUNCHES[name] += 1
     if variant is not None:
         VARIANT_LAUNCHES[variant] += 1

@@ -70,9 +70,22 @@ K5 builds, among them), the re-gathers and the sharded step's
 all-reduces to ``ops.icp.REFRESH_COUNTS`` and all of them to
 ``LAST_RUN["cond"]``. The warm-up's and the capture's own
 launches are not counted.
+
+The stage clock (:class:`StageClock`, ``utils.trace``) times the step by
+layer on the card. The step's code opens each of ``trace.STAGES`` with
+:func:`stage` (a runner's :meth:`StepGraph._body` its start and end), never
+inside a conditional body, so a stage's interval holds every repeat of
+its WHILE and IF nodes; a stamp is a node of the graph, always captured,
+that does nothing while the clock's switch on the card is off. The drivers
+turn the switch at their entry (:func:`traced`, a ``fill_`` when it
+changes), and with tracing on add the clock's totals to ``utils.trace``
+with the read that :meth:`Conditionals.fold_counts` makes. Eagerly the
+stamps are launched only inside a traced driver call (on the CPU a host
+twin keeps the same accounts on the host's clock).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import time
 from collections import Counter, OrderedDict
@@ -82,6 +95,7 @@ import torch.distributed as dist
 
 from .. import kernels
 from ..config import PipelineConfig
+from ..utils import trace
 
 # which form the last driver call ran: "graph" or "eager"; a graph run
 # also gives its runner's set-up host ms (warm-up and capture, which the
@@ -199,6 +213,196 @@ def copy_back(dst_tree, src_tree) -> int:
     return ops + len(todo)
 
 
+# ------------------------------------------------------ the stage clock
+
+_START, _END, _NO_COUNT, _READ = 1, 2, 4, 8    # csrc/graph_cond.cu's flags
+# the clock's words: its switch, the last stamp, the open stage, the last
+# step's end, the gaps written, the calibration read; from _ACC the ns and
+# executions by stage (the gap between steps last), then the gaps' ring
+_ENABLED, _LAST, _OPEN, _STEP_END, _GAPS, _READ_AT, _ACC = 0, 1, 2, 3, 4, 5, 8
+GAP_RING = 1024           # gaps between steps kept on the card between reads
+CALIBRATION_READS = 8
+_CLOCKS: dict = {}        # by device
+_LIVE = None              # the clock of the driver call running, traced
+
+
+class StageClock:
+    """The stage clock of one device: ns and executions by stage of the
+    scan step, and the gaps between steps, kept on the card by the stamp
+    kernel (``csrc/graph_cond.cu``: ``stage_stamp_kernel``); on the CPU its
+    host twin keeps the same buffer on the host's clock."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.n = len(trace.STAGES)
+        self.buf = torch.zeros(_ACC + 2 * (self.n + 1) + 2 * GAP_RING,
+                               dtype=torch.int64, device=device)
+        self.buf[_OPEN:_OPEN + 1].fill_(-1)
+        self.on = False
+        self.offset, self.offset_err = 0.0, 0.0
+        self._gaps_read = 0
+
+    def stamp(self, stage: int, flags: int) -> None:
+        """Open ``stage`` (with ``flags``) on the current stream, a node
+        where the stream captures; not counted in ``kernels.LAUNCHES``."""
+        if self.device.type == "cuda":
+            kernels.launch("stage_stamp", self.buf.data_ptr(), stage, flags,
+                           self.n, GAP_RING)
+        else:
+            self._twin(stage, flags, time.perf_counter_ns())
+
+    def _twin(self, stage: int, flags: int, now: int) -> None:
+        """``stage_stamp_kernel`` on the host."""
+        c, n = self.buf.tolist(), self.n
+        if flags & _READ:
+            c[_READ_AT] = now
+        elif c[_ENABLED]:
+            acc, cnt, ring = _ACC, _ACC + n + 1, _ACC + 2 * (n + 1)
+            if c[_OPEN] >= 0:
+                c[acc + c[_OPEN]] += now - c[_LAST]
+            if flags & _START and c[_STEP_END] > 0:
+                c[acc + n] += now - c[_STEP_END]
+                c[cnt + n] += 1
+                slot = ring + 2 * (c[_GAPS] % GAP_RING)
+                c[slot], c[slot + 1] = c[_STEP_END], now
+                c[_GAPS] += 1
+            if flags & _END:
+                c[_STEP_END], c[_OPEN] = now, -1
+            else:
+                c[_OPEN] = stage
+                if not flags & _NO_COUNT:
+                    c[cnt + stage] += 1
+            c[_LAST] = now
+        self.buf.copy_(torch.tensor(c))
+
+    def switch(self, on: bool) -> None:
+        """Turn the clock's switch (only where it changes): on, its counts
+        start again from zero, the next step's gap is not timed, and the
+        card's timer is calibrated against the host's."""
+        if on == self.on:
+            return
+        self.on = on
+        if on:
+            self._gaps_read = 0
+            self.buf[_LAST:_ACC + 2 * (self.n + 1)].zero_()
+            self.buf[_OPEN:_OPEN + 1].fill_(-1)
+        self.buf[_ENABLED:_ENABLED + 1].fill_(int(on))
+        if on and self.device.type == "cuda":
+            samples = []
+            for _ in range(CALIBRATION_READS):
+                t0 = time.perf_counter_ns()
+                self.stamp(0, _READ)
+                dev = _read(self.buf[_READ_AT:_READ_AT + 1])[0]
+                samples.append((t0, dev, time.perf_counter_ns()))
+            self.offset, self.offset_err = trace.calibrate(samples)
+
+    def fold(self, vals: list | None = None) -> None:
+        """Add the counts since the last fold to ``utils.trace`` (``vals``:
+        the buffer as read; else it is read here) and zero them."""
+        vals = _read(self.buf) if vals is None else vals
+        n = self.n
+        names = (*trace.STAGES, trace.BETWEEN)
+        acc, cnt = vals[_ACC:_ACC + n + 1], vals[_ACC + n + 1:_ACC + 2 * n + 2]
+        trace.add_stages({k: (cnt[i], acc[i]) for i, k in enumerate(names)
+                          if cnt[i] or acc[i]})
+        ring, written = _ACC + 2 * (n + 1), vals[_GAPS]
+        first = max(self._gaps_read, written - GAP_RING)
+        trace.add_gaps([
+            (vals[ring + 2 * (j % GAP_RING)] - self.offset,
+             vals[ring + 2 * (j % GAP_RING) + 1] - self.offset)
+            for j in range(first, written)], first - self._gaps_read)
+        self._gaps_read = written
+        self.buf[_ACC:_ACC + 2 * (n + 1)].zero_()
+
+
+def _read(t: torch.Tensor) -> list:
+    """``t`` as a list; on the card one host read, which the sync check
+    (``set_sync_debug_mode``) lets pass."""
+    if t.device.type != "cuda":
+        return t.tolist()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        return t.tolist()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def _device_key(device: torch.device) -> tuple:
+    if device.type == "cuda":
+        return ("cuda", torch.cuda.current_device() if device.index is None
+                else device.index)
+    return (device.type, 0)
+
+
+def stage_clock(device: torch.device) -> StageClock:
+    """The stage clock of ``device``, made at first use."""
+    key = _device_key(torch.device(device))
+    if key not in _CLOCKS:
+        _CLOCKS[key] = StageClock(torch.device(key[0], key[1])
+                                  if key[0] == "cuda" else torch.device("cpu"))
+    return _CLOCKS[key]
+
+
+@contextlib.contextmanager
+def traced(device: torch.device, *, fold: bool = False):
+    """A driver call: at its entry tracing's switch is read once
+    (``utils.trace.check``) and set on ``device``'s stage clock where it
+    changed (a clock is made only when tracing is on, or by a capture).
+    While tracing is on, the call's eager steps stamp that clock, its
+    runner's :meth:`Conditionals.fold_counts` reads it, and with ``fold``
+    it is read at the call's end (the eager loops); outside a driver call
+    nothing stamps or reads it. Yields the switch."""
+    global _LIVE
+    on = trace.check()
+    key = _device_key(torch.device(device))
+    clock = stage_clock(device) if on else _CLOCKS.get(key)
+    if clock is not None:
+        clock.switch(on)
+    outer, _LIVE = _LIVE, (clock if on else None)
+    try:
+        yield on
+        if fold and _LIVE is not None:
+            _LIVE.fold()
+    finally:
+        _LIVE = outer
+
+
+def stage(name: str, *, count: bool = True) -> None:
+    """Open the step's stage ``name`` (one of ``utils.trace.STAGES``),
+    closing the one open: a stamp node in a capture (always captured), a
+    stamp while tracing is on otherwise, nothing in a runner's warm-up.
+    ``count=False`` opens it again without counting an execution (the
+    output row's part of ``graph.io``). Never inside a conditional body."""
+    _stamp(trace.STAGES.index(name), 0 if count else _NO_COUNT)
+
+
+def step_start() -> None:
+    """A step's first stamp: opens ``graph.io`` and times the gap since the
+    last step's end."""
+    _stamp(0, _START)
+
+
+def step_end() -> None:
+    """A step's last stamp: closes its open stage."""
+    _stamp(0, _END)
+
+
+def _stamp(idx: int, flags: int) -> None:
+    r = _ACTIVE
+    if r is not None:
+        if r._mode == "warm":
+            return
+        if r._depth:
+            raise RuntimeError("a stage opened inside a conditional body")
+        if r._mode == "capture":
+            r.clock.stamp(idx, flags)
+            r._stamps += 1
+            return
+    if _LIVE is not None:
+        _LIVE.stamp(idx, flags)
+
+
 # ------------------------------------------------- conditional nodes
 
 IF, WHILE = 0, 1          # csrc/graph_cond.cu's node kinds
@@ -300,6 +504,8 @@ class Conditionals:
                                     device=device)
         self._host_counts: Counter = Counter()
         self.cond: dict[str, int] = {}   # the last run's counts by name
+        self.clock = stage_clock(device) if capture else None
+        self._stamps = 0      # stamps of the step being captured
 
     def _slot(self, key) -> int:
         if key not in self._slots:
@@ -324,7 +530,15 @@ class Conditionals:
             self._capture_cond(kind, name, pred, body)
         elif self._mode == "warm":
             self._warm_cond(kind, pred, body)
-        elif kind == IF:
+        else:
+            self._depth += 1
+            try:
+                self._static_cond(kind, name, pred, body)
+            finally:
+                self._depth -= 1
+
+    def _static_cond(self, kind: int, name: str, pred, body) -> None:
+        if kind == IF:
             if bool(pred):
                 self._host_counts[name] += 1
                 body()
@@ -414,16 +628,25 @@ class Conditionals:
         which ``set_sync_debug_mode`` allows here), add each captured
         body's launches times its executions to ``kernels.LAUNCHES``, the
         re-gathers and all-reduces to ``ops.icp.REFRESH_COUNTS``, and keep
-        the counts by name in ``self.cond``."""
+        the counts by name in ``self.cond``. While tracing is on the same
+        read takes the stage clock's counts to ``utils.trace``."""
+        with trace.span("graph.fold_counts"):
+            self._fold_counts()
+
+    def _fold_counts(self) -> None:
         from ..ops import icp
         cond = Counter(self._host_counts)
-        if self.capture and self._slots:
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode(0)
-            try:
-                vals = self.counters.tolist()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
+        clock = _LIVE if _LIVE is not None and _LIVE.device == self.device \
+            else None
+        read = self.capture and bool(self._slots)
+        if clock is not None or read:
+            parts = ([clock.buf] if clock is not None else []) + (
+                [self.counters.to(torch.int64)] if read else [])
+            vals = _read(torch.cat(parts) if len(parts) > 1 else parts[0])
+            if clock is not None:
+                clock.fold(vals[:len(clock.buf)])
+                vals = vals[len(clock.buf):]
+        if read:
             for key, slot in self._slots.items():
                 if key[0] == "count":
                     cond[key[1]] += vals[slot]
@@ -497,25 +720,33 @@ class StepGraph(Conditionals):
     def _body(self, step, mode: str) -> None:
         global _ACTIVE
         self._mode, _ACTIVE = mode, self
+        self._stamps = 0
         try:
+            step_start()
             batch, ops = self.scan_inputs()
             new_state, *outs = step(self.state, batch)
             ops += copy_back(self.state, new_state)
             ops += self.emit(outs)
+            step_end()
         finally:
             self._mode, _ACTIVE = None, None
-        self.own_ops = ops
+        self.own_ops = ops + self._stamps
 
     def add(self, name: str, step) -> None:
         """Make ``step`` the graph ``name``: warmed up on the capture stream
         with every buffer given back, then captured (with ``capture=False``
         only kept). Host syncs are allowed here: this is set-up. The pool's
         size is the card's peak allocation over the capture (its peak
-        counter is reset first). A failed capture raises."""
+        counter is reset first). A failed capture raises. ``capture_ms``
+        adds the host time of the ``graph.capture`` span."""
         if not self.capture:
             self._steps[name] = step
             return
-        t0 = time.perf_counter()
+        with trace.span("graph.capture", timed=True) as sp:
+            self._add(name, step)
+        self.capture_ms += sp.ns * 1e-6
+
+    def _add(self, name: str, step) -> None:
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(0)
         saved = _counts()
@@ -554,7 +785,6 @@ class StepGraph(Conditionals):
         finally:
             _set_counts(saved)
             torch.cuda.set_sync_debug_mode(mode)
-        self.capture_ms += (time.perf_counter() - t0) * 1e3
 
     def has(self, name: str) -> bool:
         return name in self._steps
@@ -629,8 +859,9 @@ class SequenceGraph(StepGraph):
         this call's."""
         self.replays = {}
         self.begin_counts()
-        for name in schedule:
-            self.step(name)
+        with trace.span("graph.replay"):
+            for name in schedule:
+                self.step(name)
         self.fold_counts()
         return self.outs
 
@@ -667,29 +898,37 @@ def run_scans(key, build, state, batches, *, axis: int = 0,
     ``build()``'s steps are captured over copies of ``state`` and
     ``batches`` and the runner kept (``RUNNERS``, the last ``CACHE_SIZE``).
     Records the run in ``LAST_RUN``; returns copies of the final state and
-    of the outputs stacked on the scan axis."""
-    full = (key, capture, axis, str(leaves(state)[0].device),
-            signature(state), signature(batches))
-    g = RUNNERS.pop(full, None)
-    cached = g is not None
-    if cached:
-        g.load(state, batches)
-    else:
-        boot, steady, k = build()
-        g = SequenceGraph(state, tree_map(torch.clone, batches), axis=axis,
-                          capture=capture)
-        if k:
-            g.add("boot", boot)
-        if g.n > k:
-            g.add("steady", steady)
-        g.schedule = ["boot"] * k + ["steady"] * (g.n - k)
-    RUNNERS[full] = g
-    while len(RUNNERS) > CACHE_SIZE:
-        RUNNERS.popitem(last=False)
-    outs = g.run(g.schedule)
-    LAST_RUN.clear()
-    LAST_RUN.update(g.record(), cached=cached)
-    return tree_map(torch.clone, g.state), tree_map(torch.clone, outs)
+    of the outputs stacked on the scan axis. A driver call
+    (:func:`traced`); its spans: ``graph.run_scans`` around
+    ``graph.load`` (or ``graph.capture``), ``graph.replay``,
+    ``graph.fold_counts`` and ``graph.outputs``."""
+    device = leaves(state)[0].device
+    with traced(device), trace.span("graph.run_scans"):
+        full = (key, capture, axis, str(device), signature(state),
+                signature(batches))
+        g = RUNNERS.pop(full, None)
+        cached = g is not None
+        if cached:
+            with trace.span("graph.load"):
+                g.load(state, batches)
+        else:
+            boot, steady, k = build()
+            g = SequenceGraph(state, tree_map(torch.clone, batches),
+                              axis=axis, capture=capture)
+            if k:
+                g.add("boot", boot)
+            if g.n > k:
+                g.add("steady", steady)
+            g.schedule = ["boot"] * k + ["steady"] * (g.n - k)
+        RUNNERS[full] = g
+        while len(RUNNERS) > CACHE_SIZE:
+            RUNNERS.popitem(last=False)
+        outs = g.run(g.schedule)
+        LAST_RUN.clear()
+        LAST_RUN.update(g.record(), cached=cached)
+        with trace.span("graph.outputs"):
+            return (tree_map(torch.clone, g.state),
+                    tree_map(torch.clone, outs))
 
 
 class OnlineGraph(StepGraph):

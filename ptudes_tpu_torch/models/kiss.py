@@ -31,6 +31,7 @@ from ..config import Capacity, KissConfig
 from ..geom import se3
 from ..ops import deskew as deskew_ops
 from ..ops import hashmap, icp, voxel
+from . import graph as graph_mod
 
 
 class KissState(NamedTuple):
@@ -192,6 +193,7 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
                   prior_rot_weight=cfg.prior_rot_weight,
                   prior_trans_weight=cfg.prior_trans_weight,
                   neighborhood=cfg.nn_neighborhood)
+    graph_mod.stage("icp")
     if cfg.nn_mode == "cached":
         src_icp, mask_icp = source, source_mask
         if group is not None:
@@ -214,6 +216,7 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
             source, source_mask, state.local_map, guess, 3.0 * sigma,
             sigma / 3.0, approx=cfg.approx_nn, **common)
     new_pose = res.pose
+    graph_mod.stage("map.insert")
 
     err = model_error(res.dev_t, res.dev_r, cfg.max_range)
     accum = err > cfg.min_motion_th
@@ -320,6 +323,7 @@ def register_scan_batched(state: KissState, pts: torch.Tensor,
         prior_trans_weight=cfg.prior_trans_weight,
         neighborhood=cfg.nn_neighborhood, n_voxels=cfg.nn_voxels,
         plane_radius=cfg.plane_fit_radius, form=cfg.icp_form)
+    graph_mod.stage("icp")
     if cfg.nn_refresh_drift > 0.0:
         res = icp.register_frames_refresh_batched(
             source, source_mask, state.local_map, guess, 3.0 * sigma,
@@ -329,6 +333,7 @@ def register_scan_batched(state: KissState, pts: torch.Tensor,
             source, source_mask, state.local_map, guess, 3.0 * sigma,
             sigma / 3.0, **common)
     new_pose = res.pose
+    graph_mod.stage("map.insert")
 
     err = model_error(res.dev_t, res.dev_r, cfg.max_range)
     accum = err > cfg.min_motion_th

@@ -25,6 +25,7 @@ import torch
 
 from ..config import PipelineConfig, check_supported
 from ..ops.projection import XyzLut, scan_to_points
+from ..utils import trace
 from . import esekf, kiss
 from . import graph as graph_mod
 from .esekf import EkfState, FilterLog, Imu
@@ -186,12 +187,14 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
 
     def scan_step(state: LioState, batch: ScanBatch,
                   map_slot_base: torch.Tensor | None = None):
+        graph_mod.stage("ekf.predict")
         res = esekf.process_imu_batch(
             state.ekf, batch.imu, batch.imu_valid, cfg=cfg.ekf,
             want_twist=need_twist, log=log)
         res = res if need_twist or log else (res,)
         ekf1 = res[0]
         twist = res[1] if need_twist else None
+        graph_mod.stage("frontend")
         pts, mask, ts01 = scan_to_points(lut, batch.range_m, decimate=d)
         has_imu = torch.any(batch.imu_valid)
         guess = None                          # "kiss": constant velocity
@@ -206,8 +209,10 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
             insert_overflow=insert_overflow, map_frozen=cfg.map_frozen,
             defer_insert=defer_insert, map_slot_base=map_slot_base,
             map_logical_capacity=map_logical_capacity, group=group)
+        graph_mod.stage("ekf.update")
         ekf2 = esekf.process_pose(ekf1, pose, cfg=cfg.ekf)
         ekf_out = esekf.masked_update(ekf1, ekf2, has_imu)
+        graph_mod.stage("graph.io", count=False)
         out = LioOut(
             kiss_pose=torch.where(has_imu, pose, state.kiss.pose),
             ekf_pose=esekf.pose_mat(ekf_out), scan_valid=has_imu,
@@ -289,11 +294,14 @@ def run_sequence(state: LioState, batches: ScanBatch, lut: XyzLut, *,
     n = batches.range_m.shape[0]
     boot, steady, k = sequence_steps(lut, cfg, n, log, group)
     rows, logs = [], []
-    for i in range(n):
-        state, row, *flog = (boot if i < k else steady)(state,
-                                                        scan_at(batches, i))
-        rows.append(row)
-        logs += flog
+    with graph_mod.traced(batches.range_m.device, fold=True):
+        for i in range(n):
+            graph_mod.step_start()
+            state, row, *flog = (boot if i < k else steady)(
+                state, scan_at(batches, i))
+            graph_mod.step_end()
+            rows.append(row)
+            logs += flog
     graph_mod.ran_eagerly()
     return state, sequence_out(torch.stack(rows), FilterLog(
         *map(torch.stack, zip(*logs))) if log else None)
@@ -350,8 +358,18 @@ def build_batches(cfg: PipelineConfig, range_m, scan_ts, imu_lacc, imu_avel,
     (scan_ts[i-1], scan_ts[i]] (first scan: everything up to its
     timestamp), padded or truncated to ``cfg.max_imu_per_scan``;
     timestamps rebased in f64 before the f32 cast. The tensors land on
-    ``device``: the card unless the caller asks for another."""
-    device = _device(device)
+    ``device``: the card unless the caller asks for another. Reads
+    tracing's switch; its span is ``lio.build_batches``."""
+    trace.check()
+    with trace.span("lio.build_batches"):
+        return _build_batches(cfg, range_m, scan_ts, imu_lacc, imu_avel,
+                              imu_ts, guess_poses, time_origin, prev_scan_ts,
+                              _device(device))
+
+
+def _build_batches(cfg, range_m, scan_ts, imu_lacc, imu_avel, imu_ts,
+                   guess_poses, time_origin, prev_scan_ts, device
+                   ) -> ScanBatch:
     scan_ts = np.asarray(scan_ts, np.float64)
     imu_ts = np.asarray(imu_ts, np.float64)
     t0 = (_time_origin_fn(scan_ts, imu_ts) if time_origin is None

@@ -36,6 +36,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..ops.projection import XyzLut
+from ..utils import trace
 from . import graph as graph_mod
 from . import lio
 from .esekf import Imu
@@ -166,7 +167,21 @@ class LioOnline:
         Consumes the buffered IMU samples in (prev_scan_ts, ts] — the
         reference's interleaving and ``lio.build_batches``' windowing — and
         advances the state on the device. Returns the scan's ``LioOut``,
-        its tensors on the device (read them only when needed)."""
+        its tensors on the device (read them only when needed). Reads
+        tracing's switch; its span is ``online.push_scan``, around
+        ``online.imu_window`` and, in the graph form, ``online.wait_copy``,
+        ``online.stage``, ``online.replay`` and ``online.read_row``."""
+        with graph_mod.traced(self.device, fold=self._graph is None), \
+                trace.span("online.push_scan"):
+            with trace.span("online.imu_window"):
+                host, boot = self._window(range_m, ts)
+            if self._graph is not None:
+                return self._replay("boot" if boot else "steady", host)
+            return self._eager(host, boot)
+
+    def _window(self, range_m, ts) -> tuple[tuple, bool]:
+        """The scan's host arrays (range image, time, IMU window) and
+        whether it takes the boot step."""
         t1 = self._rebase(ts)
         k = self.cfg.max_imu_per_scan
         sel = [s for s in self._imu_buf if self._prev_scan_ts < s[2] <= t1]
@@ -188,22 +203,26 @@ class LioOnline:
         boot = not self.cfg.map_frozen and (
             self._boot_scans < 0 or self._n_scans < self._boot_scans)
         self._n_scans += 1
-        host = (np.asarray(range_m, np.float32), np.float32(t1), lacc, avel,
-                its, valid)
-        if self._graph is not None:
-            return self._replay("boot" if boot else "steady", host)
+        return (np.asarray(range_m, np.float32), np.float32(t1), lacc, avel,
+                its, valid), boot
+
+    def _eager(self, host: tuple, boot: bool) -> lio.LioOut:
+        """The eager form of one scan."""
+        range_m, t1, lacc, avel, its, valid = host
 
         def t(x, dtype=torch.float32):
             return torch.as_tensor(np.asarray(x), dtype=dtype,
                                    device=self.device)
 
         batch = lio.ScanBatch(
-            range_m=t(host[0]), scan_ts=t(host[1]),
+            range_m=t(range_m), scan_ts=t(t1),
             imu=Imu(lacc=t(lacc), avel=t(avel), ts=t(its)),
             imu_valid=t(valid, torch.bool),
             guess_pose=torch.eye(4, dtype=torch.float32, device=self.device))
+        graph_mod.step_start()
         self._state, row = (self._step_boot if boot
                             else self._step_steady)(self._state, batch)
+        graph_mod.step_end()
         return lio.unpack_out(row)
 
     def _replay(self, name: str, host: tuple) -> lio.LioOut:
@@ -212,20 +231,24 @@ class LioOnline:
         copied to the static inputs without a host sync, then the step
         ``name`` replayed (captured first at its first scan)."""
         g = self._graph
-        if self._copied is not None:
-            self._copied.synchronize()
-        staging = graph_mod.leaves(self._staging)
-        for dst, src in zip(staging, host):
-            dst.numpy()[...] = src
-        for dst, src in zip(graph_mod.leaves(
-                g.inputs._replace(guess_pose=None)), staging):
-            dst.copy_(src, non_blocking=True)
-        if g.capture:
-            self._copied = torch.cuda.Event()
-            self._copied.record()
+        with trace.span("online.wait_copy"):
+            if self._copied is not None:
+                self._copied.synchronize()
+        with trace.span("online.stage"):
+            staging = graph_mod.leaves(self._staging)
+            for dst, src in zip(staging, host):
+                dst.numpy()[...] = src
+            for dst, src in zip(graph_mod.leaves(
+                    g.inputs._replace(guess_pose=None)), staging):
+                dst.copy_(src, non_blocking=True)
+            if g.capture:
+                self._copied = torch.cuda.Event()
+                self._copied.record()
         if not g.has(name):
             g.add(name, self._step_boot if name == "boot"
                   else self._step_steady)
             graph_mod.LAST_RUN.update(g.record())
-        g.step(name)
-        return lio.unpack_out(g.row.clone())
+        with trace.span("online.replay"):
+            g.step(name)
+        with trace.span("online.read_row"):
+            return lio.unpack_out(g.row.clone())

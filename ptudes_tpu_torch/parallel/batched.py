@@ -34,6 +34,7 @@ from ..models import esekf, kiss, lio
 from ..models import graph as graph_mod
 from ..ops import hashmap
 from ..ops.projection import XyzLut, scan_to_points
+from ..utils import trace
 
 
 def check_config(cfg: PipelineConfig) -> None:
@@ -90,11 +91,13 @@ def make_batched_step(lut: XyzLut, cfg: PipelineConfig, replicas: int,
                     else cfg.cap.max_new_per_scan)
 
     def step(state: lio.LioState, batch: lio.ScanBatch):
+        graph_mod.stage("ekf.predict")
         res = esekf.process_imu_batch(
             state.ekf, batch.imu, batch.imu_valid, cfg=cfg.ekf,
             want_twist=need_twist, log=log)
         res = res if need_twist or log else (res,)
         ekf1 = res[0]
+        graph_mod.stage("frontend")
         pts, mask, ts01 = scan_to_points(lut, batch.range_m, decimate=d)
         has_imu = torch.any(batch.imu_valid, -1)
         guess = None                          # "kiss": constant velocity
@@ -116,8 +119,10 @@ def make_batched_step(lut: XyzLut, cfg: PipelineConfig, replicas: int,
             flat, dfr.origin, dfr.evict_r2,
             logical_capacity=logical_capacity)
         aux = aux._replace(map_points=hashmap.replica_points(flat, replicas))
+        graph_mod.stage("ekf.update")
         ekf2 = esekf.process_pose(ekf1, pose, cfg=cfg.ekf)
         ekf_out = esekf.masked_update(ekf1, ekf2, has_imu)
+        graph_mod.stage("graph.io", count=False)
         out = lio.LioOut(
             kiss_pose=torch.where(has_imu[:, None, None], pose,
                                   state.kiss.pose),
@@ -197,11 +202,14 @@ def run_sequence_batched(states: lio.LioState, batches: lio.ScanBatch,
     state = flat_states(states)
     boot, steady, k = sequence_steps(lut, cfg, b, c, n, log)
     rows, logs = [], []
-    for i in range(n):
-        state, row, *flog = (boot if i < k else steady)(state,
-                                                        scan_of(batches, i))
-        rows.append(row)
-        logs += flog
+    with graph_mod.traced(batches.range_m.device, fold=True):
+        for i in range(n):
+            graph_mod.step_start()
+            state, row, *flog = (boot if i < k else steady)(
+                state, scan_of(batches, i))
+            graph_mod.step_end()
+            rows.append(row)
+            logs += flog
     graph_mod.ran_eagerly()
     return stacked_states(state, b), lio.sequence_out(
         torch.stack(rows, 1), esekf.FilterLog(
@@ -218,8 +226,12 @@ def graph_run(states: lio.LioState, batches: lio.ScanBatch, lut: XyzLut, *,
     the capture (the CPU tests)."""
     b, c = states.kiss.local_map.meta.shape[:2]
     n = batches.range_m.shape[1]
+    trace.check()
+    with trace.span("batched.flat_states"):
+        flat = flat_states(states)
     state, (rows, *flog) = graph_mod.run_scans(
         ("batched", cfg, log, graph_mod.tensor_key(lut)),
-        lambda: sequence_steps(lut, cfg, b, c, n, log), flat_states(states),
-        batches, axis=1, capture=capture)
-    return stacked_states(state, b), lio.sequence_out(rows, *flog)
+        lambda: sequence_steps(lut, cfg, b, c, n, log), flat, batches,
+        axis=1, capture=capture)
+    with trace.span("batched.stacked_states"):
+        return stacked_states(state, b), lio.sequence_out(rows, *flog)
