@@ -45,7 +45,6 @@ from ptudes_tpu_torch.models import lio, sim  # noqa: E402
 from ptudes_tpu_torch.utils import benchrun, convert, metrics  # noqa: E402
 
 CHUNK = 250
-ONCE_A_SCAN = ("ekf_predict", "ekf_update", "gn_prep", "icp_loop")
 
 
 def say(msg: str) -> None:
@@ -67,8 +66,8 @@ def chunk_batches(cfg, scans, scan_ts, imu, imu_ts, chunk: int, dev):
 def run_chunks(cfg, state, all_batches, lut, dev):
     """Every chunk in turn from ``state``, the state carried: each chunk's
     :func:`benchrun.timed` record, checked to have run as a graph on a
-    card (chunks after the first on the kept runner) and K1-K4 once a
-    scan; the outputs copied to numpy after each chunk's synchronize."""
+    card (chunks after the first on the kept runner), K1-K4 and K8 once
+    a scan and K9 twice; the outputs copied to numpy after each chunk's synchronize."""
     cuda = dev.type == "cuda"
     runs = []
     for c, batches in enumerate(all_batches):
@@ -78,7 +77,7 @@ def run_chunks(cfg, state, all_batches, lut, dev):
                             cached=c > 0)
         n = batches.range_m.shape[0]
         if cuda:
-            benchrun.check_launches(run, n, ONCE_A_SCAN)
+            benchrun.check_launches(run, n, benchrun.BENCH_LAUNCHES)
         state, out = run["result"]
         run["out"] = dict(
             kiss_pose=out.kiss_pose.double().cpu().numpy(),

@@ -7,14 +7,14 @@ one CUDA card — the port of ``bench.py``, which imports no JAX.
 The bench scene (``sim.bench_scene``: 50 scans of 128 x 1024 on an 8 m
 circle, rendered over a process pool into the temp dir, cached) runs at
 ``config.bench_config()`` through ``lio.run_sequence`` in its default
-form on the card, a replayed CUDA graph (K1-K4 once a scan). The first
-call is set-up: the graph runner's warm-up and capture, reported as
-``compile_s``. Then ``--runs`` calls of the kept runner are timed, each
-from a synchronize to a synchronize with host syncs made errors,
-alternating with eager calls (graph, eager; eager, graph; ...): the host
-clock varies between runs, so only alternating runs compare. ``value`` is
-the median graph scans/s; each run and the eager median are printed
-beside it. Kernel build and scene render are timed apart.
+form on the card, a replayed CUDA graph (K1-K4 and K8 once a scan, K9
+twice). The first call is set-up: the graph runner's warm-up and
+capture, reported as ``compile_s``. Then ``--runs`` calls of the kept
+runner are timed, each from a synchronize to a synchronize with host
+syncs made errors, alternating with eager calls (graph, eager; eager,
+graph; ...): the host clock varies between runs, so only alternating runs
+compare. ``value`` is the median graph scans/s; each run and the eager
+median are printed beside it. Kernel build and scene render are timed apart.
 
 ``vs_baseline``: ratio against ``tools/oracle_kiss.py``'s OracleLio, the
 policy-identical f64 numpy LIO oracle, on the host's CPU over the same
@@ -51,7 +51,6 @@ REF_POSES = os.path.join(HERE, "tests", "data", "bench_jax_poses.txt")
 ATE_GATE_M = 0.02    # bench.py's absolute gate
 REL_GATE = 1.05      # bench.py's gate against the oracle's ATE
 POSE_GATE_M = 0.02   # each pose against the JAX package's
-ONCE_A_SCAN = ("ekf_predict", "ekf_update", "gn_prep", "icp_loop")
 
 
 def say(msg: str) -> None:
@@ -63,7 +62,7 @@ def sequence_runs(cfg, batches, lut, dev, runs: int) -> dict:
     calls of the kept runner alternating with eager calls (on the CPU,
     which has no graph, ``runs`` eager calls). Each call starts from a
     fresh state made before the clock starts; each is checked to have run
-    in its form, K1-K4 once a scan on a card."""
+    in its form, K1-K4 and K8 once a scan and K9 twice on a card."""
     n = batches.range_m.shape[0]
     cuda = dev.type == "cuda"
 
@@ -74,7 +73,7 @@ def sequence_runs(cfg, batches, lut, dev, runs: int) -> dict:
             graph=None if form == "graph" else False), dev)
         benchrun.check_form(run, form, cached)
         if cuda:
-            benchrun.check_launches(run, n, ONCE_A_SCAN)
+            benchrun.check_launches(run, n, benchrun.BENCH_LAUNCHES)
         return run
 
     setup = call("graph" if cuda else "eager", cached=False)
@@ -137,7 +136,7 @@ def replica_runs(cfg, batches, lut, dev, counts, runs: int) -> dict:
         for run in timed:
             benchrun.check_form(run, form, cached=True)
             if dev.type == "cuda":
-                benchrun.check_launches(run, n, ONCE_A_SCAN)
+                benchrun.check_launches(run, n, benchrun.BENCH_LAUNCHES)
         rows[f"x{r}"] = dict(
             s=[run["s"] for run in timed],
             scans_per_sec=benchrun.median([r * n / run["s"]

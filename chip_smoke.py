@@ -37,7 +37,9 @@ Phases, each reported on its own line:
   4. the bench path: ``lio.run_sequence`` at ``bench_config()`` on the
      bench scene (rendered by the port's numpy sim, cached in the temp
      dir), once to warm up and once timed with host syncs made errors;
-     K1-K4 must each launch once per scan, ATE RMSE <= 0.02 m, and every
+     K1-K4 must each launch once per scan (and on every path with
+     ``icp_form="cuda"`` the front end's K8 once and K9 twice a step, phase
+     12), ATE RMSE <= 0.02 m, and every
      pose within 0.02 m of the JAX reference poses
      (``tests/data/bench_jax_poses.txt``); then the same run with every
      kernel replaced by its twin;
@@ -169,6 +171,17 @@ Phases, each reported on its own line:
      ``viz --stream-dir`` and a plot flag refused without matplotlib; one
      JSON line of phase 11's figures. ``--phases 11`` runs phases 1, 2, 4
      and 11 alone.
+ 12. the grid front end's kernels (``csrc/voxel_grid.cu``): (a) K8 (the
+     window pre-dedup) and K9 (the first-in-voxel sort keys) bit for bit
+     against their twins at both configurations' voxel sizes and range
+     limits, at B = 1 and B = 4 (each replica bit-equal to its own
+     launch), on the scene's full and W/2 grids and on random points with
+     masked pixels at row 0 and columns 0 and W-1, then both first-in-voxel
+     passes in both forms; their device us a launch and bounds; (b)
+     ``bench_config()`` on 8 scans as replayed graphs of
+     ``lio.run_sequence``, ``run_sequence_batched`` (B = 2) and
+     ``LioOnline``: K8 once and K9 twice a scan. ``--phases 12`` runs
+     phases 1, 2 and 12 alone.
 Phase 3 also holds K3's point mode (``loss="point"``: the instance without
 the fit) bit for bit against its twin, K4 on its point rows and K5 on
 point rows at the CLI shapes; phase 2 prints the SASS instruction count of
@@ -235,7 +248,7 @@ from ptudes_tpu_torch.geom import se3, so3
 from ptudes_tpu_torch.models import esekf, graph, kiss, lio, sim
 from ptudes_tpu_torch.models.online import LioOnline
 from ptudes_tpu_torch.ops import (cuda_ekf, cuda_gather, cuda_gn, cuda_icp,
-                                  hashmap, icp)
+                                  cuda_voxel, hashmap, icp)
 from ptudes_tpu_torch.ops import voxel
 from ptudes_tpu_torch.ops.projection import scan_to_points
 from ptudes_tpu_torch.parallel import batched, replay
@@ -263,6 +276,11 @@ REPLACES = {
     # kernel, the port of the refresh loop's jax.lax.while_loop and its
     # lax.cond, compiled into the JAX package's scan program
     "graph_cond": ("graph_cond.cu", "ptudes_tpu/ops/icp.py:519"),
+    # the grid front end's voxel hashing: no Pallas kernel, the JAX
+    # package's XLA ops (the window pre-dedup; the hash and drop key of the
+    # first-in-voxel sort)
+    "grid_prededup": ("voxel_grid.cu", "ptudes_tpu/ops/voxel.py:65"),
+    "voxel_key": ("voxel_grid.cu", "ptudes_tpu/ops/voxel.py:247"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -1797,20 +1815,27 @@ def timed_run(c, batches, lut, dev, log=False, state=None, form=False):
         st, batches, lut, cfg=c, log=log, graph=f), form, state)
 
 
+def load_scene(n_scans: int, render=None):
+    """The bench scene (``render``: the child process rendering it into its
+    cache, waited for first)."""
+    t0 = time.monotonic()
+    if render is not None:
+        check(render.wait() == 0, f"the scene render failed (rc "
+              f"{render.returncode})")
+    scene = sim.bench_scene(n_scans)
+    say(f"  scene: {n_scans} scans of {scene[1].shape[1]}x"
+        f"{scene[1].shape[2]} ready in {time.monotonic() - t0:.1f} s")
+    return scene
+
+
 def run_main_path(n_scans: int, dev, render=None):
     """Phase 4 (``render``: the child process rendering the scene into its
     cache, waited for first); returns each kernel's launches in the timed
     run, the scene, the timed run's output and scans/s, and the largest
     difference between the warm-up's and the timed run's poses (0: they
     repeat bit for bit)."""
-    t0 = time.monotonic()
-    if render is not None:
-        check(render.wait() == 0, f"the scene render failed (rc "
-              f"{render.returncode})")
-    scene = sim.bench_scene(n_scans)
+    scene = load_scene(n_scans, render)
     sensor, scans, scan_ts, gt_mid, imu = scene
-    say(f"  scene: {n_scans} scans of {scans.shape[1]}x{scans.shape[2]} "
-        f"ready in {time.monotonic() - t0:.1f} s")
     cfg = config.bench_config()
     lut = convert.lut_from_numpy(sensor.lut, dev)
     batches = lio.build_batches(cfg, scans, scan_ts, imu.lacc, imu.avel,
@@ -1821,11 +1846,12 @@ def run_main_path(n_scans: int, dev, render=None):
     out, dt, launches = first["out"], first["s"], first["launches"]
     repeat = max(float((getattr(warm, f) - getattr(out, f)).abs().max())
                  for f in ("kiss_pose", "ekf_pose"))
+    # K1-K4 and K8 once a scan, K9 twice; K5 (refresh), K6 (fused
+    # gather), K7 never
+    want = once_a_scan("ekf_predict", "ekf_update", "gn_prep",
+                       "icp_loop")(n_scans, 0)
     for name, count in launches.items():
-        # K1-K4 once a scan; K5 (refresh), K6 (fused gather), K7 never
-        want = n_scans if name in ("ekf_predict", "ekf_update", "gn_prep",
-                                   "icp_loop") else 0
-        check(count == want,
+        check(count == want.get(name, 0),
               f"{name} launched {count} times in {n_scans} scans")
     kp = out.kiss_pose.double().cpu().numpy()
     check(bool(np.isfinite(kp).all()), "non-finite poses")
@@ -1891,10 +1917,10 @@ def run_log_path(scene, n_scans: int, dev, bench_out, bench_rate,
     finally:
         esekf.process_imu = step
     launches = launch_counts()
+    want = once_a_scan("ekf_predict", "ekf_update", "gn_prep", "icp_loop",
+                       "ekf_predict_history")(n_scans, 0)
     for name, count in launches.items():
-        want = 0 if name in ("gn_iter", "gather_fused", "plane_moments",
-                             "graph_cond") else n_scans
-        check(count == want,
+        check(count == want.get(name, 0),
               f"{name} launched {count} times in {n_scans} logged scans")
     check(twin_steps[0] == 0, f"{twin_steps[0]} twin predict steps ran")
     diff = max(float((getattr(out, f) - getattr(bench_out, f)).abs().max())
@@ -2188,17 +2214,26 @@ def run_kiss_paths(scene, dev, card: str):
     return launches, out
 
 
+def frontend_want(steps: int) -> dict[str, int]:
+    """The grid front end's launches in ``steps`` steps with
+    ``icp_form="cuda"``: K8 once and K9 twice a step (a batched step's
+    replicas in the same launches)."""
+    return {"grid_prededup": steps, "voxel_key": 2 * steps}
+
+
 def cli_want(cfg):
     """``want`` of the refresh-loop paths: K1 once a scan (none with the
-    associative predict), K5 once a GN iteration."""
+    associative predict), K5 once a GN iteration, the front end's K8 and
+    K9."""
     k1 = cfg.ekf.predict_batch == "cuda"
     return lambda n, iters: {"ekf_predict": n if k1 else 0,
-                             "gn_iter": iters}
+                             "gn_iter": iters, **frontend_want(n)}
 
 
 def once_a_scan(*names):
-    """``want`` for kernels launched once a scan each."""
-    return lambda n, iters: {k: n for k in names}
+    """``want`` for kernels launched once a scan each, beside the front
+    end's K8 and K9."""
+    return lambda n, iters: {**{k: n for k in names}, **frontend_want(n)}
 
 
 # --------------------------------------------------------------- phase 8
@@ -2505,7 +2540,8 @@ def run_recording_path(scene, dev, card: str) -> dict[str, dict[str, int]]:
                 int(res["iterations_first"].sum()) if "batch" in mode
                 else 0)
             k = 2 if "batch" in mode else 1  # the batch command runs twice
-            expect = {"ekf_predict": k * n, "gn_iter": iters}
+            expect = {"ekf_predict": k * n, "gn_iter": iters,
+                      **frontend_want(k * n)}
             check(all(c == expect.get(name, 0)
                       for name, c in launches[mode].items()
                       if name != "graph_cond")
@@ -2640,8 +2676,8 @@ def run_online_forms(scene, dev, card: str) -> dict[str, dict[str, int]]:
                 outs.append(out)
         name = "bench_online" + (" graph" if form else "")
         launches[name] = launch_counts()
-        want = {k_: n for k_ in ("ekf_predict", "ekf_update", "gn_prep",
-                                 "icp_loop")}
+        want = once_a_scan("ekf_predict", "ekf_update", "gn_prep",
+                           "icp_loop")(n, 0)
         check(all(c == want.get(k_, 0) for k_, c in launches[name].items()),
               f"9 {name}: launches {launches[name]}, want {want}")
         got = replicas.stack(outs)
@@ -3021,8 +3057,8 @@ def run_batched_path(scene, dev, bench_out, card: str):
                                    min(10, n // 2))
         first = timed_batched(cfg, states, batches, lut)
         out, dt, launches[tag] = first["out"], first["s"], first["launches"]
-        want = {k_: n for k_ in ("ekf_predict", "ekf_update", "gn_prep",
-                                 "icp_loop")}
+        want = once_a_scan("ekf_predict", "ekf_update", "gn_prep",
+                           "icp_loop")(n, 0)
         check(all(c == want.get(k_, 0) for k_, c in launches[tag].items()),
               f"10b {tag}: launches {launches[tag]}, want {want} at B = "
               f"{b}")
@@ -3116,7 +3152,7 @@ def run_batched_refresh_cell(tag, cfg, bags, refs, lut, single, *,
     launches, counts = launch_counts(), dict(icp.REFRESH_COUNTS)
     k5 = refresh_launches(out.aux.iterations)
     k1 = n if cfg.ekf.predict_batch == "cuda" else 0
-    want = {"ekf_predict": k1, "gn_iter": k5}
+    want = {"ekf_predict": k1, "gn_iter": k5, **frontend_want(n)}
     check(all(c == want.get(k_, 0) for k_, c in launches.items()),
           f"{tag}: launches {launches}, want {want} (K5: each scan's "
           f"largest iteration count, summed)")
@@ -3280,13 +3316,14 @@ def run_sweep_path(scene, dev, card: str):
             n = res["n_scans"]
             k5 = refresh_launches(torch.as_tensor(res["iterations"])) \
                 + refresh_launches(torch.as_tensor(res["iterations_first"]))
-            check(all(c == (k5 if k_ == "gn_iter" else 0)
+            want = {"gn_iter": k5, **frontend_want(2 * n)}
+            check(all(c == want.get(k_, 0)
                       for k_, c in launches[tag].items()
                       if k_ != "graph_cond")
                   and (launches[tag]["graph_cond"] > 0) != eager,
-                  f"10c {tag}: launches {launches[tag]}, want gn_iter {k5} "
-                  "(each scan's largest iteration count, summed over the "
-                  "two runs)")
+                  f"10c {tag}: launches {launches[tag]}, want {want} "
+                  "(K5: each scan's largest iteration count, summed over "
+                  "the two runs; K8 and K9 a step of each)")
             if not eager:
                 ref_ = outs[cmd]
                 check(all(np.array_equal(res[key], ref_[key]) for key in (
@@ -3480,7 +3517,7 @@ def sharded_gates(tag, cfg, n, run, backend) -> dict:
     iters = run.out.aux.iterations
     total = int(iters.sum())
     capped = int((iters == cfg.kiss.max_iterations).sum())
-    want = {"ekf_predict": n, "gn_iter": total}
+    want = {"ekf_predict": n, "gn_iter": total, **frontend_want(n)}
     if cfg.kiss.nn_refresh_drift == 0.0:
         want.update(ekf_update=n)
         want["gather_fused" if cfg.kiss.fused_gather else "gn_prep"] = n
@@ -3727,12 +3764,16 @@ def run_debug_scene_path(scene, dev, card: str):
         # twice a scan in the export (its step, and the prediction it
         # writes as pred_pose); K5 once a GN iteration of each (the
         # export's iterations are not the command's: its whole-frame
-        # insert makes other maps); the graphs' predicate kernel
+        # insert makes other maps); K8 once and K9 twice a step of each;
+        # the graphs' predicate kernel
+        fe = frontend_want(3 * n)
         check(launches["ekf_predict"] == 4 * n
               and launches["gn_iter"] > cmd_iters
               and launches["graph_cond"] > 0
+              and all(launches[k] == fe[k] for k in fe)
               and all(launches[k] == 0 for k in launches
-                      if k not in ("ekf_predict", "gn_iter", "graph_cond")),
+                      if k not in ("ekf_predict", "gn_iter", "graph_cond",
+                                   *fe)),
               f"11d: launches {launches} ({n} scans, {cmd_iters} command "
               "GN iterations)")
         kp = np.loadtxt(kitti).reshape(-1, 3, 4)
@@ -3825,6 +3866,186 @@ def run_phase11(scene, dev, bench_out, card: str, results) -> dict:
     return launches
 
 
+# -------------------------------------------------------------- phase 12
+
+FRONTEND_SCANS = 8   # scans of phase 12's graph runs
+
+
+def frontend_clouds(scene, dev):
+    """Phase 12's inputs, each (name, pts [4, H*W, 3], mask [4, H*W],
+    grid): the scene's scans 0-3 as points at the full grid and at W/2
+    (columns decimated by 2), and random points in a 2 m box (so window
+    neighbours share half-voxels) with masked pixels at row 0 and at
+    columns 0 and W-1."""
+    sensor, scans = scene[0], scene[1]
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    rm = torch.as_tensor(np.asarray(scans[:4]), dtype=torch.float32,
+                         device=dev)
+    h, w = rm.shape[1:]
+    out = []
+    for d in (1, 2):
+        pts, mask, _ = scan_to_points(lut, rm, decimate=d)
+        out.append(("scene" if d == 1 else "scene W/2", pts, mask,
+                    (h, w // d)))
+    g = torch.Generator().manual_seed(12)
+    pts = torch.rand((4, h * w, 3), generator=g) * 2.0 - 1.0
+    mask = torch.rand((4, h, w), generator=g) < 0.9
+    mask[:, 0, ::3] = False
+    mask[:, 1::2, 0] = False
+    mask[:, ::2, w - 1] = False
+    out.append(("random", pts.to(dev), mask.reshape(4, h * w).to(dev),
+                (h, w)))
+    return out
+
+
+def check_frontend_kernels(scene, dev, results):
+    """Phase 12a: K8 and K9 bit for bit against their twins on the card,
+    at both configurations' voxel sizes (bench 0.15 / 0.45 m, cli 0.35 /
+    1.05 m) and range limits, at B = 1 and B = 4 (each replica of the B = 4
+    launch bit-equal to its own launch), on the full and the W/2 grid and
+    on random points with masked edge pixels: K8's keep mask, then on its
+    compacted frame K9's keys and both first-in-voxel passes (the 0.5
+    voxel pass on the compacted frame, the 1.5 voxel pass on its output)
+    in the cuda form against the torch form. Device us a launch at the
+    bench shapes, with the bounds."""
+    h, w = scene[1].shape[1:]
+    cfgs = {"bench": config.bench_config(), "cli": config.cli_config(h, w)}
+    checked = 0
+    for (name, pts, mask, grid), (tag, cfg) in itertools.product(
+            frontend_clouds(scene, dev), cfgs.items()):
+        kc, cap = cfg.kiss, cfg.cap.max_frame
+        vs = kc.resolved_voxel_size
+        clip = mask if name == "random" else voxel.range_clip_mask(
+            pts, mask, kc.min_range, kc.max_range)
+        for b in (1, 4):
+            p, m = (pts[0], clip[0]) if b == 1 else (pts, clip)
+            what = f"12 {name} {tag} B = {b}"
+            keep = cuda_voxel.grid_prededup(p, m, 0.5 * vs, grid)
+            twin = voxel.window_prededup_mask(p, m, 0.5 * vs, grid)
+            check(torch.equal(keep, twin), f"{what}: K8 differs from its "
+                  f"twin at {int((keep != twin).sum())} pixels")
+            if b == 4:
+                check(all(torch.equal(keep[i], cuda_voxel.grid_prededup(
+                    pts[i], clip[i], 0.5 * vs, grid)) for i in range(4)),
+                    f"{what}: a replica differs from its own launch")
+            cp, cm = voxel.compact(p, twin, cap)
+            kept = [int(m.sum()), int(twin.sum())]
+            for f in (0.5, 1.5):
+                key = cuda_voxel.voxel_key(cp, cm, f * vs)
+                check(torch.equal(key, voxel.sort_key(cp, cm, f * vs)),
+                      f"{what}: K9 at {f * vs:.2f} m differs from its twin")
+                if b == 4:
+                    check(all(torch.equal(key[i], cuda_voxel.voxel_key(
+                        cp[i], cm[i], f * vs)) for i in range(4)),
+                        f"{what}: a replica's keys differ from its own "
+                        "launch")
+                got = voxel.first_in_voxel_sorted(cp, cm, f * vs, cap,
+                                                  form="cuda")
+                ref = voxel.first_in_voxel_sorted(cp, cm, f * vs, cap)
+                check(same_bits(got, ref), f"{what}: the {f * vs:.2f} m "
+                      "pass differs between the forms")
+                cp, cm = got
+                kept.append(int(cm.sum()))
+            checked += 1
+            say(f"  {what} ({grid[0]} x {grid[1]}, voxel {0.5 * vs:.2f} / "
+                f"{1.5 * vs:.2f} m): K8 and K9 bit-equal to their twins; "
+                f"points valid / after K8 / after each pass {kept}")
+
+    cfg = cfgs["bench"]
+    vs, cap = cfg.kiss.resolved_voxel_size, cfg.cap.max_frame
+    name, pts, mask, grid = frontend_clouds(scene, dev)[0]
+    clip = voxel.range_clip_mask(pts, mask, cfg.kiss.min_range,
+                                 cfg.kiss.max_range)
+    cp, cm = voxel.compact(pts[0], clip[0], cap)
+    for kname, kern, plain, ins, outs, b4 in (
+            ("grid_prededup",
+             lambda: cuda_voxel.grid_prededup(pts[0], clip[0], 0.5 * vs,
+                                              grid),
+             lambda: voxel.window_prededup_mask(pts[0], clip[0], 0.5 * vs,
+                                                grid),
+             (pts[0], clip[0]), (clip[0],),
+             lambda: cuda_voxel.grid_prededup(pts, clip, 0.5 * vs, grid)),
+            ("voxel_key", lambda: cuda_voxel.voxel_key(cp, cm, 0.5 * vs),
+             lambda: voxel.sort_key(cp, cm, 0.5 * vs), (cp, cm),
+             (torch.empty(cap, dtype=torch.int32),), None)):
+        tk, tp = cuda_ms(kern, 200), cuda_ms(plain, 20)
+        dus = kernel_us(kern, kname)
+        dus4 = None if b4 is None else kernel_us(b4, kname)
+        bd = bound(nbytes(*ins, *outs), 0)
+        say(f"  {kname}: {tk:.4f} ms a call vs twin {tp:.4f} ms; device "
+            f"{dus:.2f} us a launch"
+            + ("" if dus4 is None else f" ({dus4:.2f} us at B = 4)")
+            + f" (bound {bd['bound_ms'] * 1e3:.3f} us, bytes)")
+        results[kname] = dict(max_abs_err=0.0, ms=tk, plain_ms=tp,
+                              device_us=dus, device_us_b4=dus4, **bd)
+    return checked
+
+
+def check_frontend_graphs(scene, dev) -> dict[str, dict[str, int]]:
+    """Phase 12b: ``bench_config()`` on the scene's first
+    ``FRONTEND_SCANS`` scans as replayed graphs, each a first call that
+    captures: ``lio.run_sequence``, ``run_sequence_batched`` at B = 2 and
+    ``LioOnline``: K8 once and K9 twice a scan (a batched step's replicas
+    in the same launches), K1-K4 once, nothing else. Returns the
+    launches."""
+    sensor, scans, scan_ts, gt_mid, imu = scene
+    cfg = config.bench_config()
+    lut = convert.lut_from_numpy(sensor.lut, dev)
+    n = FRONTEND_SCANS
+    ts = ONLINE_EPOCH + np.asarray(scan_ts[:n], np.float64)
+    its = ONLINE_EPOCH + np.asarray(imu.ts, np.float64)
+    its = its[its <= ts[-1]]
+    batches = lio.build_batches(cfg, scans[:n], ts, imu.lacc[:len(its)],
+                                imu.avel[:len(its)], its, device=dev)
+    want = once_a_scan("ekf_predict", "ekf_update", "gn_prep",
+                       "icp_loop")(n, 0)
+
+    def single():
+        return lio.run_sequence(lio.init_state(cfg, dev), batches, lut,
+                                cfg=cfg, graph=True)
+
+    def many():
+        return batched.run_sequence_batched(
+            replay.stack_bags([lio.init_state(cfg, dev)] * 2),
+            replay.stack_bags([batches] * 2), lut, cfg=cfg, graph=True)
+
+    def online():
+        odo = LioOnline(cfg, lut, graph=True)
+        check(odo.form == "graph", f"12 online: runs as {odo.form}")
+        events = sorted([(float(t), 0, j) for j, t in enumerate(its)]
+                        + [(float(t), 1, i) for i, t in enumerate(ts)])
+        for t, kind, j in events:
+            if kind == 0:
+                odo.push_imu(imu.lacc[j], imu.avel[j], t)
+            else:
+                float(odo.push_scan(scans[j], t).ekf_pose[0, 0])
+
+    launches = {}
+    for tag, run in (("single", single), ("batched B = 2", many),
+                     ("online", online)):
+        kernels.reset_launches()
+        run()
+        if tag != "online":
+            check(graph.LAST_RUN["form"] == "graph",
+                  f"12 {tag}: ran as {graph.LAST_RUN['form']}")
+        launches[tag] = launch_counts()
+        check(all(c == want.get(k, 0) for k, c in launches[tag].items()),
+              f"12 {tag} graph: launches {launches[tag]} in {n} scans, "
+              f"want {want}")
+        say(f"  12 {tag} graph: {n} scans, grid_prededup "
+            f"{launches[tag]['grid_prededup']} and voxel_key "
+            f"{launches[tag]['voxel_key']} launches (once and twice a "
+            "scan), K1-K4 once a scan")
+    return {f"frontend {tag} graph": c for tag, c in launches.items()}
+
+
+def run_phase12(scene, dev, results) -> dict[str, dict[str, int]]:
+    """Phase 12: the grid front end's kernels (K8, K9) against their twins
+    and their launches in replayed graphs."""
+    check_frontend_kernels(scene, dev, results)
+    return check_frontend_graphs(scene, dev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scans", type=int, default=50,
@@ -3833,9 +4054,10 @@ def main() -> int:
                     help="comma list of the phases to run after 1-2 "
                     "(default all; 10 runs phases 4, 5 and 7a-b first, "
                     "whose runs it compares with, 9 and 11 run phase 4 "
-                    "first; 9 alone is the online driver's two forms)")
+                    "first; 9 alone is the online driver's two forms; 12 "
+                    "alone needs only the scene)")
     args = ap.parse_args()
-    want = set(range(3, 12)) if args.phases == "all" else {
+    want = set(range(3, 13)) if args.phases == "all" else {
         int(x) for x in args.phases.split(",")}
     if 10 in want:
         want |= {5, 7}
@@ -3853,7 +4075,7 @@ def main() -> int:
     card = card_line()
     say(f"  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
-    render = start_scene(args.scans) if 4 in want else None
+    render = start_scene(args.scans) if want & {4, 12} else None
     try:
         return run_phases(args, want, dev, card, render)
     finally:
@@ -3897,7 +4119,7 @@ def run_phases(args, want, dev, card: str, render) -> int:
         "cuobjdump)"))
 
     results: dict[str, dict] = {}
-    if want != set(range(3, 12)):
+    if want != set(range(3, 13)):
         # a subset, for working on a phase: its own checks, no summary
         if 3 in want:
             phase("phase 3: kernels against their twins")
@@ -3926,6 +4148,11 @@ def run_phases(args, want, dev, card: str, render) -> int:
         if 11 in want:
             phase("phase 11: point-sharded LIO and the viz paths")
             run_phase11(scene, dev, bench_out, card, results)
+        if 12 in want:
+            phase("phase 12: the grid front end's kernels")
+            run_phase12(scene if 4 in want else load_scene(args.scans,
+                                                           render),
+                        dev, results)
         say(json.dumps(dict(graph_forms=FORM_CELLS, card=card)))
         say(f"phases {sorted(want)} passed (a subset: no kernel summary)")
         say(card_line())
@@ -3982,6 +4209,8 @@ def run_phases(args, want, dev, card: str, render) -> int:
                                card, results))
     phase("phase 11: point-sharded LIO (parallel.sharded) and the viz paths")
     by_path.update(run_phase11(scene, dev, bench_out, card, results))
+    phase("phase 12: the grid front end's kernels (K8, K9)")
+    by_path.update(run_phase12(scene, dev, results))
     by_path.update({f"{tag} graph": cell["graph_launches"]
                     for tag, cell in FORM_CELLS.items()
                     if "graph_launches" in cell})

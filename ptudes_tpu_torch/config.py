@@ -4,8 +4,9 @@ Frozen copies of ``ptudes_tpu.config`` with the same fields and defaults,
 minus the JAX-only knobs (``scan_unroll``, ``gn_unroll``, ``gn_backend``).
 The kernel forms are named for the port: ``EkfConfig.predict_batch`` and
 ``update_form`` take ``"cuda"`` where the JAX package takes ``"pallas"``, and
-``KissConfig.icp_form`` selects the CUDA ICP kernels (``"cuda"``) or their
-plain PyTorch twins (``"torch"``). There is no
+``KissConfig.icp_form`` selects the CUDA ICP kernels and the grid front
+end's hashing kernels (``"cuda"``) or their plain PyTorch twins
+(``"torch"``). There is no
 ``"auto"``: the configuration says which form runs.
 
 Every option of the JAX ``PipelineConfig`` that runs on one device runs
@@ -43,8 +44,10 @@ class KissConfig:
     fused_gather: bool = False
     # "cuda": the ICP kernels — with nn_refresh_drift == 0 the candidate
     # prep (K3, or with fused_gather the whole gather and prep, K6) and the
-    # whole GN loop (K4), otherwise the per-iteration GN build (K5);
-    # "torch": their plain PyTorch twins on any device
+    # whole GN loop (K4), otherwise the per-iteration GN build (K5) — and
+    # the grid front end's voxel hashing (the window pre-dedup K8, the
+    # first-in-voxel sort keys K9); "torch": their plain PyTorch twins on
+    # any device
     icp_form: str = "torch"
 
     @property

@@ -13,13 +13,14 @@ plain PyTorch twins run only where a wrapper is given CPU tensors.
 
 ``LAUNCHES`` counts, per kernel, the launches :func:`launch` made since the
 last :func:`reset_launches`; a run shows it went through the kernels by
-reading them. A launch with a replica axis (K1-K5 on the batched driver's
-paths: all replicas in one grid) counts once. A launch of a kernel's variant also counts in
-``VARIANT_LAUNCHES`` (``ekf_predict_history``: K1 writing the filter
-history). ``graph_cond`` is the graph form's predicate kernel
-(``csrc/graph_cond.cu``, driven by ``models.graph``), which sets a CUDA
-graph conditional node from a flag on the card; the host functions beside
-it that build the nodes are in ``_HOST_SIGNATURES`` (:func:`host_call`).
+reading them. A launch with a replica axis (K1-K5, K8 and K9 on the
+batched driver's paths: all replicas in one grid) counts once. A launch
+of a kernel's variant also counts in ``VARIANT_LAUNCHES``
+(``ekf_predict_history``: K1 writing the filter history). ``graph_cond``
+is the graph form's predicate kernel (``csrc/graph_cond.cu``, driven by
+``models.graph``), which sets a CUDA graph conditional node from a flag on
+the card; the host functions beside it that build the nodes are in
+``_HOST_SIGNATURES`` (:func:`host_call`).
 ``stage_stamp`` beside it is the stage clock's stamp (``models.graph.
 StageClock``): it is not one of ``KERNELS``, so no count here moves with
 it.
@@ -57,6 +58,8 @@ _SIGNATURES = {
     "ptudes_gn_iter": [_P] * 11 + [_I, _I, _F, _I, _I, _P],
     "ptudes_gather_fused": [_P] * 10 + [_I] * 6 + [_F] * 3 + [_I, _P],
     "ptudes_plane_moments": [_P] * 6 + [_I, _I, _F, _P],
+    "ptudes_grid_prededup": [_P] * 3 + [_I] * 3 + [_F, _P],
+    "ptudes_voxel_key": [_P] * 3 + [_I, _F, _P],
     "ptudes_graph_cond": [_P, _I, _P, _I, _U64, _P],
 }
 # launched, never counted: the stage clock's stamp
@@ -70,7 +73,8 @@ _HOST_SIGNATURES = {
     "ptudes_cond_close": [_P],
 }
 KERNELS = ("ekf_predict", "ekf_update", "gn_prep", "icp_loop", "gn_iter",
-           "gather_fused", "plane_moments", "graph_cond")
+           "gather_fused", "plane_moments", "graph_cond", "grid_prededup",
+           "voxel_key")
 LAUNCHES = {name: 0 for name in KERNELS}
 VARIANT_LAUNCHES = {"ekf_predict_history": 0}
 

@@ -2,7 +2,8 @@
 
 Per scan: deskew (by the EKF twist, or KISS's constant velocity) -> range
 clip -> the front end: on the range-image grid, a window pre-dedup,
-compaction and two sort-based first-in-voxel passes (0.5 and 1.5 voxel);
+compaction and two sort-based first-in-voxel passes (0.5 and 1.5 voxel;
+with ``icp_form="cuda"`` the pre-dedup is K8 and the sort keys K9);
 without a grid, two scatter-table first-in-voxel passes with compaction ->
 evenly decimated ICP source -> adaptive threshold -> robust ICP
 (cached candidates, or a map query every iteration) -> model-deviation
@@ -166,12 +167,13 @@ def register_scan(state: KissState, pts: torch.Tensor, mask: torch.Tensor,
                                          state.pose, state.num_scans >= 2)
     mask = voxel.range_clip_mask(pts, mask, cfg.min_range, cfg.max_range)
     if grid_hw is not None:
-        pre = voxel.window_prededup_mask(pts, mask, vs * 0.5, grid_hw)
+        pre = voxel.window_prededup_mask(pts, mask, vs * 0.5, grid_hw,
+                                         form=cfg.icp_form)
         pre_pts, pre_mask = voxel.compact(pts, pre, cap.max_frame)
         frame_ds, frame_mask = voxel.first_in_voxel_sorted(
-            pre_pts, pre_mask, vs * 0.5, cap.max_frame)
+            pre_pts, pre_mask, vs * 0.5, cap.max_frame, form=cfg.icp_form)
         src_pts, src_keep = voxel.first_in_voxel_sorted(
-            frame_ds, frame_mask, vs * 1.5, cap.max_frame)
+            frame_ds, frame_mask, vs * 1.5, cap.max_frame, form=cfg.icp_form)
     else:
         frame_ds, frame_mask = voxel.voxel_downsample(
             pts, mask, vs * 0.5, cap.max_frame, cap.dedup_table)
@@ -299,12 +301,13 @@ def register_scan_batched(state: KissState, pts: torch.Tensor,
             pts = deskew_ops.deskew_scan(pts, ts01, state.pose_prev,
                                          state.pose, state.num_scans >= 2)
     mask = voxel.range_clip_mask(pts, mask, cfg.min_range, cfg.max_range)
-    pre = voxel.window_prededup_mask(pts, mask, vs * 0.5, grid_hw)
+    pre = voxel.window_prededup_mask(pts, mask, vs * 0.5, grid_hw,
+                                     form=cfg.icp_form)
     pre_pts, pre_mask = voxel.compact(pts, pre, cap.max_frame)
     frame_ds, frame_mask = voxel.first_in_voxel_sorted(
-        pre_pts, pre_mask, vs * 0.5, cap.max_frame)
+        pre_pts, pre_mask, vs * 0.5, cap.max_frame, form=cfg.icp_form)
     src_pts, src_keep = voxel.first_in_voxel_sorted(
-        frame_ds, frame_mask, vs * 1.5, cap.max_frame)
+        frame_ds, frame_mask, vs * 1.5, cap.max_frame, form=cfg.icp_form)
     source, source_mask = voxel.compact(src_pts, src_keep, cap.max_source,
                                         decimate_overflow=True)
 

@@ -4,12 +4,16 @@ Outputs match the JAX package bit for bit on the same inputs. The hashes
 are uint32 wraparound multiplies with logical shifts; PyTorch's int32
 ``>>`` is arithmetic, so they run in int64 masked to 32 bits. The stable
 multi-key ``lax.sort`` becomes one stable ``torch.sort`` on a combined
-int64 key. Nothing here synchronises with the host: every shape is static.
+int32 key (:func:`sort_key`). Nothing here synchronises with the host:
+every shape is static.
 
 The grid front end (:func:`range_clip_mask`, :func:`window_prededup_mask`,
 :func:`compact`, :func:`first_in_voxel_sorted`) also takes a leading
 replica axis ([B, N, 3] points, [B, N] masks): each replica's row is
 sorted and compacted on its own, in the same launches for all of them.
+With ``form="cuda"`` the window pre-dedup and the sort key run as the
+hand-written kernels K8 and K9 (``ops.cuda_voxel``), bit-equal to the
+torch code here, which ``form="torch"`` runs.
 """
 from __future__ import annotations
 
@@ -78,9 +82,18 @@ def spatial_hash(coords: torch.Tensor, table_size: int) -> torch.Tensor:
 
 def window_prededup_mask(pts: torch.Tensor, mask: torch.Tensor,
                          voxel_size: float, grid_hw: tuple[int, int],
-                         rows: int = 4, cols: int = 4) -> torch.Tensor:
+                         rows: int = 4, cols: int = 4,
+                         form: str = "torch") -> torch.Tensor:
     """Drop points whose voxel id also appears at a causally earlier pixel
-    within a (rows x +-cols) range-image window. Columns wrap, rows do not."""
+    within a (rows x +-cols) range-image window. Columns wrap, rows do not.
+    ``form="cuda"``: K8 (:func:`cuda_voxel.grid_prededup`), whose window is
+    4 x +-4."""
+    if form == "cuda":
+        if (rows, cols) != (4, 4):
+            raise ValueError(f"grid_prededup: a {rows} x +-{cols} window "
+                             "(the kernel's is 4 x +-4)")
+        from . import cuda_voxel
+        return cuda_voxel.grid_prededup(pts, mask, voxel_size, grid_hw)
     h, w = grid_hw
     lead = mask.shape[:-1]
     ids = spatial_hash(voxel_coords(pts, voxel_size), 1 << 31).reshape(
@@ -182,17 +195,33 @@ def compact_with_payload(pts: torch.Tensor, payload: torch.Tensor,
     return out, outp, out_mask
 
 
+def sort_key(pts: torch.Tensor, mask: torch.Tensor,
+             voxel_size: float) -> torch.Tensor:
+    """The int32 key ``((drop << 31) | hash31) ^ (1 << 31)`` of each point
+    (``drop``: not in ``mask``; ``hash31``: the 31-bit voxel hash). Its
+    signed order is the (dropped, hash) order, so one stable 32-bit sort
+    gives the JAX package's two-key permutation."""
+    h = spatial_hash(voxel_coords(pts, voxel_size), 1 << 31).to(torch.int64)
+    drop = (~mask).to(torch.int64)
+    return to_i32(((drop << 31) | h) ^ (1 << 31))
+
+
 def first_in_voxel_sorted(pts: torch.Tensor, mask: torch.Tensor,
-                          voxel_size: float, capacity: int
+                          voxel_size: float, capacity: int,
+                          form: str = "torch"
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """First point per voxel (scan order) via one stable sort by
     (dropped, 31-bit voxel hash); returns the reordered points and their
-    keep mask at ``capacity`` width."""
+    keep mask at ``capacity`` width. ``form="cuda"``: the key from K9
+    (:func:`cuda_voxel.voxel_key`)."""
     n = pts.shape[-2]
-    h = spatial_hash(voxel_coords(pts, voxel_size), 1 << 31).to(torch.int64)
-    drop = (~mask).to(torch.int64)
-    sd, perm = torch.sort((drop << 31) | h, stable=True)
-    d, hh = sd >> 31, sd & ((1 << 31) - 1)
+    if form == "cuda":
+        from . import cuda_voxel
+        key = cuda_voxel.voxel_key(pts, mask, voxel_size)
+    else:
+        key = sort_key(pts, mask, voxel_size)
+    sk, perm = torch.sort(key, stable=True)
+    d, hh = sk >= 0, sk & INT_MAX
     n_valid = mask.to(torch.int32).sum(-1, keepdim=True)
     if n <= capacity:
         d, hh = _take_pad(d, capacity), _take_pad(hh, capacity)
@@ -200,12 +229,12 @@ def first_in_voxel_sorted(pts: torch.Tensor, mask: torch.Tensor,
         first = torch.ones_like(d, dtype=torch.bool)
         first[..., 1:] = hh[..., 1:] != hh[..., :-1]
         in_range = torch.arange(capacity, device=pts.device) < n_valid
-        keep = (d == 0) & first & in_range
+        keep = ~d & first & in_range
         return torch.where(keep[..., None], out, 0.0), keep
     first = torch.ones_like(d, dtype=torch.bool)
     first[..., 1:] = hh[..., 1:] != hh[..., :-1]
     in_range = torch.arange(n, device=pts.device) < n_valid
-    keep_full = (d == 0) & first & in_range
+    keep_full = ~d & first & in_range
     head = _take_pad(_stable_order((~keep_full).to(torch.int32)), capacity)
     out = _rows(pts, torch.gather(perm, -1, head))
     count = torch.clamp(keep_full.to(torch.int32).sum(-1, keepdim=True),

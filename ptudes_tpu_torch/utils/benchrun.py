@@ -16,7 +16,14 @@ from ..models import graph
 # the TPU kernel each CUDA kernel ports (PERF.md's table of kernels)
 PORTS = {"ekf_predict": "K1", "ekf_update": "K2", "gn_prep": "K3",
          "icp_loop": "K4", "gn_iter": "K5", "gather_fused": "K6",
-         "plane_moments": "K7", "graph_cond": "graph predicate"}
+         "plane_moments": "K7", "graph_cond": "graph predicate",
+         "grid_prededup": "K8", "voxel_key": "K9"}
+# the source of the kernels not named after theirs
+SOURCES = {"grid_prededup": "voxel_grid", "voxel_key": "voxel_grid"}
+# each kernel's launches a scan of bench_config()'s path: K1-K4, the
+# window pre-dedup (K8) and the two first-in-voxel sort keys (K9)
+BENCH_LAUNCHES = {"ekf_predict": 1, "ekf_update": 1, "gn_prep": 1,
+                  "icp_loop": 1, "grid_prededup": 1, "voxel_key": 2}
 
 
 def open_device(name: str) -> torch.device:
@@ -94,12 +101,12 @@ def check_form(run: dict, want: str, cached: bool | None = None) -> None:
                            f"not {cached}")
 
 
-def check_launches(run: dict, n_scans: int, once_a_scan) -> None:
-    """Raise unless each kernel of ``once_a_scan`` launched ``n_scans``
-    times in ``run`` and no other kernel launched (on a card; the CPU runs
-    the twins and launches nothing)."""
+def check_launches(run: dict, n_scans: int, per_scan: dict) -> None:
+    """Raise unless each kernel of ``per_scan`` launched ``n_scans`` times
+    its launches a scan there in ``run`` and no other kernel launched (on
+    a card; the CPU runs the twins and launches nothing)."""
     for name, count in run["launches"].items():
-        want = n_scans if name in once_a_scan else 0
+        want = n_scans * per_scan.get(name, 0)
         if count != want:
             raise RuntimeError(f"{name} launched {count} times in "
                                f"{n_scans} scans, not {want}")
@@ -109,7 +116,8 @@ def kernel_list(launches: dict) -> list[dict]:
     """The kernels one run's ``launches`` launched, each with the TPU
     kernel it ports, its source and its launches in the run."""
     return [dict(name=name, ports=PORTS[name],
-                 source=f"ptudes_tpu_torch/csrc/{name}.cu",
+                 source=f"ptudes_tpu_torch/csrc/"
+                        f"{SOURCES.get(name, name)}.cu",
                  launches_per_run=count)
             for name, count in launches.items() if count]
 

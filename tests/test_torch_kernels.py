@@ -15,7 +15,7 @@ from ptudes_tpu_torch import config, kernels
 from ptudes_tpu_torch.geom import se3
 from ptudes_tpu_torch.models import esekf
 from ptudes_tpu_torch.ops import (cuda_ekf, cuda_gather, cuda_gn, cuda_icp,
-                                  hashmap, icp)
+                                  cuda_voxel, hashmap, icp, voxel)
 
 torch.set_num_threads(2)
 
@@ -89,6 +89,11 @@ def test_wrappers_take_the_twin_on_cpu_and_count_nothing():
     ptq = torch.cat([src.T, torch.zeros(5, 256)])
     _same([cuda_gn.plane_moments(ptq, *prepped[1:], 0.36)],
           [cuda_gn.plane_moments_torch(ptq, *prepped[1:], 0.36)])
+    grid_mask = torch.arange(256) % 7 != 0
+    _same([cuda_voxel.grid_prededup(src, grid_mask, 0.15, (8, 32))],
+          [voxel.window_prededup_mask(src, grid_mask, 0.15, (8, 32))])
+    _same([cuda_voxel.voxel_key(src, grid_mask, 0.45)],
+          [voxel.sort_key(src, grid_mask, 0.45)])
     assert kernels.LAUNCHES == {name: 0 for name in kernels.KERNELS}
 
 
@@ -134,7 +139,7 @@ def test_build_is_keyed_by_the_sources():
     names = {p.rsplit("/", 1)[-1] for p in kernels.sources()}
     assert {"ekf_predict.cu", "ekf_update.cu", "gn_prep.cu",
             "icp_loop.cu", "gn_iter.cu", "gather_fused.cu",
-            "plane_moments.cu", "common.cuh"} <= names
+            "plane_moments.cu", "voxel_grid.cu", "common.cuh"} <= names
     assert set(kernels.KERNELS) == set(kernels.LAUNCHES)
     assert {f"ptudes_{name}" for name in kernels.KERNELS} \
         == set(kernels._SIGNATURES)
